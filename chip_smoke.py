@@ -4,14 +4,30 @@
 Run from the repository root on a machine with one NVIDIA GPU and the CUDA
 toolkit:  python3 chip_smoke.py
 
-It builds the port's CUDA kernels from dartenv_tpu_torch/csrc and then, for
-DartWalker2d and for DartHopper at B = 4096 in float32, holds each kernel
-against its plain PyTorch version on the card at that path's shapes, runs
-the kernel path and a plain path composed here in lockstep, and drives the
-path (bench_env: batched rollout under a random policy) with the kernels'
-launch counters set to 0 just before it and read just after.  Each phase prints one JSON line; any failing phase
-raises, and without a GPU the script exits non-zero before printing a
-result.  The last line is {"ok": true, "device": {...}}.
+It builds the port's four CUDA kernels from dartenv_tpu_torch/csrc (all
+nvcc processes started together) and then, in float32:
+
+  * for DartWalker2d and DartHopper at B = 4096 (the fused-substep path):
+    the substep and BPP kernels against their plain PyTorch versions at
+    that path's shapes, and the kernel path and a plain path composed here
+    in lockstep;
+  * the dynamics kernel against its plain version on cartpole and the
+    double pendulum at B = 8192, on walker2d states at B = 4096 and on two
+    ModelBuilder chains that hold the six joint types the substep kernel
+    lacks, at B = 1024;
+  * the PGS kernel (and the BPP kernel on the hybrid's top K) against
+    their plain versions on the LCPs of perturbed walker2d's phase-wise
+    step at B = 4096;
+  * lockstep control steps of cartpole and of perturbed walker2d at
+    B = 1024 beside plain paths composed here;
+  * each path (bench_env: batched rollout under a random policy) with
+    every kernel's launch counter and plain-call counter set to 0 just
+    before it and read just after: walker2d and hopper, cartpole at
+    B = 8192 for 1000 control steps, perturbed walker2d at B = 4096 for 100.
+
+Each phase prints one JSON line; any failing phase raises, and without a
+GPU the script exits non-zero before printing a result.  The last line is
+{"ok": true, "device": {...}}.
 """
 import json
 import statistics
@@ -91,16 +107,25 @@ DISCRETE = ("con_active", "act", "sel_slots")
 BPP_MAY_DIVERGE = 4            # envs of K = 128 that may take another branch
 LOCK_MAY_DIVERGE = 2           # envs of 1024 beyond 1e-3 after one step
 CONTROL_STEPS_BEFORE = 25      # control steps before the states are taken
-HORIZON, ROLLOUTS = 100, {"walker2d": 3, "hopper": 1}
+# (env, perturb) -> (batch, horizon, rollouts); the first rollout of each
+# is bench_env's warm-up
+PATHS = {("walker2d", False): (4096, 100, 2), ("hopper", False): (4096, 100, 2),
+         ("cartpole", False): (8192, 1000, 1),
+         ("walker2d", True): (4096, 100, 1)}
+# the dynamics kernel's bounds, relative to max(1, |ref|_inf): the JAX
+# package's own (tests/test_pallas_dynamics.py::_check); dq_star goes
+# through the n x n solve, whose conditioning amplifies rounding
+DYN_TOL = {"dq_star": 2e-4, "M": 5e-6, "phi": 5e-6, "R_w": 5e-6,
+           "p_w": 5e-6}
 
 
-def plain_exact(st, cfg, iters, polish, refine):
-    """An exact solver for escalate_batch that runs the BPP kernel's plain
-    version whatever the device."""
+def plain_exact(findex, iters, polish, refine):
+    """An exact solver for the escalation stage that runs the BPP kernel's
+    plain version whatever the device."""
     from dartenv_tpu_torch.lcp.hopper_bpp import bpp_solve_reference
 
     def solve(A, b, lo, hi, mu, active, lam0):
-        return bpp_solve_reference(A, b, lo, hi, st.findex_c, mu, active,
+        return bpp_solve_reference(A, b, lo, hi, findex, mu, active,
                                    iters=iters, polish_iters=polish,
                                    lam0=lam0, refine_iters=refine)
     return solve
@@ -120,6 +145,74 @@ def plain_substep(model, st, exact1, q, dq, lam, tau):
     return integrate_positions(model, q, dq, st.dt), dq, lam
 
 
+def check_bpp(name, cfg, findex, A, b, lo, hi, mu, act, lam_c):
+    """Phase bpp: the BPP kernel against its plain version on the K
+    escalated problems of one env's path (warm start lam_c, the path's
+    pivot budget).  Returns what the kernels line needs."""
+    import torch
+
+    from dartenv_tpu_torch.lcp import hopper_bpp as hb
+    from dartenv_tpu_torch.lcp.hybrid import comp_residual
+
+    K, m_c = b.shape
+    bpp_args = (A, b, lo, hi, findex, mu, act)
+    bpp_kw = dict(iters=cfg.escalate_iters, polish_iters=3, lam0=lam_c,
+                  refine_iters=cfg.escalate_refine)
+    lam_k = hb.bpp_solve(*bpp_args, **bpp_kw)
+    torch.cuda.synchronize()
+    lam_r = hb.bpp_solve_reference(*bpp_args, **bpp_kw)
+    resid = lambda lam: comp_residual(A, b, lam, lo, hi, findex, mu, act)
+    r_k, r_r, r_pgs = resid(lam_k), resid(lam_r), resid(lam_c)
+    # per env, relative to max(1, |plain impulses|)
+    env_err = ((lam_k - lam_r).abs().max(1).values
+               / lam_r.abs().max(1).values.clamp(min=1.0))
+    same = env_err <= 1e-5
+    n_same = int(same.sum())
+    bpp_err = float((lam_k - lam_r)[same].abs().max())
+    res_diff_same = float((r_k - r_r)[same].abs().max())
+    bpp_ms = time_ms(lambda: hb.bpp_solve(*bpp_args, **bpp_kw))
+    bpp_plain_ms = time_ms(
+        lambda: hb.bpp_solve_reference(*bpp_args, **bpp_kw), runs=5,
+        warmup=1)
+    solved = lambda r: int((r < 1e-4).sum())
+    emit("bpp", env=name, K=K, m=m_c, envs_same=n_same,
+         lam_abs_err_same=bpp_err, res_abs_diff_same=res_diff_same,
+         lam_abs_err_all=float((lam_k - lam_r).abs().max()),
+         lam_abs_max=float(lam_r.abs().max()),
+         res_kernel_max=float(r_k.max()), res_plain_max=float(r_r.max()),
+         res_pgs_max=float(r_pgs.max()),
+         res_kernel_median=float(r_k.median()),
+         res_plain_median=float(r_r.median()),
+         res_pgs_median=float(r_pgs.median()),
+         solved_kernel=solved(r_k), solved_plain=solved(r_r),
+         solved_pgs=solved(r_pgs),
+         res_kernel_on_others=r_k[~same].tolist(),
+         res_plain_on_others=r_r[~same].tolist(),
+         ms=bpp_ms, plain_ms=bpp_plain_ms,
+         tol_lam=1e-5, tol_res_diff=1e-5, tol_envs_same=K - BPP_MAY_DIVERGE)
+    assert torch.isfinite(lam_k).all()
+    # These are the WORST K envs of a live rollout under the shipped 4 + 2
+    # pivot budget, which does not close every one of them in either
+    # version (the escalation stage keeps the better point per env).  The
+    # kernel is held to its plain version env by env: impulses within 1e-5
+    # and residuals within 1e-5.  A few envs may part ways: in float32 the
+    # pivot's re-open test compares rounding noise with 1e-10, the two
+    # versions sum in different orders, and one flipped row sends a
+    # stalling solve down another branch.  Those envs are counted and
+    # bounded, and over all K the kernel must solve (< 1e-4) as many envs
+    # as the plain version, less the ones that parted.
+    assert n_same >= K - BPP_MAY_DIVERGE, (n_same, K)
+    assert bpp_err <= 1e-5 and res_diff_same <= 1e-5
+    assert solved(r_k) >= solved(r_r) - (K - n_same)
+    assert solved(r_k) > K // 2
+    assert float(r_k.median()) < float(r_pgs.median())
+    bb, bf = bpp_work(m_c, K, cfg.escalate_iters, cfg.escalate_refine, 3)
+    return dict(max_abs_err=bpp_err, ms=bpp_ms, plain_ms=bpp_plain_ms,
+                bound=bound(bb, bf),
+                shape=f"{name} K={K} m={m_c} iters={cfg.escalate_iters} "
+                      f"refine={cfg.escalate_refine} polish=3")
+
+
 def check_env(name, B, dev):
     """Phases substep, bpp and lockstep for one env at batch B.  Returns
     what the kernels line needs."""
@@ -128,8 +221,6 @@ def check_env(name, B, dev):
     from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.engine import hopper_substep as hs
     from dartenv_tpu_torch.engine.world import SimState, make_sim_step
-    from dartenv_tpu_torch.lcp import hopper_bpp as hb
-    from dartenv_tpu_torch.lcp.hybrid import comp_residual
     from dartenv_tpu_torch.parallel.vec_env import VecEnv
 
     task = make_task(name, device=dev)
@@ -195,60 +286,10 @@ def check_env(name, B, dev):
     # ---- 4. BPP kernel vs its plain version -----------------------------
     g = hs.gather_escalation(st, cfg, outs)
     K, m_c = g["b"].shape
-    assert (K, m_c) == (hs.escalation_size(cfg, B), st.m_c)
-    bpp_args = (g["A"], g["b"], g["lo"], g["hi"], st.findex_c, g["mu"],
-                g["act"])
-    bpp_kw = dict(iters=cfg.escalate_iters, polish_iters=3, lam0=g["lam_c"],
-                  refine_iters=cfg.escalate_refine)
-    lam_k = hb.bpp_solve(*bpp_args, **bpp_kw)
-    torch.cuda.synchronize()
-    lam_r = hb.bpp_solve_reference(*bpp_args, **bpp_kw)
-    resid = lambda lam: comp_residual(g["A"], g["b"], lam, g["lo"], g["hi"],
-                                      st.findex_c, g["mu"], g["act"])
-    r_k, r_r, r_pgs = resid(lam_k), resid(lam_r), resid(g["lam_c"])
-    # per env, relative to max(1, |plain impulses|)
-    env_err = ((lam_k - lam_r).abs().max(1).values
-               / lam_r.abs().max(1).values.clamp(min=1.0))
-    same = env_err <= 1e-5
-    n_same = int(same.sum())
-    bpp_err = float((lam_k - lam_r)[same].abs().max())
-    res_diff_same = float((r_k - r_r)[same].abs().max())
-    bpp_ms = time_ms(lambda: hb.bpp_solve(*bpp_args, **bpp_kw))
-    bpp_plain_ms = time_ms(
-        lambda: hb.bpp_solve_reference(*bpp_args, **bpp_kw), runs=5,
-        warmup=1)
-    solved = lambda r: int((r < 1e-4).sum())
-    emit("bpp", env=name, K=K, m=m_c, envs_same=n_same,
-         lam_abs_err_same=bpp_err, res_abs_diff_same=res_diff_same,
-         lam_abs_err_all=float((lam_k - lam_r).abs().max()),
-         lam_abs_max=float(lam_r.abs().max()),
-         res_kernel_max=float(r_k.max()), res_plain_max=float(r_r.max()),
-         res_pgs_max=float(r_pgs.max()),
-         res_kernel_median=float(r_k.median()),
-         res_plain_median=float(r_r.median()),
-         res_pgs_median=float(r_pgs.median()),
-         solved_kernel=solved(r_k), solved_plain=solved(r_r),
-         solved_pgs=solved(r_pgs),
-         res_kernel_on_others=r_k[~same].tolist(),
-         res_plain_on_others=r_r[~same].tolist(),
-         ms=bpp_ms, plain_ms=bpp_plain_ms,
-         tol_lam=1e-5, tol_res_diff=1e-5, tol_envs_same=K - BPP_MAY_DIVERGE)
-    assert torch.isfinite(lam_k).all()
-    # These are the WORST K envs of a live rollout under the shipped 4 + 2
-    # pivot budget, which does not close every one of them in either
-    # version (the escalation stage keeps the better point per env).  The
-    # kernel is held to its plain version env by env: impulses within 1e-5
-    # and residuals within 1e-5.  A few envs may part ways: in float32 the
-    # pivot's re-open test compares rounding noise with 1e-10, the two
-    # versions sum in different orders, and one flipped row sends a
-    # stalling solve down another branch.  Those envs are counted and
-    # bounded, and over all K the kernel must solve (< 1e-4) as many envs
-    # as the plain version, less the ones that parted.
-    assert n_same >= K - BPP_MAY_DIVERGE, (n_same, K)
-    assert bpp_err <= 1e-5 and res_diff_same <= 1e-5
-    assert solved(r_k) >= solved(r_r) - (K - n_same)
-    assert solved(r_k) > K // 2
-    assert float(r_k.median()) < float(r_pgs.median())
+    assert (K, m_c) == (hs.escalation_size(B, cfg.escalate_frac,
+                                           cfg.escalate_kmax), st.m_c)
+    bpp = check_bpp(name, cfg, st.findex_c, g["A"], g["b"], g["lo"],
+                    g["hi"], g["mu"], g["act"], g["lam_c"])
 
     # ---- 5. lockstep: kernel path vs plain path, same start, same actions
     # One control step, substep by substep: the port's own substep (the
@@ -258,7 +299,8 @@ def check_env(name, B, dev):
     Bl = min(B, 1024)
     sl = lambda x: x[:Bl].clone()
     sim_step = make_sim_step(model)
-    exact1 = plain_exact(st, cfg, cfg.escalate_iters, 3, cfg.escalate_refine)
+    exact1 = plain_exact(st.findex_c, cfg.escalate_iters, 3,
+                         cfg.escalate_refine)
     rows = list(range(0, 3 * st.ns, 3)) + list(
         range(3 * st.ns, st.layout.m))
     # error relative to max(1, |plain|) per entry: dq reaches tens of
@@ -299,50 +341,383 @@ def check_env(name, B, dev):
     assert lock["q_err_q99"] <= 1e-3 and lock["dq_err_q99"] <= 1e-3
 
     sb, sf = substep_work(st, B)
-    bb, bf = bpp_work(m_c, K, cfg.escalate_iters, cfg.escalate_refine, 3)
     lay = f"n={st.n} m={st.layout.m} m_c={m_c}"
     return {
         "substep": dict(
             max_abs_err=max(abs_errs.values()), ms=sub_ms,
             plain_ms=sub_plain_ms, bound=bound(sb, sf),
             shape=f"{name} B={B} {lay}"),
-        "bpp": dict(
-            max_abs_err=bpp_err, ms=bpp_ms, plain_ms=bpp_plain_ms,
-            bound=bound(bb, bf),
-            shape=f"{name} K={K} m={m_c} iters={cfg.escalate_iters} "
-                  f"refine={cfg.escalate_refine} polish=3"),
+        "bpp": bpp,
+        "states": (q, dq, tau, lam_prev),
     }
 
 
-def drive_main_path(name, B):
-    """Phase 6: the batched rollout of `name` through bench_env with every
-    launch counter set to 0 just before and read just after."""
+def joint_chains(dev):
+    """Two ModelBuilder chains that together hold the six joint types the
+    substep kernel lacks (FREE, UNIVERSAL, EULER, SCREW; TRANSLATIONAL,
+    BALL, SCREW), with non-trivial joint frames, axes, COM offsets,
+    springs and dampers.  Each stays at n <= 12 dofs, where the plain
+    version solves with its unrolled Cholesky."""
+    from dartenv_tpu_torch.model import skel_model as sm
+    from dartenv_tpu_torch.model.builder import (
+        ModelBuilder, box_inertia, rpy_to_mat,
+    )
+
+    ine = lambda m: box_inertia(m, (0.1, 0.06, 0.04))
+    a = ModelBuilder(dt=0.002)
+    a.add_body("root", None, sm.FREE, mass=2.0, inertia=ine(2.0),
+               com=(0.01, 0.02, 0.0))
+    a.add_body("uni", "root", sm.UNIVERSAL, axes=[(1, 0, 0), (0, 0.6, 0.8)],
+               mass=0.8, inertia=ine(0.8), pj_pos=(0.1, 0, 0),
+               pj_rot=rpy_to_mat(0.2, -0.1, 0.3), cj_pos=(0, 0.1, 0),
+               damping=0.02)
+    a.add_body("eul", "uni", sm.EULER, mass=0.6, inertia=ine(0.6),
+               pj_pos=(0, -0.2, 0), cj_rot=rpy_to_mat(0.1, 0.2, -0.1),
+               com=(0, 0.03, 0.01))
+    a.add_body("scr", "eul", sm.SCREW, axes=[(0, 0, 1)], pitch=0.3,
+               mass=0.3, inertia=ine(0.3), pj_pos=(0, -0.1, 0), spring=2.0,
+               damping=0.5)
+    b = ModelBuilder(dt=0.002)
+    b.add_body("base", None, sm.TRANSLATIONAL, mass=2.0,
+               inertia=box_inertia(2.0, (0.1, 0.1, 0.1)), spring=3.0,
+               rest=(0.0, 0.1, 0.0))
+    b.add_body("mid", "base", sm.BALL, mass=1.0,
+               inertia=box_inertia(1.0, (0.05, 0.2, 0.05)),
+               pj_pos=(0.0, 0.3, 0.0), cj_pos=(0.0, -0.2, 0.0))
+    b.add_body("tip", "mid", sm.SCREW, mass=0.5,
+               inertia=box_inertia(0.5, (0.05, 0.05, 0.05)),
+               axes=[(0.0, 0.0, 1.0)], pitch=0.1, pj_pos=(0.0, 0.25, 0.0),
+               damping=0.5, spring=2.0)
+    return {"chain_free_uni_euler_screw": a.finalize(device=dev),
+            "chain_trans_ball_screw": b.finalize(device=dev)}
+
+
+def random_states(model, B, seed, dev):
+    """(q, dq, tau) as the JAX package's kernel tests draw them: q_init +
+    U(-0.3, 0.3), dq ~ U(-2, 2), tau ~ U(-50, 50), float32 on `dev`."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = model.n
+    q = model.q_init.cpu().numpy()[None] + rng.uniform(-0.3, 0.3, (B, n))
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    return (f(q), f(rng.uniform(-2.0, 2.0, (B, n))),
+            f(rng.uniform(-50.0, 50.0, (B, n))))
+
+
+def dynamics_work(model, B):
+    """(bytes, flops) of one dynamics launch for B envs: q, dq, tau read
+    once, dq_star, M, phi, R_w, p_w written once; flops of the stages that
+    dominate (kinematics, mass matrix, bias forces, Cholesky solve)."""
+    n, nb = model.n, model.nb
+    words = 3 * n + n + n * n + 6 * n + 12 * nb
+    flops = (nb * 400 + nb * (n * 60 + n * (n + 1) * 6)
+             + n ** 3 // 3 + 2 * n * n + 12 * n)
+    return 4 * words * B, flops * B
+
+
+def check_dynamics(name, model, B, q, dq, tau):
+    """Phase dynamics for one model: the kernel against its plain version,
+    output by output, relative to max(1, |ref|_inf)."""
+    import torch
+
+    from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+
+    kern = hd.get_dynamics_kernel(model)
+    got = kern(q, dq, tau)
+    torch.cuda.synchronize()
+    ref = hd.dynamics_reference(model, q, dq, tau)
+    errs, abs_errs = {}, {}
+    for k, a, r in zip(DYN_TOL, got, ref):
+        assert a.shape == r.shape and torch.isfinite(a).all(), k
+        abs_errs[k] = float((a - r).abs().max())
+        errs[k] = abs_errs[k] / max(1.0, float(r.abs().max()))
+    ms = time_ms(lambda: kern(q, dq, tau))
+    plain_ms = time_ms(lambda: hd.dynamics_reference(model, q, dq, tau),
+                       runs=5, warmup=1)
+    joints = sorted({int(t) for t in model.joint_type})
+    emit("dynamics", env=name, B=B, n=model.n, nb=model.nb,
+         joint_types=joints, rel_err=errs, abs_err=abs_errs, ms=ms,
+         plain_ms=plain_ms, tol_rel=DYN_TOL)
+    bad = {k: e for k, e in errs.items() if not e <= DYN_TOL[k]}
+    assert not bad, f"dynamics kernel disagrees on {name}: {bad}"
+    return dict(max_abs_err=max(abs_errs.values()), ms=ms,
+                plain_ms=plain_ms, bound=bound(*dynamics_work(model, B)),
+                shape=f"{name} B={B} n={model.n} nb={model.nb}")
+
+
+def random_pushes(model, task, B, gen, dev):
+    """(B, nb, 6) external forces as the perturbation branch applies them:
+    about half of the envs pushed with `magnitude` N along +-x or +-y at
+    the perturbed body's origin."""
+    import torch
+
+    _, mag, body, _ = task.perturbation_parameters
+    on = (torch.rand(B, generator=gen, device=dev) < 0.5).float()
+    axis = torch.randint(0, 2, (B,), generator=gen, device=dev)
+    sign = torch.randint(0, 2, (B,), generator=gen, device=dev) * 2.0 - 1.0
+    f = torch.zeros((B, model.nb, 6), device=dev)
+    f[torch.arange(B, device=dev), body, 3 + axis] = sign * mag * on
+    return f
+
+
+def phasewise_lcp(model, q, dq, tau, lam_prev, f_ext):
+    """The boxed LCPs of the phase-wise step with an external force, as
+    engine/world.make_sim_step assembles them (plain dynamics, collision,
+    assemble_lcp, compacted warm start).  Returns (dq_star, contacts,
+    (A, b, lo, hi, act, mu, findex, MinvJt, row_sel), lam0)."""
+    from dartenv_tpu_torch.collision.narrowphase import collide
+    from dartenv_tpu_torch.dynamics import batched
+    from dartenv_tpu_torch.engine.constraints import (
+        assemble_lcp, build_layout, compact_lam,
+    )
+
+    dt = model.dt
+    kin = batched.bkin(model, q, dq)
+    ddq, M = batched.forward_dynamics(model, kin, q, dq, tau, dt, f_ext)
+    dq_star = dq + dt * ddq
+    contacts = collide(model, kin.R_w, kin.p_w)
+    A, b, lo, hi, act, mu, findex, MinvJt, row_sel, _ = assemble_lcp(
+        model, build_layout(model), kin.phi, M, q, dq, dq_star, contacts,
+        dt)
+    lam0 = compact_lam(lam_prev, row_sel, act)
+    return dq_star, contacts, (A, b, lo, hi, act, mu, findex, MinvJt,
+                               row_sel), lam0
+
+
+def plain_hybrid(cfg, findex, A, b, lo, hi, mu, act, lam0):
+    """lcp/hybrid.make_hybrid_solver's stages through the plain versions
+    only (PGS with residual, top K, keep-best with the plain BPP,
+    scatter), whatever the device."""
+    import torch
+
+    from dartenv_tpu_torch.lcp.hopper_pgs import pgs_solve_reference
+    from dartenv_tpu_torch.lcp.hybrid import escalation_size, keep_best
+
+    assert cfg.escalate_frac > 0 and cfg.escalate_iters2 == 0
+    lam, res = pgs_solve_reference(A, b, lo, hi, findex, mu, act,
+                                   iters=cfg.pgs_iters, omega=cfg.pgs_omega,
+                                   lam0=lam0, return_residual=True)
+    B, m = b.shape
+    K = escalation_size(B, cfg.escalate_frac, cfg.escalate_kmax)
+    worst, idx = torch.topk(res, K)
+    pk = torch.cat([b, lo, hi, mu, act, lam], dim=1)[idx]
+    bk, lok, hik, muk, actk, lamk = pk.split(m, dim=1)
+    exact1 = plain_exact(findex, cfg.escalate_iters, 3, cfg.escalate_refine)
+    lam_new, _ = keep_best((A[idx], bk, lok, hik, muk, actk), findex, worst,
+                           lamk, cfg.escalate_tol, exact1)
+    return lam.index_copy(0, idx, lam_new)
+
+
+def plain_phasewise_substep(model, q, dq, lam, tau, f_ext):
+    """One phase-wise substep through the plain versions only, composed
+    here as engine/world.make_sim_step composes the kernels: without an
+    external force the dynamics kernel's plain version (the models here
+    have no constraint rows then); with one, the plain dynamics,
+    collision, assembly and the plain hybrid solve.  Then the position
+    update.  Returns (q, dq, lam)."""
+    import torch
+
+    from dartenv_tpu_torch.dynamics import batched
+    from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+    from dartenv_tpu_torch.engine.constraints import (
+        build_layout, scatter_lam,
+    )
+
+    m = build_layout(model).m
+    if f_ext is None:
+        assert m == 0
+        dq_plus = hd.dynamics_reference(model, q, dq, tau)[0]
+    else:
+        dq_star, _, prob, lam0 = phasewise_lcp(model, q, dq, tau, lam,
+                                               f_ext)
+        A, b, lo, hi, act, mu, findex, MinvJt, row_sel = prob
+        lam_c = plain_hybrid(model.solver, findex, A, b, lo, hi, mu, act,
+                             lam0)
+        dq_plus = dq_star + torch.sum(MinvJt * lam_c[:, None, :], dim=-1)
+        lam = scatter_lam(lam_c, row_sel, m)
+    return (batched.integrate_positions(model, q, dq_plus, model.dt),
+            dq_plus, lam)
+
+
+def check_pgs(dev, states):
+    """Phase pgs: the PGS kernel against its plain version on the LCPs of
+    perturbed walker2d's phase-wise step at B = 4096 (states from the
+    walker2d rollout, about half of the envs pushed), then the BPP kernel
+    on the hybrid's top K of those.  Returns what the kernels line needs
+    for both."""
+    import torch
+
+    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.lcp import hopper_pgs as hp
+    from dartenv_tpu_torch.lcp.hybrid import escalation_size
+
+    task = make_task("walker2d", device=dev)
+    model, cfg = task.model, task.model.solver
+    q, dq, tau, lam_prev = states
+    B = q.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    f_ext = random_pushes(model, task, B, gen, dev)
+    _, _, prob, lam0 = phasewise_lcp(model, q, dq, tau, lam_prev, f_ext)
+    A, b, lo, hi, act, mu, findex, _, _ = prob
+    m = b.shape[1]
+    args = (A, b, lo, hi, findex, mu, act)
+    kw = dict(iters=cfg.pgs_iters, omega=cfg.pgs_omega, lam0=lam0,
+              return_residual=True)
+    lam_k, res_k = hp.pgs_solve_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    lam_r, res_r = hp.pgs_solve_reference(*args, **kw)
+    lam_bad = (lam_k - lam_r).abs() > 1e-6 + 1e-5 * lam_r.abs()
+    res_bad = (res_k - res_r).abs() > 1e-7 + 1e-4 * res_r.abs()
+    lam_err = float((lam_k - lam_r).abs().max())
+    ms = time_ms(lambda: hp.pgs_solve_cuda(*args, **kw))
+    plain_ms = time_ms(lambda: hp.pgs_solve_reference(*args, **kw),
+                       runs=5, warmup=1)
+    emit("pgs", env="walker2d_perturbed", B=B, m=m, iters=cfg.pgs_iters,
+         active_rows=float(act.sum()), lam_abs_err=lam_err,
+         lam_abs_max=float(lam_r.abs().max()),
+         res_abs_err=float((res_k - res_r).abs().max()),
+         res_max=float(res_r.max()), res_median=float(res_r.median()),
+         lam_entries_beyond_tol=int(lam_bad.sum()),
+         res_envs_beyond_tol=int(res_bad.sum()),
+         res_envs_unequal=int((res_k != res_r).sum()), ms=ms,
+         plain_ms=plain_ms, tol_lam=dict(rtol=1e-5, atol=1e-6),
+         tol_res=dict(rtol=1e-4, atol=1e-7))
+    assert float(act.sum()) > B, "constraint rows are not live"
+    assert torch.isfinite(lam_k).all() and torch.isfinite(res_k).all()
+    assert not bool(lam_bad.any()) and not bool(res_bad.any())
+    words = m * m + 7 * m + 1          # A, 6 vectors in; lam, res out
+    flops = 2 * (cfg.pgs_iters + 1) * m * (m + 4)
+    pgs = dict(max_abs_err=lam_err, ms=ms, plain_ms=plain_ms,
+               bound=bound(4 * words * B, flops * B),
+               shape=f"walker2d_perturbed B={B} m_c={m} "
+                     f"iters={cfg.pgs_iters} residual")
+
+    K = escalation_size(B, cfg.escalate_frac, cfg.escalate_kmax)
+    _, idx = torch.topk(res_k, K)
+    bpp = check_bpp("walker2d_perturbed", cfg, findex, A[idx], b[idx],
+                    lo[idx], hi[idx], mu[idx], act[idx], lam_k[idx])
+    return pgs, bpp
+
+
+def plain_counts():
+    """The plain-call counters of all four kernels' dispatchers."""
+    from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+    from dartenv_tpu_torch.lcp import hopper_bpp as hb
+    from dartenv_tpu_torch.lcp import hopper_pgs as hp
+
+    return (hs.PLAIN_CALLS, hb.PLAIN_CALLS, hd.PLAIN_CALLS, hp.PLAIN_CALLS)
+
+
+def lockstep_phasewise(name, dev, states=None):
+    """Phase lockstep for a phase-wise path: one control step at B = 1024,
+    the port's sim step (the kernels) beside plain_phasewise_substep, the
+    same external force in both when `states` (q, dq, tau, lam) are given
+    (perturbed walker2d), none otherwise (cartpole, from reset states);
+    contact sets compared after every substep."""
+    import torch
+
+    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.engine.world import SimState, make_sim_step
+    from dartenv_tpu_torch.envs.base import make_env_reset
+
+    B = 1024 if states is None else min(1024, states[0].shape[0])
+    task = make_task(name, device=dev)
+    model = task.model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    if states is None:
+        sim = make_env_reset(task)(B, gen)[0].sim
+        f_ext = None
+    else:
+        q, dq, _, lam = (x[:B].clone() for x in states)
+        sim = SimState(q=q, dq=dq, time=q.new_zeros(B), lam=lam)
+        f_ext = random_pushes(model, task, B, gen, dev)
+    hi_a = torch.as_tensor(task.control_bounds[0], device=dev,
+                           dtype=torch.float32)
+    a = (torch.rand((B, task.action_size), generator=gen, device=dev)
+         * 2 - 1) * hi_a
+    tau = task.action_to_tau(a, ())
+    step = make_sim_step(model)
+    plain_before = plain_counts()
+    sk, sp = sim, (sim.q, sim.dq, sim.lam)
+    same = torch.ones(B, dtype=torch.bool, device=dev)
+    impulse_rows = 0
+    for _ in range(task.frame_skip):
+        sk, _ = step(sk, tau, f_ext)
+        sp = plain_phasewise_substep(model, *sp, tau, f_ext)
+        if sk.lam is not None:
+            same &= (sk.lam > 0).eq(sp[2] > 0).all(1)
+            impulse_rows += int((sp[2] > 0).sum())
+    rel = lambda x, y: ((x - y).abs() / y.abs().clamp(min=1.0)).max(
+        1).values
+    q_err, dq_err = rel(sk.q, sp[0]), rel(sk.dq, sp[1])
+    lock = dict(same_contact_frac=float(same.float().mean()),
+                impulse_rows=impulse_rows,
+                q_err=float(q_err[same].max()),
+                dq_err=float(dq_err[same].max()),
+                dq_err_all=float(dq_err.max()),
+                envs_beyond_tol=int(((q_err > 1e-3)
+                                     | (dq_err > 1e-3)).sum()),
+                q_err_q99=float(q_err.quantile(0.99)),
+                dq_err_q99=float(dq_err.quantile(0.99)))
+    emit("lockstep", env=name + ("" if f_ext is None else "_perturbed"),
+         B=B, **lock, tol=1e-3, tol_envs_beyond=LOCK_MAY_DIVERGE)
+    assert torch.isfinite(sk.q).all() and torch.isfinite(sk.dq).all()
+    assert plain_counts() == plain_before    # the kernel path took none
+    assert lock["same_contact_frac"] > 0.9
+    assert lock["envs_beyond_tol"] <= LOCK_MAY_DIVERGE
+    if f_ext is not None:
+        assert impulse_rows > B, "contacts are not live"
+
+
+def drive_main_path(dev, name, perturb=False):
+    """Phase rollout: the batched rollout of one path through bench_env,
+    with every kernel's launch counter and every plain-call counter set to
+    0 just before and read just after.  Returns the launch counts."""
     import torch
 
     from dartenv_tpu_torch.bench.throughput import bench_env
+    from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
     from dartenv_tpu_torch.engine import hopper_substep as hs
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
+    from dartenv_tpu_torch.lcp import hopper_pgs as hp
 
-    hs.SUBSTEP_LAUNCHES = hb.LAUNCHES = hs.PLAIN_CALLS = 0
+    B, horizon, rollouts = PATHS[(name, perturb)]
+    hs.SUBSTEP_LAUNCHES = hb.LAUNCHES = 0
+    hd.DYNAMICS_LAUNCHES = hp.PGS_LAUNCHES = 0
+    hs.PLAIN_CALLS = hb.PLAIN_CALLS = hd.PLAIN_CALLS = hp.PLAIN_CALLS = 0
     t0 = time.time()
-    out = bench_env(name, batch=B, horizon=HORIZON, iters=ROLLOUTS[name],
-                    max_episode_steps=1000, device="cuda",
-                    return_state=True)
+    out = bench_env(name, batch=B, horizon=horizon, iters=rollouts - 1,
+                    max_episode_steps=1000, device=dev,
+                    return_state=True, perturb=perturb)
     seconds = time.time() - t0
-    n_sub, n_bpp, n_plain = hs.SUBSTEP_LAUNCHES, hb.LAUNCHES, hs.PLAIN_CALLS
+    counts = dict(substep=hs.SUBSTEP_LAUNCHES, bpp=hb.LAUNCHES,
+                  dynamics=hd.DYNAMICS_LAUNCHES, pgs=hp.PGS_LAUNCHES)
+    plain = sum(plain_counts())
     end, task = out.pop("state"), out.pop("task")
     obs = task.obs(end.sim, end.aux)
     steps_run = out["control_steps_run"]
-    emit("rollout", **out, substep_launches=n_sub, bpp_launches=n_bpp,
-         plain_calls=n_plain, seconds=seconds)
-    for x in (end.sim.q, end.sim.dq, obs):
-        assert torch.isfinite(x).all()
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (end.sim.q, end.sim.dq, obs))
+    emit("rollout", **out, **{f"{k}_launches": v for k, v in counts.items()},
+         plain_calls=plain, finite_state=finite, seconds=seconds)
+    assert finite
     assert obs.shape[0] == B and end.sim.q.shape == (B, task.model.n)
     assert out["episodes_seen"] > 0
-    assert n_sub == task.frame_skip * steps_run, (n_sub, steps_run)
-    assert n_bpp == n_sub, (n_bpp, n_sub)
-    assert n_plain == 0
-    return dict(substep=n_sub, bpp=n_bpp, steps=steps_run)
+    sub = task.frame_skip * steps_run
+    if perturb:                      # the external-force route
+        want = dict(substep=0, bpp=sub, dynamics=0, pgs=sub)
+    elif hs.in_fused_scope(task.model):
+        want = dict(substep=sub, bpp=sub, dynamics=0, pgs=0)
+    else:                            # no constraint rows: kernel 3 only
+        want = dict(substep=0, bpp=0, dynamics=sub, pgs=0)
+    assert counts == want, (counts, want)
+    assert plain == 0
+    return dict(counts, steps=steps_run)
 
 
 def main():
@@ -356,9 +731,12 @@ def main():
     import dartenv_tpu_torch  # noqa: F401  (asserts full-f32 products)
     from dartenv_tpu_torch import cuda_build
     from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
     from dartenv_tpu_torch.engine import hopper_substep as hs
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
+    from dartenv_tpu_torch.lcp import hopper_pgs as hp
 
+    t_start = time.time()
     dev = torch.device("cuda")
     envs = ("walker2d", "hopper")
     B = 4096
@@ -376,43 +754,80 @@ def main():
     t0 = time.time()
     kerns = {e: hs.get_substep_kernel(make_task(e, device=dev).model)
              for e in envs}
-    builds = [hb.start_build()] + [k.start_build() for k in kerns.values()]
+    dyn_models = {e: make_task(e, device=dev).model
+                  for e in ("cartpole", "doublependulum", "walker2d")}
+    dyn_models.update(joint_chains(dev))
+    dkerns = {e: hd.get_dynamics_kernel(m) for e, m in dyn_models.items()}
+    builds = ([hb.start_build(), hp.start_build()]
+              + [k.start_build() for k in kerns.values()]
+              + [k.start_build() for k in dkerns.values()])
     hb.load(builds[0])
-    for k in kerns.values():
+    hp.load(builds[1])
+    for k in list(kerns.values()) + list(dkerns.values()):
         k.load()
     ptxas = [ln.strip() for bld in builds
              for ln in cuda_build.build_log(bld).splitlines()
              if "registers" in ln or "spill" in ln]
-    emit("build", seconds=time.time() - t0, ptxas=ptxas)
+    emit("build", seconds=time.time() - t0, libraries=len(builds),
+         ptxas=ptxas)
     st = kerns["walker2d"].st
     assert (st.n, st.ns, st.cap, st.m_c, st.layout.m) == (9, 14, 6, 24, 48)
 
-    # ---- 3-5. each kernel vs its plain version, per env -----------------
+    # ---- 3-5. substep and BPP kernels vs their plain versions, lockstep -
     checks = {e: check_env(e, B, dev) for e in envs}
 
-    # ---- 6. the main paths, launches counted per path -------------------
-    counts = {e: drive_main_path(e, B) for e in envs}
+    # ---- 6. dynamics kernel vs its plain version ------------------------
+    dyn = {}
+    for seed, (e, model) in enumerate(dyn_models.items()):
+        if e == "walker2d":
+            q, dq, tau, _ = checks["walker2d"]["states"]
+            Bd = B
+        else:
+            Bd = 8192 if e in ("cartpole", "doublependulum") else 1024
+            q, dq, tau = random_states(model, Bd, seed, dev)
+        dyn[e] = check_dynamics(e, model, Bd, q, dq, tau)
 
-    # ---- 7. the kernels line --------------------------------------------
+    # ---- 7. PGS kernel (and BPP on the hybrid's top K) vs plain ---------
+    pgs, bpp_pert = check_pgs(dev, checks["walker2d"]["states"])
+
+    # ---- 8. lockstep of the phase-wise paths ----------------------------
+    lockstep_phasewise("cartpole", dev)
+    lockstep_phasewise("walker2d", dev, checks["walker2d"]["states"])
+
+    # ---- 9. the main paths, launches counted per path -------------------
+    counts = {key: drive_main_path(dev, *key) for key in PATHS}
+
+    # ---- 10. the kernels line -------------------------------------------
     sources = {
         "substep": ("fused_substep", "dartenv_tpu_torch/csrc/substep.cu",
                     "dartenv_tpu/engine/pallas_substep.py:762"),
         "bpp": ("bpp_solve", "dartenv_tpu_torch/csrc/bpp.cu",
                 "dartenv_tpu/lcp/pallas_bpp.py:232"),
+        "dynamics": ("dynamics", "dartenv_tpu_torch/csrc/dynamics.cu",
+                     "dartenv_tpu/dynamics/pallas_dynamics.py:807"),
+        "pgs": ("pgs_solve", "dartenv_tpu_torch/csrc/pgs.cu",
+                "dartenv_tpu/lcp/pallas_pgs.py:131"),
     }
+    entries = [(e, False, key, checks[e][key])
+               for e in envs for key in ("substep", "bpp")]
+    entries += [("cartpole", False, "dynamics", dyn["cartpole"]),
+                ("walker2d", True, "pgs", pgs),
+                ("walker2d", True, "bpp", bpp_pert)]
     kernels = []
-    for e in envs:
-        for key, (kname, src, repl) in sources.items():
-            c = checks[e][key]
-            kernels.append({
-                "name": f"{kname}[{e}]", "route": "cuda", "source": src,
-                "replaces": repl, "launches": counts[e][key],
-                "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
-                "bound_by": c["bound"][1], "library_ms": None,
-                "launches_per_control_step":
-                    counts[e][key] / counts[e]["steps"],
-                "shape": c["shape"]})
+    for e, perturb, key, c in entries:
+        kname, src, repl = sources[key]
+        n = counts[(e, perturb)]
+        label = e + ("_perturbed" if perturb else "")
+        kernels.append({
+            "name": f"{kname}[{label}]", "route": "cuda", "source": src,
+            "replaces": repl, "launches": n[key],
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
+            "bound_by": c["bound"][1], "library_ms": None,
+            "launches_per_control_step": n[key] / n["steps"],
+            "shape": c["shape"]})
+    assert all(k["launches"] > 0 for k in kernels)
+    emit("done", seconds=time.time() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

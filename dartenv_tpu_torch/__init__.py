@@ -8,8 +8,9 @@ where the JAX package scans, frozen dataclasses of tensors for state, and
 an explicit `device` argument on every entry point (default "cuda"; no
 entry point picks the CPU because it found no GPU).
 
-The two fused kernels of the main path are hand-written CUDA C++ under
-`csrc/`, built with nvcc for sm_90a at first use (`cuda_build.py`).
+The four kernels (the fused substep, the dynamics phase, PGS and the
+block-pivoting exact solve) are hand-written CUDA C++ under `csrc/`, built
+with nvcc for sm_90a at first use (`cuda_build.py`).
 
 Full-f32 products are asserted at import — the counterpart of the JAX
 package's `jax.default_matmul_precision("highest")` guard: TF32 keeps ~3

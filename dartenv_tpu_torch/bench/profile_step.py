@@ -1,13 +1,15 @@
 """Where one control step's time goes on the card.
 
     python -m dartenv_tpu_torch.bench.profile_step [--env walker2d]
-        [--batch 4096] [--steps 20] [--out out/profile_step.json]
+        [--batch 4096] [--steps 20] [--perturb] [--out out/profile.json]
 
 Steps a batched env under the random policy for `--steps` control steps
 inside torch.profiler and prints one JSON object: host wall time per
 control step (from an un-profiled pass), device-busy time per control step
 and its share of the wall time, device launches per control step, and the
-kernels that take the most device time.  Needs a GPU (it measures nothing on a CPU).
+kernels that take the most device time.  `--perturb` turns on the task's
+random pushes (the phase-wise path with external forces).  Needs a GPU
+(it measures nothing on a CPU).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import time
 import torch
 
 
-def profile(env="walker2d", batch=4096, steps=20, top=12):
+def profile(env="walker2d", batch=4096, steps=20, top=12, perturb=False):
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from dartenv_tpu_torch.bench.throughput import make_task, random_policy
@@ -30,6 +32,7 @@ def profile(env="walker2d", batch=4096, steps=20, top=12):
         raise RuntimeError("profile_step needs a CUDA device")
     dev = torch.device("cuda")
     task = make_task(env, device=dev)
+    task.add_perturbation = perturb
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     vec = VecEnv(task, batch, max_episode_steps=1000, generator=gen)
@@ -62,7 +65,8 @@ def profile(env="walker2d", batch=4096, steps=20, top=12):
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip()
     return {
-        "env": env, "batch": batch, "control_steps": steps,
+        "env": env, "perturb": perturb, "batch": batch,
+        "control_steps": steps,
         "card": smi,
         "wall_ms_per_control_step": plain_wall_ms / steps,
         "device_busy_ms_per_control_step": dev_ms / steps,
@@ -83,9 +87,10 @@ def main():
     ap.add_argument("--env", default="walker2d")
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--perturb", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    res = profile(args.env, args.batch, args.steps)
+    res = profile(args.env, args.batch, args.steps, perturb=args.perturb)
     text = json.dumps(res, indent=1)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

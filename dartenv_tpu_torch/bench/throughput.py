@@ -11,8 +11,11 @@ import time
 import torch
 
 _TASKS = {
+    "cartpole": ("dartenv_tpu_torch.envs.cart_pole", "make_cartpole_task"),
     "hopper": ("dartenv_tpu_torch.envs.hopper", "make_hopper_task"),
     "walker2d": ("dartenv_tpu_torch.envs.walker2d", "make_walker2d_task"),
+    "doublependulum": ("dartenv_tpu_torch.envs.double_pendulum",
+                       "make_double_pendulum_task"),
 }
 
 
@@ -50,27 +53,37 @@ def _sync(device):
 def bench_env(name: str = "walker2d", batch: int = 4096,
               horizon: int = 100, iters: int = 5,
               max_episode_steps: int = 1000, device="cuda", seed: int = 0,
-              return_state: bool = False):
+              return_state: bool = False, perturb: bool = False):
     """Returns a dict with env-steps/s and timing detail of `iters`
     rollouts of `horizon` control steps after one warm-up rollout (which
-    also builds the kernels)."""
+    also builds the kernels); with iters=0 the rate is the warm-up's.
+    `perturb` turns on the task's random perturbation pushes."""
     from dartenv_tpu_torch.parallel.rollout import make_rollout
     from dartenv_tpu_torch.parallel.vec_env import VecEnv
 
     device = torch.device(device)
     task = make_task(name, device=device)
+    task.add_perturbation = perturb
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     vec = VecEnv(task, num_envs=batch, max_episode_steps=max_episode_steps,
                  generator=gen)
-    overflow = [torch.zeros((), dtype=task.model.dtype, device=device)]
+    zero = torch.zeros((), dtype=task.model.dtype, device=device)
+    track = {"overflow": zero, "pushed_substeps": zero, "env_share": zero,
+             "substeps": 0}
 
-    def track_overflow(info):
-        overflow[0] = torch.maximum(overflow[0],
-                                    info["contact_overflow"].max())
+    def track_step(info):
+        track["overflow"] = torch.maximum(track["overflow"],
+                                          info["contact_overflow"].max())
+        if perturb:
+            share = info["perturb_env_share"]
+            track["pushed_substeps"] = (track["pushed_substeps"]
+                                        + (share > 0).sum())
+            track["env_share"] = track["env_share"] + share.sum()
+            track["substeps"] += share.shape[0]
 
     rollout = make_rollout(vec, random_policy(task), horizon,
-                           step_hook=track_overflow)
+                           step_hook=track_step)
     state, _ = vec.reset()
 
     t0 = time.perf_counter()
@@ -89,6 +102,7 @@ def bench_env(name: str = "walker2d", batch: int = 4096,
     steps = batch * horizon
     out = {
         "env": name,
+        "perturb": perturb,
         "batch": batch,
         "horizon": horizon,
         "device": str(device),
@@ -101,8 +115,14 @@ def bench_env(name: str = "walker2d", batch: int = 4096,
         "control_steps_run": horizon * (iters + 1),
         "episodes_seen": float(stats.episodes),
         "mean_return": float(stats.mean_return()),
-        "max_contact_overflow": float(overflow[0]),
+        "mean_length": float(stats.mean_length()),
+        "max_contact_overflow": float(track["overflow"]),
     }
+    if perturb:
+        # over every rollout, warm-up included
+        n_sub = max(1, track["substeps"])
+        out["pushed_substep_share"] = float(track["pushed_substeps"]) / n_sub
+        out["pushed_env_share"] = float(track["env_share"]) / n_sub
     if return_state:
         out["state"] = state
         out["task"] = task
@@ -112,8 +132,9 @@ def bench_env(name: str = "walker2d", batch: int = 4096,
 def main():
     """python -m dartenv_tpu_torch.bench.throughput [--env walker2d]
     [--batch 4096 ...] [--horizon 100] [--iters 3] [--repeat 1]
-    [--device cuda]: one JSON line per (batch, repeat) with the card's
-    name and power limit beside the rate."""
+    [--perturb] [--device cuda]: one JSON line per (batch, repeat) with
+    the card's name and power limit beside the rate.  The horizon
+    defaults to 1000 for cartpole, 100 otherwise."""
     import argparse
     import json
     import subprocess
@@ -121,9 +142,10 @@ def main():
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("--env", default="walker2d", choices=sorted(_TASKS))
     ap.add_argument("--batch", type=int, nargs="+", default=[4096])
-    ap.add_argument("--horizon", type=int, default=100)
+    ap.add_argument("--horizon", type=int, default=None)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--repeat", type=int, default=1)
+    ap.add_argument("--perturb", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     card = "cpu"
@@ -132,10 +154,12 @@ def main():
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip()
+    horizon = args.horizon or (1000 if args.env == "cartpole" else 100)
     for batch in args.batch:
         for rep in range(args.repeat):
-            out = bench_env(args.env, batch=batch, horizon=args.horizon,
-                            iters=args.iters, device=args.device, seed=rep)
+            out = bench_env(args.env, batch=batch, horizon=horizon,
+                            iters=args.iters, device=args.device, seed=rep,
+                            perturb=args.perturb)
             print(json.dumps({"card": card, "repeat": rep, **out}),
                   flush=True)
 

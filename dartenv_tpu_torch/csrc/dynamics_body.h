@@ -1,0 +1,457 @@
+// Per-env smooth dynamics, shared by the dynamics kernel (dynamics.cu), the
+// fused substep kernel (substep_body.h) and their host builds
+// (dynamics_host.cpp, substep_host.cpp): joint kinematics of all ten joint
+// types -> tree recursion -> world dof columns phi -> mass matrix -> bias
+// forces -> implicit spring/damping forward solve (Cholesky).  This is the
+// per-env body _trace_env of dartenv_tpu/dynamics/pallas_dynamics.py.
+//
+// The includer first includes a header generated from the model's static
+// digest (dartenv_tpu_torch/dynamics/hopper_dynamics.dynamics_header): the
+// sizes DY_N, DY_NB, DY_MAXDOF, the step DY_DT, the mask DY_JMASK of joint
+// types present (bit t set for type t; branches of absent types are
+// removed at compile time), and the model tables as DY_CONST arrays
+// (__constant__ under nvcc, static const in a host build).
+#pragma once
+
+#include <math.h>
+#include <stddef.h>
+
+#ifdef __CUDACC__
+#define DI __device__ __forceinline__
+#define SS_FN __device__
+#else
+#define DI static inline
+#define SS_FN static
+#endif
+
+#define JT_WELD 0
+#define JT_REVOLUTE 1
+#define JT_PRISMATIC 2
+#define JT_UNIVERSAL 3
+#define JT_EULER 4
+#define JT_BALL 5
+#define JT_TRANSLATIONAL 6
+#define JT_PLANAR 7
+#define JT_FREE 8
+#define JT_SCREW 9
+#define DY_HAS(t) (((DY_JMASK) >> (t)) & 1)
+
+
+DI float dot3(const float* a, const float* b) {
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+DI void cross3(const float* a, const float* b, float* o) {
+    const float x = a[1] * b[2] - a[2] * b[1];
+    const float y = a[2] * b[0] - a[0] * b[2];
+    const float z = a[0] * b[1] - a[1] * b[0];
+    o[0] = x; o[1] = y; o[2] = z;
+}
+DI void m3v(const float* M, const float* v, float* o) {
+    const float x = M[0] * v[0] + M[1] * v[1] + M[2] * v[2];
+    const float y = M[3] * v[0] + M[4] * v[1] + M[5] * v[2];
+    const float z = M[6] * v[0] + M[7] * v[1] + M[8] * v[2];
+    o[0] = x; o[1] = y; o[2] = z;
+}
+DI void m3tv(const float* M, const float* v, float* o) {   // M^T v
+    const float x = M[0] * v[0] + M[3] * v[1] + M[6] * v[2];
+    const float y = M[1] * v[0] + M[4] * v[1] + M[7] * v[2];
+    const float z = M[2] * v[0] + M[5] * v[1] + M[8] * v[2];
+    o[0] = x; o[1] = y; o[2] = z;
+}
+DI void m3m(const float* A, const float* B, float* C) {    // C != A, B
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j)
+            C[3 * i + j] = A[3 * i] * B[j] + A[3 * i + 1] * B[3 + j]
+                           + A[3 * i + 2] * B[6 + j];
+}
+DI void m3mt(const float* A, const float* B, float* C) {   // C = A B^T
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j)
+            C[3 * i + j] = A[3 * i] * B[3 * j] + A[3 * i + 1] * B[3 * j + 1]
+                           + A[3 * i + 2] * B[3 * j + 2];
+}
+
+// Rodrigues for a unit axis u: R = I + s K + (1 - c) K^2, K = skew(u)
+DI void rod_axis(const float* u, float s, float c, float* R) {
+    const float K[9] = {0.0f, -u[2], u[1], u[2], 0.0f, -u[0],
+                        -u[1], u[0], 0.0f};
+    float K2[9];
+    m3m(K, K, K2);
+    const float omc = 1.0f - c;
+    for (int i = 0; i < 9; ++i)
+        R[i] = ((i % 4 == 0) ? 1.0f : 0.0f) + K[i] * s + K2[i] * omc;
+}
+// rod(u, theta) a = c a + s (u x a) + (1 - c) (u.a) u
+DI void rot_vec(const float* u, const float* a, float s, float c, float* o) {
+    float w[3];
+    cross3(u, a, w);
+    const float d = dot3(u, a);
+    for (int k = 0; k < 3; ++k)
+        o[k] = c * a[k] + s * w[k] + (1.0f - c) * (d * u[k]);
+}
+// d/dt of rot_vec at theta(t): thdot (-s a + c (u x a) + s (u.a) u)
+DI void rot_vec_dot(const float* u, const float* a, float s, float c,
+                    float thdot, float* o) {
+    float w[3];
+    cross3(u, a, w);
+    const float d = dot3(u, a);
+    for (int k = 0; k < 3; ++k)
+        o[k] = thdot * (-s * a[k] + c * w[k] + s * (d * u[k]));
+}
+// Rodrigues for a run-time rotation vector w (BALL, FREE), Taylor-safe at
+// 0, as math/spatial.so3_exp: R = I + a K + b K^2, K = skew(w)
+DI void so3_exp_rt(const float* w, float* R) {
+    const float t2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
+    const float th = sqrtf(t2 + 1e-18f);
+    const bool small = t2 < 1e-12f;
+    const float a = small ? 1.0f - t2 / 6.0f : sinf(th) / th;
+    const float bq = small ? 0.5f - t2 / 24.0f : (1.0f - cosf(th)) / t2;
+    const float K[9] = {0.0f, -w[2], w[1], w[2], 0.0f, -w[0],
+                        -w[1], w[0], 0.0f};
+    float K2[9];
+    m3m(K, K, K2);
+    for (int i = 0; i < 9; ++i)
+        R[i] = ((i % 4 == 0) ? 1.0f : 0.0f) + a * K[i] + bq * K2[i];
+}
+// [E,0; -E r^, E] v with E = R^T (R given)
+DI void xmotion_Rt(const float* R, const float* r, const float* v6,
+                   float* o6) {
+    float t[3], u[3];
+    m3tv(R, v6, o6);
+    cross3(r, v6, t);
+    for (int k = 0; k < 3; ++k) u[k] = v6[3 + k] - t[k];
+    m3tv(R, u, o6 + 3);
+}
+DI void crm6(const float* v, const float* m, float* o) {
+    float a[3], b[3];
+    cross3(v, m, o);
+    cross3(v, m + 3, a);
+    cross3(v + 3, m, b);
+    for (int k = 0; k < 3; ++k) o[3 + k] = a[k] + b[k];
+}
+DI void crf6(const float* v, const float* f, float* o) {
+    float a[3], b[3];
+    cross3(v, f, a);
+    cross3(v + 3, f + 3, b);
+    for (int k = 0; k < 3; ++k) o[k] = a[k] + b[k];
+    cross3(v, f + 3, o + 3);
+}
+// Ad_{T_cj}: joint-frame S row -> child-body frame
+DI void ad_cj(int b, const float* row6, float* o6) {
+    float t[3];
+    m3v(&c_cj_rot[9 * b], row6, o6);
+    m3v(&c_cj_rot[9 * b], row6 + 3, o6 + 3);
+    cross3(&c_cj_pos[3 * b], o6, t);
+    for (int k = 0; k < 3; ++k) o6[3 + k] += t[k];
+}
+// body-frame spatial inertia times motion vector (structural form)
+DI void inertia_mul(int b, const float* v6, float* o6) {
+    const float m_b = c_mass[b];
+    const float* c = &c_com[3 * b];
+    float Icw[3], cxw[3], d[3], t[3];
+    m3v(&c_inertia[9 * b], v6, Icw);
+    cross3(c, v6, cxw);
+    for (int k = 0; k < 3; ++k) d[k] = v6[3 + k] - cxw[k];
+    cross3(c, d, t);
+    for (int k = 0; k < 3; ++k) {
+        o6[k] = Icw[k] + t[k] * m_b;
+        o6[3 + k] = d[k] * m_b;
+    }
+}
+
+// unrolled-recurrence Cholesky of A + eps I (lower L), guards as
+// math/linalg.chol: sqrt(max(s, 1e-30))
+DI void chol_n(const float* A, float* L) {
+#pragma unroll 1
+    for (int i = 0; i < DY_N; ++i) {
+        for (int j = 0; j <= i; ++j) {
+            float s = A[i * DY_N + j];
+            if (j == i) s += 1e-10f;
+            for (int k = 0; k < j; ++k) s -= L[i * DY_N + k] * L[j * DY_N + k];
+            L[i * DY_N + j] = (i == j) ? sqrtf(fmaxf(s, 1e-30f))
+                                       : s / L[j * DY_N + j];
+        }
+    }
+}
+DI void chol_solve_n(const float* L, const float* rhs, float* x) {
+    float y[DY_N];
+    for (int i = 0; i < DY_N; ++i) {
+        float s = rhs[i];
+        for (int k = 0; k < i; ++k) s -= L[i * DY_N + k] * y[k];
+        y[i] = s / L[i * DY_N + i];
+    }
+    for (int i = DY_N - 1; i >= 0; --i) {
+        float s = y[i];
+        for (int k = i + 1; k < DY_N; ++k) s -= L[k * DY_N + i] * x[k];
+        x[i] = s / L[i * DY_N + i];
+    }
+}
+
+// Joint b's transform (Rj, pj) and its S / S-dot rows in the JOINT frame
+// (dynamics/batched.joint_transforms / joint_S, S-dot written out).  Sj and
+// Sdj come in zeroed, Rj as the identity and pj as zero.
+DI void joint_kin(int b, const float* q, const float* dq, float* Rj,
+                  float* pj, float (*Sj)[6], float (*Sdj)[6]) {
+    const int t = c_jt[b], qs = c_qstart[b];
+    const float* ax = &c_axes[9 * b];      // raw axes rows
+    const float* axu = &c_axes_unit[9 * b];
+    const float* nrm = &c_axes_norm[3 * b];
+    if (t == JT_REVOLUTE) {
+        const float th = nrm[0] * q[qs];
+        rod_axis(axu, sinf(th), cosf(th), Rj);
+        for (int k = 0; k < 3; ++k) Sj[0][k] = ax[k];
+    } else if (t == JT_PRISMATIC) {
+        for (int k = 0; k < 3; ++k) {
+            pj[k] = ax[k] * q[qs];
+            Sj[0][3 + k] = ax[k];
+        }
+    } else if (t == JT_PLANAR) {
+        const float th = nrm[2] * q[qs + 2];
+        const float r2 = nrm[2] * dq[qs + 2];
+        const float s = sinf(th), c = cosf(th);
+        rod_axis(axu + 6, s, c, Rj);
+        for (int k = 0; k < 3; ++k)
+            pj[k] = ax[k] * q[qs] + ax[3 + k] * q[qs + 1];
+        // S = [0, R^T a0], [0, R^T a1], [a2, 0]
+        rot_vec(axu + 6, ax, -s, c, &Sj[0][3]);
+        rot_vec(axu + 6, ax + 3, -s, c, &Sj[1][3]);
+        rot_vec_dot(axu + 6, ax, -s, c, -r2, &Sdj[0][3]);
+        rot_vec_dot(axu + 6, ax + 3, -s, c, -r2, &Sdj[1][3]);
+        for (int k = 0; k < 3; ++k) Sj[2][k] = ax[6 + k];
+    } else if (DY_HAS(JT_SCREW) && t == JT_SCREW) {
+        // rotation about a0, translation a1 * q (a1 = pitch / 2 pi * axis)
+        const float th = nrm[0] * q[qs];
+        rod_axis(axu, sinf(th), cosf(th), Rj);
+        for (int k = 0; k < 3; ++k) {
+            pj[k] = ax[3 + k] * q[qs];
+            Sj[0][k] = ax[k];
+            Sj[0][3 + k] = ax[3 + k];
+        }
+    } else if (DY_HAS(JT_UNIVERSAL) && t == JT_UNIVERSAL) {
+        // R = rod(a0, q0) rod(a1, q1); S = [R2^T a0, 0], [a1, 0]
+        const float th0 = nrm[0] * q[qs];
+        const float th1 = nrm[1] * q[qs + 1];
+        const float r1 = nrm[1] * dq[qs + 1];
+        const float s1 = sinf(th1), c1 = cosf(th1);
+        float R0[9], R1[9];
+        rod_axis(axu, sinf(th0), cosf(th0), R0);
+        rod_axis(axu + 3, s1, c1, R1);
+        m3m(R0, R1, Rj);
+        rot_vec(axu + 3, ax, -s1, c1, Sj[0]);
+        rot_vec_dot(axu + 3, ax, -s1, c1, -r1, Sdj[0]);
+        for (int k = 0; k < 3; ++k) Sj[1][k] = ax[3 + k];
+    } else if (DY_HAS(JT_EULER) && t == JT_EULER) {
+        // R = rod(a0, q0) (rod(a1, q1) rod(a2, q2));
+        // S = [R3^T R2^T a0, 0], [R3^T a1, 0], [a2, 0]
+        const float th0 = nrm[0] * q[qs];
+        const float th1 = nrm[1] * q[qs + 1];
+        const float th2 = nrm[2] * q[qs + 2];
+        const float r1 = nrm[1] * dq[qs + 1];
+        const float r2 = nrm[2] * dq[qs + 2];
+        const float s1 = sinf(th1), c1 = cosf(th1);
+        const float s2 = sinf(th2), c2 = cosf(th2);
+        float R0[9], R1[9], R2[9], R12[9];
+        rod_axis(axu, sinf(th0), cosf(th0), R0);
+        rod_axis(axu + 3, s1, c1, R1);
+        rod_axis(axu + 6, s2, c2, R2);
+        m3m(R1, R2, R12);
+        m3m(R0, R12, Rj);
+        float g[3], gd[3], hd[3], t3[3];
+        rot_vec(axu + 3, ax, -s1, c1, g);                // R2^T a0
+        rot_vec_dot(axu + 3, ax, -s1, c1, -r1, gd);
+        rot_vec(axu + 6, g, -s2, c2, Sj[0]);             // h = R3^T g
+        // h-dot = R3^T g-dot + q2dot (-u2 x h)
+        rot_vec(axu + 6, gd, -s2, c2, hd);
+        const float nu2[3] = {-axu[6], -axu[7], -axu[8]};
+        cross3(nu2, Sj[0], t3);
+        for (int k = 0; k < 3; ++k) Sdj[0][k] = hd[k] + t3[k] * r2;
+        rot_vec(axu + 6, ax + 3, -s2, c2, Sj[1]);        // R3^T a1
+        rot_vec_dot(axu + 6, ax + 3, -s2, c2, -r2, Sdj[1]);
+        for (int k = 0; k < 3; ++k) Sj[2][k] = ax[6 + k];
+    } else if (DY_HAS(JT_BALL) && t == JT_BALL) {
+        so3_exp_rt(&q[qs], Rj);
+        for (int k = 0; k < 3; ++k) Sj[k][k] = 1.0f;
+    } else if (DY_HAS(JT_TRANSLATIONAL) && t == JT_TRANSLATIONAL) {
+        for (int k = 0; k < 3; ++k) {
+            pj[k] = q[qs + k];
+            Sj[k][3 + k] = 1.0f;
+        }
+    } else if (DY_HAS(JT_FREE) && t == JT_FREE) {
+        so3_exp_rt(&q[qs], Rj);
+        for (int k = 0; k < 3; ++k) pj[k] = q[qs + 3 + k];
+        for (int k = 0; k < 6; ++k) Sj[k][k] = 1.0f;
+    }
+}
+
+// The dynamics stage of one env: (q, dq, tau) -> world poses R_w / p_w,
+// world dof columns phi, mass matrix M (full, symmetric), dq_star, and the
+// Cholesky factor L of M + diag(dt d + dt^2 k).
+DI void dyn_stage(const float* q, const float* dq, const float* tau,
+                  float (*R_w)[9], float (*p_w)[3], float (*phi)[6],
+                  float* M, float* dq_star, float* L) {
+    // ---- joint kinematics + tree recursion ------------------------------
+    float vel[DY_NB][6], ab[DY_NB][6];
+    float S[DY_N][6], Sd[DY_N][6];
+    const float a_base[6] = {0.0f, 0.0f, 0.0f, -c_gravity[0], -c_gravity[1],
+                             -c_gravity[2]};
+#pragma unroll 1
+    for (int b = 0; b < DY_NB; ++b) {
+        float Rj[9] = {1, 0, 0, 0, 1, 0, 0, 0, 1};
+        float pj[3] = {0, 0, 0};
+        float Sj[DY_MAXDOF][6], Sdj[DY_MAXDOF][6];
+        for (int k = 0; k < DY_MAXDOF; ++k)
+            for (int c = 0; c < 6; ++c) { Sj[k][c] = 0.0f; Sdj[k][c] = 0.0f; }
+        const int qs = c_qstart[b], nd = c_ndof[b];
+        joint_kin(b, q, dq, Rj, pj, Sj, Sdj);
+        // T_rel = T_pj o T_joint o inv(T_cj)
+        float R1[9], p1[3], R_rel[9], p_rel[3], t3[3];
+        m3m(&c_pj_rot[9 * b], Rj, R1);
+        m3v(&c_pj_rot[9 * b], pj, t3);
+        for (int k = 0; k < 3; ++k) p1[k] = c_pj_pos[3 * b + k] + t3[k];
+        m3m(R1, &c_cji_rot[9 * b], R_rel);
+        m3v(R1, &c_cji_pos[3 * b], t3);
+        for (int k = 0; k < 3; ++k) p_rel[k] = p1[k] + t3[k];
+
+        float vJ[6] = {0, 0, 0, 0, 0, 0}, cJ[6] = {0, 0, 0, 0, 0, 0};
+        for (int k = 0; k < nd; ++k) {
+            const int d = qs + k;
+            ad_cj(b, Sj[k], S[d]);
+            ad_cj(b, Sdj[k], Sd[d]);
+            for (int c = 0; c < 6; ++c) {
+                vJ[c] += S[d][c] * dq[d];
+                cJ[c] += Sd[d][c] * dq[d];
+            }
+        }
+        const int par = c_parent[b];
+        float xa[6], cr[6];
+        if (par < 0) {
+            for (int k = 0; k < 9; ++k) R_w[b][k] = R_rel[k];
+            for (int k = 0; k < 3; ++k) p_w[b][k] = p_rel[k];
+            for (int c = 0; c < 6; ++c) vel[b][c] = vJ[c];
+            xmotion_Rt(R_rel, p_rel, a_base, xa);
+        } else {
+            m3m(R_w[par], R_rel, R_w[b]);
+            m3v(R_w[par], p_rel, t3);
+            for (int k = 0; k < 3; ++k) p_w[b][k] = p_w[par][k] + t3[k];
+            float xv[6];
+            xmotion_Rt(R_rel, p_rel, vel[par], xv);
+            for (int c = 0; c < 6; ++c) vel[b][c] = xv[c] + vJ[c];
+            xmotion_Rt(R_rel, p_rel, ab[par], xa);
+        }
+        crm6(vel[b], vJ, cr);
+        for (int c = 0; c < 6; ++c) ab[b][c] = xa[c] + (cr[c] + cJ[c]);
+    }
+
+    // ---- world-frame dof columns at the world origin --------------------
+    for (int d = 0; d < DY_N; ++d) {
+        const int b = c_dof_body[d];
+        float t3[3];
+        m3v(R_w[b], S[d], phi[d]);
+        m3v(R_w[b], &S[d][3], &phi[d][3]);
+        cross3(p_w[b], phi[d], t3);
+        for (int k = 0; k < 3; ++k) phi[d][3 + k] += t3[k];
+    }
+
+    // ---- mass matrix: M[i][j] = sum_b phi_i . (I_w(b) phi_j) ------------
+    for (int i = 0; i < DY_N * DY_N; ++i) M[i] = 0.0f;
+#pragma unroll 1
+    for (int b = 0; b < DY_NB; ++b) {
+        const float m_b = c_mass[b];
+        float d_w[3], IcR[9], Ic_w[9], t3[3];
+        m3v(R_w[b], &c_com[3 * b], t3);
+        for (int k = 0; k < 3; ++k) d_w[k] = p_w[b][k] + t3[k];
+        m3m(R_w[b], &c_inertia[9 * b], IcR);
+        m3mt(IcR, R_w[b], Ic_w);
+        float F[DY_N][6];
+        for (int j = 0; j < DY_N; ++j) {
+            if (!c_anc[b * DY_N + j]) continue;
+            float u[3], a3[3], c3[3];
+            cross3(d_w, phi[j], t3);
+            for (int k = 0; k < 3; ++k) u[k] = phi[j][3 + k] - t3[k];
+            m3v(Ic_w, phi[j], a3);
+            cross3(d_w, u, c3);
+            for (int k = 0; k < 3; ++k) {
+                F[j][k] = a3[k] + c3[k] * m_b;
+                F[j][3 + k] = u[k] * m_b;
+            }
+            for (int i = 0; i <= j; ++i) {
+                if (!c_anc[b * DY_N + i]) continue;
+                float acc = 0.0f;
+                for (int c = 0; c < 6; ++c) acc += phi[i][c] * F[j][c];
+                M[i * DY_N + j] += acc;
+            }
+        }
+    }
+    for (int i = 0; i < DY_N; ++i)
+        for (int j = 0; j < i; ++j) M[i * DY_N + j] = M[j * DY_N + i];
+
+    // ---- bias forces ----------------------------------------------------
+    float f_sub[DY_NB][6];
+    for (int b = 0; b < DY_NB; ++b) {
+        float Ia[6], Iv[6], cf[6], fb[6], t3[3];
+        inertia_mul(b, ab[b], Ia);
+        inertia_mul(b, vel[b], Iv);
+        crf6(vel[b], Iv, cf);
+        for (int c = 0; c < 6; ++c) fb[c] = Ia[c] + cf[c];
+        // inverse force transform (E = R_w^T, r = p_w)
+        m3v(R_w[b], fb + 3, &f_sub[b][3]);
+        m3v(R_w[b], fb, f_sub[b]);
+        cross3(p_w[b], &f_sub[b][3], t3);
+        for (int k = 0; k < 3; ++k) f_sub[b][k] += t3[k];
+    }
+    for (int b = DY_NB - 1; b > 0; --b) {
+        const int par = c_parent[b];
+        if (par >= 0)
+            for (int c = 0; c < 6; ++c) f_sub[par][c] += f_sub[b][c];
+    }
+
+    // ---- implicit-scheme forward dynamics -------------------------------
+    float rhs[DY_N], Mi[DY_N * DY_N], ddq[DY_N];
+    for (int i = 0; i < DY_N * DY_N; ++i) Mi[i] = M[i];
+    for (int d = 0; d < DY_N; ++d) {
+        const int b = c_dof_body[d];
+        float Cd = 0.0f;
+        for (int c = 0; c < 6; ++c) Cd += phi[d][c] * f_sub[b][c];
+        float td = tau[d] - Cd;
+        td -= c_damping[d] * dq[d];
+        td -= c_spring[d] * ((q[d] - c_rest[d]) + DY_DT * dq[d]);
+        rhs[d] = td;
+        Mi[d * DY_N + d] += DY_DT * c_damping[d]
+                            + (DY_DT * DY_DT) * c_spring[d];
+    }
+    chol_n(Mi, L);
+    chol_solve_n(L, rhs, ddq);
+    for (int d = 0; d < DY_N; ++d) dq_star[d] = dq[d] + DY_DT * ddq[d];
+}
+
+// One env of the dynamics kernel: reads row e of q, dq, tau and writes row
+// e of the five outputs in the boundary layout (dq_star (n), M (n, n),
+// phi (n, 6), R_w (nb, 3, 3), p_w (nb, 3), row-major).
+SS_FN void dynamics_env(int e, const float* __restrict__ q_g,
+                        const float* __restrict__ dq_g,
+                        const float* __restrict__ tau_g,
+                        float* __restrict__ dqs_g, float* __restrict__ M_g,
+                        float* __restrict__ phi_g, float* __restrict__ Rw_g,
+                        float* __restrict__ pw_g) {
+    float q[DY_N], dq[DY_N], tau[DY_N];
+    for (int d = 0; d < DY_N; ++d) {
+        q[d] = q_g[(size_t)e * DY_N + d];
+        dq[d] = dq_g[(size_t)e * DY_N + d];
+        tau[d] = tau_g[(size_t)e * DY_N + d];
+    }
+    float R_w[DY_NB][9], p_w[DY_NB][3], phi[DY_N][6];
+    float M[DY_N * DY_N], dq_star[DY_N], L[DY_N * DY_N];
+    dyn_stage(q, dq, tau, R_w, p_w, phi, M, dq_star, L);
+    for (int d = 0; d < DY_N; ++d) dqs_g[(size_t)e * DY_N + d] = dq_star[d];
+    for (int i = 0; i < DY_N * DY_N; ++i)
+        M_g[(size_t)e * DY_N * DY_N + i] = M[i];
+    for (int d = 0; d < DY_N; ++d)
+        for (int c = 0; c < 6; ++c)
+            phi_g[((size_t)e * DY_N + d) * 6 + c] = phi[d][c];
+    for (int b = 0; b < DY_NB; ++b) {
+        for (int k = 0; k < 9; ++k)
+            Rw_g[((size_t)e * DY_NB + b) * 9 + k] = R_w[b][k];
+        for (int k = 0; k < 3; ++k)
+            pw_g[((size_t)e * DY_NB + b) * 3 + k] = p_w[b][k];
+    }
+}

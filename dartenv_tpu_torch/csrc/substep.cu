@@ -31,9 +31,11 @@
 // distinct digest).  Every thread of a warp reads the same table entry at
 // the same time, which is what the constant cache serves best.
 //
-// Joint types: WELD, REVOLUTE, PRISMATIC, PLANAR.  Geoms: sphere, capsule,
-// box.  The per-env arithmetic lives in substep_body.h, which a host
-// compiler can build too (substep_host.cpp).  Built with -fmad=false so
+// Joint types: WELD, REVOLUTE, PRISMATIC, PLANAR (the wrapper's gate; the
+// shared dynamics stage takes all ten).  Geoms: sphere, capsule, box.  The
+// per-env arithmetic lives in substep_body.h, whose dynamics stage is
+// dynamics_body.h (shared with dynamics.cu); a host compiler can build both
+// (substep_host.cpp).  Built with -fmad=false so
 // products and sums round separately, as in the plain PyTorch version
 // (engine/hopper_substep.substep_reference).
 

@@ -3,7 +3,7 @@
 // Build with a C++ compiler and -ffp-contract=off (no a*b+c contraction,
 // like the kernel's -fmad=false).  For tests on machines without a GPU;
 // nothing on the main path calls it.
-#define SS_CONST static const
+#define DY_CONST static const
 #include "substep_model.h"
 #include "substep_body.h"
 

@@ -7,7 +7,8 @@ library lands in `build/` beside the package and is reused while the key
 is unchanged.
 
 `start_build` launches nvcc without waiting so several sources compile in
-parallel; `finish_build` waits and loads the library.
+parallel; `finish_build` waits and loads the library.  `use_kernel` is the
+dispatch rule every kernel wrapper shares.
 """
 from __future__ import annotations
 
@@ -18,6 +19,14 @@ import os
 import shutil
 import subprocess
 from typing import Dict, Optional, Sequence
+
+import torch
+
+
+def use_kernel(x) -> bool:
+    """The dispatch rule of every kernel: a float32 CUDA batch."""
+    return x.is_cuda and x.dtype == torch.float32
+
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 

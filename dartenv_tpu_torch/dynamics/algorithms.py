@@ -1,5 +1,6 @@
-"""Per-body reference algorithms.  Only the pose-only forward kinematics
-that the task layer (obs / reward / done) calls is ported so far."""
+"""Per-body reference algorithms.  Only what the task layer (obs / reward /
+done) calls is ported so far: pose-only forward kinematics and the world
+position of a body-frame point."""
 from __future__ import annotations
 
 import torch
@@ -31,3 +32,10 @@ def fk_positions(model: SkelModel, q):
             R_w.append(sp.mm(R_w[par], R_rel))
             p_w.append(p_w[par] + sp.mv(R_w[par], p_rel))
     return torch.stack(R_w, dim=1), torch.stack(p_w, dim=1)
+
+
+def body_point_world(model: SkelModel, q, body: int, offset):
+    """World position (B, 3) of a body-frame point (e.g. a fingertip)."""
+    R_w, p_w = fk_positions(model, q)
+    off = torch.as_tensor(offset, dtype=q.dtype, device=q.device)
+    return p_w[:, body] + sp.mv(R_w[:, body], off)

@@ -288,13 +288,21 @@ def mass_matrix(model: SkelModel, kin: BKin):
     return 0.5 * (M + M.transpose(-1, -2))
 
 
-def bias_forces(model: SkelModel, kin: BKin):
-    """C(q, dq) (B, n): gravity + Coriolis/centrifugal, via
-    C = sum_b J_b f_b^w with body-frame Newton-Euler f_b."""
+def bias_forces(model: SkelModel, kin: BKin, f_ext_world=None):
+    """C(q, dq) (B, n): gravity + Coriolis/centrifugal - external, via
+    C = sum_b J_b f_b^w with body-frame Newton-Euler f_b.
+
+    f_ext_world: (B, nb, 6) [torque; force] in world coordinates applied
+    at each body origin, or None."""
     I_b = _body_inertias(model)
     f_body = (sp.inertia_mul(I_b, kin.a_bias)
               + sp.crf(kin.v, sp.inertia_mul(I_b, kin.v)))
     f_w = sp.xforce_inv_apply(kin.R_w.transpose(-1, -2), kin.p_w, f_body)
+    if f_ext_world is not None:
+        n_ext, f_ext = f_ext_world[..., :3], f_ext_world[..., 3:]
+        # shift to the world origin for the J^T contraction
+        n0 = n_ext + sp.cross(kin.p_w, f_ext)
+        f_w = f_w - torch.cat([n0, f_ext], dim=-1)
     J = world_jacobians(model, kin)
     return torch.sum(J * f_w[:, :, None, :], dim=(1, 3))
 
@@ -322,11 +330,13 @@ def integrate_positions(model: SkelModel, q, dq, dt):
     return q_new
 
 
-def forward_dynamics(model: SkelModel, kin: BKin, q, dq, tau, dt):
+def forward_dynamics(model: SkelModel, kin: BKin, q, dq, tau, dt,
+                     f_ext_world=None):
     """(ddq, M) with the implicit spring/damper scheme:
-    (M + diag(dt d + dt^2 k)) ddq = tau - d dq - k (q - rest + dt dq) - C."""
+    (M + diag(dt d + dt^2 k)) ddq = tau - d dq - k (q - rest + dt dq) - C,
+    C including the external forces `f_ext_world` (see bias_forces)."""
     M = mass_matrix(model, kin)
-    C = bias_forces(model, kin)
+    C = bias_forces(model, kin, f_ext_world)
     d, k = model.damping, model.spring_stiff
     tau_total = tau - d * dq - k * (q - model.rest_pos + dt * dq) - C
     Mi = M + torch.diag(dt * d + dt * dt * k)

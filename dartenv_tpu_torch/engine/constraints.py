@@ -24,7 +24,6 @@ import torch
 from dartenv_tpu_torch.collision.narrowphase import (
     Contacts, slot_layout, topk_stable,
 )
-from dartenv_tpu_torch.lcp.pgs import pgs_solve
 from dartenv_tpu_torch.math import spatial as sp
 from dartenv_tpu_torch.math.linalg import (
     _UNROLL_MAX, _pmm, chol, chol_solve, inv_psd,
@@ -258,23 +257,45 @@ def scatter_lam(lam, row_sel, m: int):
     return lam.new_zeros((lam.shape[0], m)).scatter_(1, row_sel, lam)
 
 
-def solve_constraints(model: SkelModel, layout: RowLayout, phi,
-                      M, q, dq_before, dq_star, contacts: Contacts, dt,
-                      lam_prev=None):
-    """Assemble + PGS-solve the per-env boxed LCP; returns (dq_plus, lam)
-    with lam on the full row stack.  (Hybrid escalation runs in the fused
-    substep phase, engine/hopper_substep.)"""
-    if layout.m == 0:
-        return dq_star, dq_star.new_zeros((dq_star.shape[0], 0))
-    cfg = model.solver
+def run_lcp_solver(cfg, findex, A, b, lo, hi, mu, active, lam0):
+    """Dispatch the assembled boxed LCPs of a batch to the configured
+    solver: PGS (lcp/pgs.make_pgs_solver) when escalate_frac == 0, else
+    PGS with exact escalation of the worst envs
+    (lcp/hybrid.make_hybrid_solver).  The "dantzig" mode is not ported."""
+    from dartenv_tpu_torch.lcp.hybrid import make_hybrid_solver
+    from dartenv_tpu_torch.lcp.pgs import make_pgs_solver
+
     if cfg.solver != "pgs":
         raise NotImplementedError(
             f"solver={cfg.solver!r} mode is not ported yet")
+    if cfg.escalate_frac > 0.0:
+        solver = make_hybrid_solver(
+            findex, iters=cfg.pgs_iters, omega=cfg.pgs_omega,
+            escalate_frac=cfg.escalate_frac, escalate_tol=cfg.escalate_tol,
+            escalate_iters=cfg.escalate_iters,
+            escalate_kmax=cfg.escalate_kmax,
+            escalate_iters2=cfg.escalate_iters2,
+            escalate_refine=cfg.escalate_refine,
+            escalate_ref64=cfg.escalate_ref64, escalate_ref=cfg.escalate_ref)
+    else:
+        solver = make_pgs_solver(findex, iters=cfg.pgs_iters,
+                                 omega=cfg.pgs_omega)
+    return solver(A, b, lo, hi, mu, active,
+                  torch.zeros_like(b) if lam0 is None else lam0)
+
+
+def solve_constraints(model: SkelModel, layout: RowLayout, phi,
+                      M, q, dq_before, dq_star, contacts: Contacts, dt,
+                      lam_prev=None):
+    """Assemble + solve the per-env boxed LCP (run_lcp_solver); returns
+    (dq_plus, lam) with lam on the full row stack."""
+    if layout.m == 0:
+        return dq_star, dq_star.new_zeros((dq_star.shape[0], 0))
     A, b, lo, hi, active, mu, findex, MinvJt, row_sel, _ = assemble_lcp(
         model, layout, phi, M, q, dq_before, dq_star, contacts, dt)
     lam0 = (compact_lam(lam_prev, row_sel, active)
             if lam_prev is not None else None)
-    lam = pgs_solve(A, b, lo, hi, findex, mu, active, iters=cfg.pgs_iters,
-                    lam0=lam0, omega=cfg.pgs_omega)
+    lam = run_lcp_solver(model.solver, findex, A, b, lo, hi, mu, active,
+                         lam0)
     dq_plus = dq_star + torch.sum(MinvJt * lam[:, None, :], dim=-1)
     return dq_plus, scatter_lam(lam, row_sel, layout.m)

@@ -9,7 +9,8 @@ One substep of a batch is
      dof-friction rows -> A = J M^-1 J^T + cfm -> warm-started PGS ->
      normalized residual -> dq_plus, lam_full, packed `esc`;
   2. `escalate_batch`: the worst K = min(B, kmax, ceil(frac * B)) envs by
-     residual are re-solved exactly (lcp/hopper_bpp) and patched in place;
+     residual are re-solved exactly (lcp/hopper_bpp) and patched in place
+     (`escalation_size` and `keep_best` of lcp/hybrid);
   3. `integrate_positions`.
 
 Scope of the fused path (as in the JAX package): world pairs of sphere /
@@ -33,11 +34,16 @@ import torch
 from dartenv_tpu_torch import cuda_build
 from dartenv_tpu_torch.collision.narrowphase import Contacts, collide
 from dartenv_tpu_torch.dynamics import batched
+from dartenv_tpu_torch.dynamics.hopper_dynamics import (
+    c_float, c_floats, c_ints, dynamics_header,
+)
 from dartenv_tpu_torch.engine.constraints import (
     assemble_lcp, build_layout, compact_lam, compacted_findex,
     has_servo_rows, scatter_lam,
 )
-from dartenv_tpu_torch.lcp.hybrid import comp_residual
+from dartenv_tpu_torch.lcp.hybrid import (
+    comp_residual, escalation_size, keep_best,
+)
 from dartenv_tpu_torch.lcp.pgs import pgs_solve
 from dartenv_tpu_torch.math.linalg import (
     _UNROLL_MAX, _pmm, chol, chol_solve, inv_psd,
@@ -49,11 +55,6 @@ from dartenv_tpu_torch.model.skel_model import (
 
 SUBSTEP_LAUNCHES = 0      # launches of the fused substep kernel
 PLAIN_CALLS = 0           # calls of substep_reference through the phase
-
-
-def use_kernel(x) -> bool:
-    """The dispatch rule of both kernels: a float32 CUDA batch."""
-    return x.is_cuda and x.dtype == torch.float32
 
 
 KERNEL_JOINTS = (WELD, REVOLUTE, PRISMATIC, PLANAR)
@@ -206,23 +207,12 @@ def substep_reference(model: SkelModel, st: _SubStatic, q, dq, tau,
 # the CUDA kernel: generated model header, build, launch wrapper
 # ---------------------------------------------------------------------------
 
-def _c_floats(name: str, vals) -> str:
-    vals = np.asarray(vals, dtype=np.float64).reshape(-1)
-    body = ", ".join(f"{np.float32(v):.9e}f" for v in vals) or "0.0f"
-    return (f"SS_CONST float {name}[{max(1, vals.size)}] = "
-            f"{{{body}}};\n")
-
-
-def _c_ints(name: str, vals) -> str:
-    vals = np.asarray(vals, dtype=np.int64).reshape(-1)
-    body = ", ".join(str(int(v)) for v in vals) or "0"
-    return f"SS_CONST int {name}[{max(1, vals.size)}] = {{{body}}};\n"
-
-
 def model_header(model: SkelModel, st: _SubStatic) -> str:
-    """The C header that fixes csrc/substep.cu to one model: sizes and
-    solver constants as macros, model tables as SS_CONST arrays
-    (__constant__ under nvcc, static const in the host build)."""
+    """The C header that fixes csrc/substep.cu to one model: the dynamics
+    stage's sizes and tables (dynamics/hopper_dynamics.dynamics_header),
+    then the substep's sizes and solver constants as macros and its
+    contact, limit and friction tables as DY_CONST arrays (__constant__
+    under nvcc, static const in the host build)."""
     bad = unsupported_joints(model)
     if bad:
         raise NotImplementedError(
@@ -232,7 +222,7 @@ def model_header(model: SkelModel, st: _SubStatic) -> str:
     cfg, dt, n, nb = st.cfg, st.dt, st.n, st.nb
     lay = st.layout
     damping, spring = h("damping"), h("spring_stiff")
-    f = lambda v: f"{np.float32(v):.9e}f"
+    f = c_float
     defs = dict(
         SS_N=n, SS_NB=nb, SS_NG=len(st.slots), SS_NS=st.ns,
         SS_NS_A=max(1, st.ns), SS_CAP=st.cap, SS_CAP_A=max(1, st.cap),
@@ -246,55 +236,27 @@ def model_header(model: SkelModel, st: _SubStatic) -> str:
         SS_CFM=f(cfg.cfm), SS_OMEGA=f(cfg.pgs_omega),
         SS_CONTACT_EPS=f(cfg.contact_eps),
     )
-    out = ["// generated from the model's static digest; do not edit\n",
-           "#pragma once\n",
-           "#ifndef SS_CONST\n#define SS_CONST __constant__\n#endif\n"]
+    out = [dynamics_header(model)]
     out += [f"#define {k} {v}\n" for k, v in defs.items()]
-
-    cj_rot, cj_pos = h("cj_rot"), h("cj_pos")
-    axes = h("axes")
-    norms = np.linalg.norm(axes, axis=-1)
-    unit = np.where(norms[..., None] < 1e-12, 0.0,
-                    axes / np.maximum(norms[..., None], 1e-300))
-    norms = np.where(norms < 1e-12, 0.0, norms)
-    out += [
-        _c_ints("c_parent", model.parent), _c_ints("c_jt", model.joint_type),
-        _c_ints("c_qstart", model.q_start), _c_ints("c_ndof", model.ndof),
-        _c_ints("c_dof_body", model.dof_body_index()),
-        _c_ints("c_anc", h("ancestor_mask") > 0.5),
-        _c_floats("c_pj_rot", h("pj_rot")), _c_floats("c_pj_pos", h("pj_pos")),
-        _c_floats("c_cj_rot", cj_rot), _c_floats("c_cj_pos", cj_pos),
-        # inv(T_cj) applied on the right: R_rel = R1 cj_rot^T,
-        # p_rel = p1 + R1 (-cj_rot^T cj_pos)
-        _c_floats("c_cji_rot", np.swapaxes(cj_rot, -1, -2)),
-        _c_floats("c_cji_pos", -np.einsum("bji,bj->bi", cj_rot, cj_pos)),
-        _c_floats("c_axes", axes), _c_floats("c_axes_unit", unit),
-        _c_floats("c_axes_norm", norms),
-        _c_floats("c_mass", h("mass")), _c_floats("c_com", h("com")),
-        _c_floats("c_inertia", h("inertia")),
-        _c_floats("c_gravity", h("gravity")),
-        _c_floats("c_damping", damping), _c_floats("c_spring", spring),
-        _c_floats("c_rest", h("rest_pos")),
-    ]
     sl = st.slots
     slot0 = np.cumsum([0] + [d["nslots"] for d in sl])[:-1]
     slot_geom = [g for g, d in enumerate(sl) for _ in range(d["nslots"])]
     col = lambda k: [d[k] for d in sl]
     out += [
-        _c_ints("c_g_type", col("gtype")), _c_ints("c_g_body", col("body")),
-        _c_ints("c_g_slot0", slot0), _c_ints("c_slot_geom", slot_geom),
-        _c_floats("c_g_rot", col("rot")), _c_floats("c_g_pos", col("pos")),
-        _c_floats("c_g_size", col("size")), _c_floats("c_g_n", col("n")),
-        _c_floats("c_g_off", col("off")), _c_floats("c_g_t1", col("t1")),
-        _c_floats("c_g_t2", col("t2")), _c_floats("c_g_fric", col("fric")),
-        _c_floats("c_g_rest", col("rest")),
-        _c_ints("c_lim_dof", lay.limit_dofs),
-        _c_floats("c_q_lower", h("q_lower")),
-        _c_floats("c_q_upper", h("q_upper")),
-        _c_floats("c_limited", h("limited")),
-        _c_ints("c_fric_dof", lay.friction_dofs),
-        _c_floats("c_dof_friction", h("dof_friction")),
-        _c_ints("c_findex", st.findex_c),
+        c_ints("c_g_type", col("gtype")), c_ints("c_g_body", col("body")),
+        c_ints("c_g_slot0", slot0), c_ints("c_slot_geom", slot_geom),
+        c_floats("c_g_rot", col("rot")), c_floats("c_g_pos", col("pos")),
+        c_floats("c_g_size", col("size")), c_floats("c_g_n", col("n")),
+        c_floats("c_g_off", col("off")), c_floats("c_g_t1", col("t1")),
+        c_floats("c_g_t2", col("t2")), c_floats("c_g_fric", col("fric")),
+        c_floats("c_g_rest", col("rest")),
+        c_ints("c_lim_dof", lay.limit_dofs),
+        c_floats("c_q_lower", h("q_lower")),
+        c_floats("c_q_upper", h("q_upper")),
+        c_floats("c_limited", h("limited")),
+        c_ints("c_fric_dof", lay.friction_dofs),
+        c_floats("c_dof_friction", h("dof_friction")),
+        c_ints("c_findex", st.findex_c),
     ]
     return "".join(out)
 
@@ -314,7 +276,8 @@ class SubstepKernel:
         if self._build is None:
             self._build = cuda_build.start_build(
                 "dartenv_substep", "substep.cu", header_text=self._header,
-                header_name="substep_model.h", deps=("substep_body.h",))
+                header_name="substep_model.h",
+                deps=("substep_body.h", "dynamics_body.h"))
         return self._build
 
     def load(self):
@@ -344,7 +307,7 @@ class SubstepKernel:
             lib = cuda_build.build_host(
                 "dartenv_substep_host", "substep_host.cpp",
                 header_text=self._header, header_name="substep_model.h",
-                deps=("substep_body.h",))
+                deps=("substep_body.h", "dynamics_body.h"))
             lib.substep_host.argtypes = [ctypes.c_void_p] * 12 + [
                 ctypes.c_int]
             lib.substep_host.restype = ctypes.c_int
@@ -405,11 +368,6 @@ def get_substep_kernel(model: SkelModel,
 # hybrid exact escalation over the substep's outputs
 # ---------------------------------------------------------------------------
 
-def escalation_size(cfg, B: int) -> int:
-    return min(B, int(cfg.escalate_kmax),
-               max(1, int(np.ceil(B * cfg.escalate_frac))))
-
-
 def gather_escalation(st: _SubStatic, cfg, outs):
     """Top-K by residual and ONE gather of the packed `esc` buffer; the
     boxed LCPs of the worst K envs, operator rebuilt from M and Jc with the
@@ -418,7 +376,7 @@ def gather_escalation(st: _SubStatic, cfg, outs):
     n, m_c = st.n, st.m_c
     res = outs["res"][:, 0]
     B = res.shape[0]
-    K = escalation_size(cfg, B)
+    K = escalation_size(B, cfg.escalate_frac, cfg.escalate_kmax)
     worst, idx = torch.topk(res, K)
     blk = unpack_esc(st, outs["esc"][idx])
     actk = blk["act"]
@@ -455,19 +413,8 @@ def escalate_batch(st: _SubStatic, cfg, outs, dq_plus, lam_full,
     worst, idx, lamk = g["worst"], g["idx"], g["lam_c"]
     K = idx.shape[0]
     prob = (g["A"], g["b"], g["lo"], g["hi"], g["mu"], g["act"])
-    resid = lambda lam: comp_residual(g["A"], g["b"], lam, g["lo"], g["hi"],
-                                      st.findex_c, g["mu"], g["act"])
-    lam_ex = exact1(*prob, lamk)
-    res_ex = resid(lam_ex)
-    take = (worst > cfg.escalate_tol) & (res_ex < worst)
-    lam_new = torch.where(take[:, None], lam_ex, lamk)
-    if exact2 is not None:
-        res_kept = torch.where(take, res_ex, worst)
-        lam_c2 = exact2(*prob, torch.zeros_like(lamk))
-        res_c2 = resid(lam_c2)
-        take2 = (res_kept > cfg.escalate_tol) & (res_c2 < res_kept)
-        lam_new = torch.where(take2[:, None], lam_c2, lam_new)
-        take = take | take2
+    lam_new, take = keep_best(prob, st.findex_c, worst, lamk,
+                              cfg.escalate_tol, exact1, exact2)
     dlam = torch.where(take[:, None], lam_new - lamk,
                        torch.zeros_like(lamk))
     dqp_delta = torch.sum(g["MinvJt"] * dlam[:, None, :], dim=-1)
@@ -532,7 +479,7 @@ def make_substep_phase(model: SkelModel):
     def sub(q, dq, lam_prev, tau):
         global PLAIN_CALLS
         B = q.shape[0]
-        if use_kernel(q):
+        if cuda_build.use_kernel(q):
             if kernel[0] is None:
                 kernel[0] = get_substep_kernel(model, st)
             outs = kernel[0](q, dq, tau, lam_prev)

@@ -11,7 +11,13 @@ Op order of one substep (the reference engine's World::step):
 
 Models inside the fused path's scope run steps 1-5 through
 engine/hopper_substep.make_substep_phase (the CUDA kernels on a float32
-CUDA batch); other models run the phase-wise composition below.
+CUDA batch); other models, and every step given an external force, run
+the phase-wise composition below: step 1-2 through
+dynamics/hopper_dynamics.make_dynamics_phase (the dynamics kernel on a
+float32 CUDA batch) unless an external force is given, which takes the
+plain dynamics/batched path; step 4 through
+engine/constraints.solve_constraints (the PGS kernel, and the BPP kernel
+for escalation, on a float32 CUDA batch).
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 
 from dartenv_tpu_torch.collision.narrowphase import collide
 from dartenv_tpu_torch.dynamics import batched
+from dartenv_tpu_torch.dynamics.hopper_dynamics import make_dynamics_phase
 from dartenv_tpu_torch.engine.constraints import (
     build_layout, solve_constraints,
 )
@@ -60,25 +67,33 @@ def init_state(model: SkelModel, batch: int, warm_start: bool = True
 def make_sim_step(model: SkelModel, return_impulses: bool = False
                   ) -> Callable:
     """Build the single-substep function of a model:
-    step(state, tau) -> (state', Contacts), or (state', (Contacts, lam))
-    with `return_impulses`.  tau: (B, n) generalized forces."""
+    step(state, tau, f_ext_world=None) -> (state', Contacts), or
+    (state', (Contacts, lam)) with `return_impulses`.  tau: (B, n)
+    generalized forces; f_ext_world: optional (B, nb, 6) [torque; force]
+    in world coordinates at each body origin."""
     layout = build_layout(model)
     dt = model.dt
     sub_phase = make_substep_phase(model)
+    dyn_phase = make_dynamics_phase(model)
 
-    def step(state: SimState, tau):
+    def step(state: SimState, tau, f_ext_world=None):
         q, dq = state.q, state.dq
-        if sub_phase is not None:
+        if sub_phase is not None and f_ext_world is None:
             lam_prev = (state.lam if state.lam is not None
                         else q.new_zeros((q.shape[0], layout.m)))
             q_new, dq_plus, lam, contacts = sub_phase(q, dq, lam_prev, tau)
         else:
-            kin = batched.bkin(model, q, dq)
-            ddq, M = batched.forward_dynamics(model, kin, q, dq, tau, dt)
-            dq_star = dq + dt * ddq
-            contacts = collide(model, kin.R_w, kin.p_w)
+            if dyn_phase is not None and f_ext_world is None:
+                dq_star, M, phi, R_w, p_w = dyn_phase(q, dq, tau)
+            else:
+                kin = batched.bkin(model, q, dq)
+                ddq, M = batched.forward_dynamics(model, kin, q, dq, tau,
+                                                  dt, f_ext_world)
+                dq_star = dq + dt * ddq
+                phi, R_w, p_w = kin.phi, kin.R_w, kin.p_w
+            contacts = collide(model, R_w, p_w)
             dq_plus, lam = solve_constraints(
-                model, layout, kin.phi, M, q, dq, dq_star, contacts, dt,
+                model, layout, phi, M, q, dq, dq_star, contacts, dt,
                 lam_prev=state.lam)
             q_new = batched.integrate_positions(model, q, dq_plus, dt)
         out = (contacts, lam) if return_impulses else contacts
@@ -91,15 +106,16 @@ def make_sim_step(model: SkelModel, return_impulses: bool = False
 
 def make_do_simulation(model: SkelModel, frame_skip: int,
                        return_impulses: bool = False) -> Callable:
-    """frame_skip substeps with the same tau.  The returned contacts are
-    the last substep's, with `overflow` the max over the substeps (the
-    last substep alone could mask a mid-step overflow)."""
+    """frame_skip substeps with the same tau (and the same external force,
+    if any).  The returned contacts are the last substep's, with
+    `overflow` the max over the substeps (the last substep alone could
+    mask a mid-step overflow)."""
     step = make_sim_step(model, return_impulses=return_impulses)
 
-    def do_sim(state: SimState, tau):
+    def do_sim(state: SimState, tau, f_ext_world=None):
         overflow = None
         for _ in range(frame_skip):
-            state, out = step(state, tau)
+            state, out = step(state, tau, f_ext_world)
             c = out[0] if return_impulses else out
             overflow = (c.overflow if overflow is None
                         else torch.maximum(overflow, c.overflow))

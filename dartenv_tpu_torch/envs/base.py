@@ -8,8 +8,7 @@ sim_dt * frame_skip; termination on the post-step state; reset perturbs
 the skel-file default pose.
 
 Everything here is batch-first: hooks take and return (B, ...) tensors.
-Not ported yet: the random-perturbation branch of the env step and the
-single-env object-oriented `DartEnv` shim.
+Not ported yet: the single-env object-oriented `DartEnv` shim.
 """
 from __future__ import annotations
 
@@ -19,7 +18,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from dartenv_tpu_torch.engine.world import SimState, make_do_simulation
+from dartenv_tpu_torch.engine.world import (
+    SimState, make_do_simulation, make_sim_step,
+)
 from dartenv_tpu_torch.model.skel_model import SkelModel
 
 
@@ -57,7 +58,13 @@ class Task:
     control_bounds: np.ndarray = np.zeros((2, 0))
     # reset noise: uniform(-s, s) added to q_init / dq_init
     reset_noise: float = 0.01
+    # random external perturbation (the reference DartEnv's
+    # add_perturbation / perturbation_parameters = [prob, magnitude,
+    # body_id, duration]): per substep, an env not being pushed starts a
+    # push with probability `prob`, of `magnitude` N along +-x or +-y on
+    # body `body_id`, for `duration` substeps
     add_perturbation: bool = False
+    perturbation_parameters = (0.05, 30.0, 0, 40)
     # carry LCP impulses across substeps to warm-start the solver
     warm_start: bool = True
 
@@ -90,7 +97,28 @@ class Task:
         raise NotImplementedError
 
     def aux_init(self, batch: int):
+        """Initial aux of a batch: the perturbation state (force (B, 3) and
+        remaining substeps `perturb_ttl` (B,) int32) when perturbations are
+        on, else an empty tuple."""
+        if self.add_perturbation:
+            m = self.model
+            return {"perturb_force": m.q_init.new_zeros((batch, 3)),
+                    "perturb_ttl": torch.zeros(batch, dtype=torch.int32,
+                                               device=m.device)}
         return ()
+
+    def perturb_noise_sample(self, batch: int, generator=None):
+        """The perturbation dice of one control step, per substep and env:
+        (u (S, B) uniform in [0, 1), axis (S, B) int64 in {0, 1}, sign
+        (S, B) in {-1, +1}), S = frame_skip, drawn from `generator`."""
+        shape = (self.frame_skip, batch)
+        dev = self.model.device
+        u = torch.rand(shape, generator=generator, device=dev,
+                       dtype=self.model.dtype)
+        axis = torch.randint(0, 2, shape, generator=generator, device=dev)
+        sign = torch.randint(0, 2, shape, generator=generator,
+                             device=dev).to(self.model.dtype) * 2 - 1
+        return u, axis, sign
 
     def reset_noise_sample(self, batch: int, generator=None):
         """(2, B, n) uniform(-s, s) noise for (q, dq), drawn on the model's
@@ -123,30 +151,79 @@ class Task:
 
 
 def make_env_step(task: Task):
-    """Fused batched env step: (EnvState, actions (B, m)) ->
-    (EnvState, obs, reward, done, step_info), frame_skip substeps inside."""
-    if task.add_perturbation:
-        raise NotImplementedError(
-            "the random-perturbation branch of the env step is not ported "
-            "yet")
+    """Fused batched env step: (EnvState, actions (B, m), generator=None,
+    perturb_noise=None) -> (EnvState, obs, reward, done, step_info),
+    frame_skip substeps inside.
+
+    With `task.add_perturbation` the dice are rolled once per substep (the
+    reference's granularity), from `generator` or from `perturb_noise`
+    (the (u, axis, sign) of Task.perturb_noise_sample, handed in so a test
+    can give another implementation the same numbers), and every substep
+    takes the external-force route of the sim step.  step_info holds
+    `contact_overflow` (B,) and, with perturbations,
+    `perturb_env_share` (frame_skip,): the share of envs pushed in each
+    substep."""
     model = task.model
-    do_sim = make_do_simulation(model, task.frame_skip)
+    perturb = task.add_perturbation
+    if perturb:
+        sub_step = make_sim_step(model)
+    else:
+        do_sim = make_do_simulation(model, task.frame_skip)
     hi = torch.as_tensor(task.control_bounds[0], dtype=model.dtype,
                          device=model.device)
     lo = torch.as_tensor(task.control_bounds[1], dtype=model.dtype,
                          device=model.device)
+    prob, mag, body_id, duration = task.perturbation_parameters
 
-    def env_step(state: EnvState, action):
+    def perturbed_sim(sim, tau, aux, noise):
+        """frame_skip substeps with a per-substep push; returns (sim,
+        contacts, aux, the share of envs pushed in each substep)."""
+        u, axis, sign = noise
+        force, ttl = aux["perturb_force"], aux["perturb_ttl"]
+        B = force.shape[0]
+        overflow, pushed = None, []
+        for k in range(task.frame_skip):
+            start = (ttl <= 0) & (u[k] < prob)
+            fresh = torch.zeros_like(force).scatter_(
+                1, axis[k][:, None], (sign[k] * mag)[:, None])
+            live = ttl > 0
+            force = torch.where(
+                start[:, None], fresh,
+                torch.where(live[:, None], force, torch.zeros_like(force)))
+            ttl = torch.where(start, torch.full_like(ttl, duration),
+                              torch.clamp(ttl - 1, min=0))
+            pushed.append(torch.mean((force != 0).any(dim=1).to(
+                force.dtype)))
+            f_ext = force.new_zeros((B, model.nb, 6))
+            f_ext[:, body_id, 3:] = force
+            sim, contacts = sub_step(sim, tau, f_ext)
+            overflow = (contacts.overflow if overflow is None
+                        else torch.maximum(overflow, contacts.overflow))
+        contacts = dataclasses.replace(contacts, overflow=overflow)
+        return sim, contacts, dict(aux, perturb_force=force,
+                                   perturb_ttl=ttl), torch.stack(pushed)
+
+    def env_step(state: EnvState, action, generator=None,
+                 perturb_noise=None):
         a = torch.minimum(torch.maximum(action, lo), hi)
         tau = task.action_to_tau(a, state.aux)
-        sim_new, contacts = do_sim(state.sim, tau)
-        obs = task.obs(sim_new, state.aux)
-        reward = task.reward(state.sim, sim_new, a, contacts, state.aux)
-        done = task.done(sim_new, state.aux)
-        new_state = EnvState(sim=sim_new, aux=state.aux,
-                             steps=state.steps + 1)
+        aux = state.aux
+        step_info = {}
+        if perturb:
+            if perturb_noise is None:
+                perturb_noise = task.perturb_noise_sample(a.shape[0],
+                                                          generator)
+            sim_new, contacts, aux, pushed = perturbed_sim(
+                state.sim, tau, aux, perturb_noise)
+            step_info["perturb_env_share"] = pushed
+        else:
+            sim_new, contacts = do_sim(state.sim, tau)
         # contact_overflow > 0: the active-set cap dropped contacts
-        step_info = {"contact_overflow": contacts.overflow}
+        step_info["contact_overflow"] = contacts.overflow
+        obs = task.obs(sim_new, aux)
+        reward = task.reward(state.sim, sim_new, a, contacts, aux)
+        done = task.done(sim_new, aux)
+        new_state = EnvState(sim=sim_new, aux=aux, steps=state.steps + 1)
         return new_state, obs, reward, done, step_info
 
     return env_step

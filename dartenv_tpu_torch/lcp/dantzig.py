@@ -118,15 +118,17 @@ def make_exact_solver(findex, iters: int = 24, polish_iters: int = 10,
     """Exact boxed-LCP solver of a batch: solve(A, b, lo, hi, mu, active,
     lam0) -> lam.  A float32 CUDA batch runs the block-pivoting kernel; a
     CPU or float64 batch runs the kernel's plain version."""
-    from dartenv_tpu_torch.engine.hopper_substep import use_kernel
-    from dartenv_tpu_torch.lcp.hopper_bpp import (
-        bpp_solve, bpp_solve_reference,
-    )
+    from dartenv_tpu_torch.cuda_build import use_kernel
+    from dartenv_tpu_torch.lcp import hopper_bpp
 
     findex = np.asarray(findex)
 
     def solve(A, b, lo, hi, mu, active, lam0):
-        fn = bpp_solve if use_kernel(A) else bpp_solve_reference
+        if use_kernel(A):
+            fn = hopper_bpp.bpp_solve
+        else:
+            hopper_bpp.PLAIN_CALLS += 1
+            fn = hopper_bpp.bpp_solve_reference
         return fn(A, b, lo, hi, findex, mu, active, iters=iters,
                   polish_iters=polish_iters, lam0=lam0,
                   refine_iters=refine_iters)

@@ -21,13 +21,13 @@ import numpy as np
 import torch
 
 from dartenv_tpu_torch import cuda_build
-from dartenv_tpu_torch.lcp.pgs import findex_tensors
+from dartenv_tpu_torch.lcp.pgs import findex_i32, findex_tensors
 
 _FREE, _AT_LO, _AT_HI = 0, 1, 2
 
 LAUNCHES = 0          # kernel launches (bpp_solve on a CUDA batch)
+PLAIN_CALLS = 0       # plain-version runs through lcp/dantzig.make_exact_solver
 _LIB = None
-_FINDEX_CACHE = {}
 
 
 def start_build():
@@ -160,14 +160,6 @@ def bpp_solve_reference(A, b, lo, hi, findex, mu, active, iters: int = 24,
     return lam
 
 
-def _findex_tensor(findex: np.ndarray, device) -> torch.Tensor:
-    key = (findex.tobytes(), str(device))
-    if key not in _FINDEX_CACHE:
-        _FINDEX_CACHE[key] = torch.as_tensor(
-            findex.astype(np.int32), device=device)
-    return _FINDEX_CACHE[key]
-
-
 def bpp_solve(A, b, lo, hi, findex, mu, active, iters: int = 24,
               polish_iters: int = 10, lam0=None, refine_iters=None):
     """Batched exact boxed-LCP solve; same contract as
@@ -196,7 +188,7 @@ def bpp_solve(A, b, lo, hi, findex, mu, active, iters: int = 24,
     lib = load()
     A = A.contiguous()
     vecs = [v.contiguous() for v in vecs]
-    fidx = _findex_tensor(np.asarray(findex), A.device)
+    fidx = findex_i32(findex, A.device)
     lam = torch.empty_like(vecs[0])
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream

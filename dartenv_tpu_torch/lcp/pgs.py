@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 _FINDEX_CACHE: Dict[Tuple[bytes, str], Tuple[torch.Tensor, torch.Tensor]] = {}
+_FINDEX_I32: Dict[Tuple[bytes, str], torch.Tensor] = {}
 
 
 def findex_tensors(findex, device):
@@ -27,6 +28,17 @@ def findex_tensors(findex, device):
             torch.as_tensor(np.maximum(findex, 0), device=device),
             torch.as_tensor(findex >= 0, device=device))
     return _FINDEX_CACHE[key]
+
+
+def findex_i32(findex, device) -> torch.Tensor:
+    """A static findex array as an int32 tensor on `device`, as the CUDA
+    kernels take it (cached like findex_tensors)."""
+    findex = np.asarray(findex, dtype=np.int64)
+    key = (findex.tobytes(), str(device))
+    if key not in _FINDEX_I32:
+        _FINDEX_I32[key] = torch.as_tensor(findex.astype(np.int32),
+                                           device=device)
+    return _FINDEX_I32[key]
 
 
 def pgs_solve(A, b, lo, hi, findex, mu, active, iters: int = 30,
@@ -59,3 +71,18 @@ def pgs_solve(A, b, lo, hi, findex, mu, active, iters: int = 30,
             lam[:, i] = torch.minimum(torch.maximum(new, lo_i),
                                       hi_i) * active[:, i]
     return lam
+
+
+def make_pgs_solver(findex, iters: int, omega: float = 1.0):
+    """Batched boxed-LCP solver: solve(A, b, lo, hi, mu, active, lam0) ->
+    lam (B, m).  A float32 CUDA batch runs the PGS kernel
+    (lcp/hopper_pgs.py); a CPU or float64 batch runs its plain version."""
+    from dartenv_tpu_torch.lcp.hopper_pgs import pgs_solve_batch
+
+    findex = np.asarray(findex)
+
+    def solve(A, b, lo, hi, mu, active, lam0):
+        return pgs_solve_batch(A, b, lo, hi, findex, mu, active,
+                               iters=iters, omega=omega, lam0=lam0)
+
+    return solve

@@ -19,8 +19,8 @@ from dartenv_tpu_torch.envs.base import (
 
 
 def _select(done, a, b):
-    """Per-env select over matching (nested) dataclasses / tuples of
-    tensors (None leaves pass through): a where done else b."""
+    """Per-env select over matching (nested) dataclasses / dicts / tuples
+    of tensors (None leaves pass through): a where done else b."""
     if a is None or b is None:
         return b
     if torch.is_tensor(a):
@@ -30,6 +30,8 @@ def _select(done, a, b):
         return dataclasses.replace(a, **{
             f.name: _select(done, getattr(a, f.name), getattr(b, f.name))
             for f in dataclasses.fields(a)})
+    if isinstance(a, dict):
+        return {k: _select(done, a[k], b[k]) for k in a}
     return tuple(_select(done, x, y) for x, y in zip(a, b))
 
 
@@ -37,7 +39,8 @@ class VecEnv:
     """Functional batched env: state is carried by the caller (a batched
     EnvState).  `device` is the task model's device; randomness comes from
     the `generator` given at construction (a torch.Generator on that
-    device, or None for the global one)."""
+    device, or None for the global one), which also rolls the perturbation
+    dice of a task with `add_perturbation`."""
 
     def __init__(self, task: Task, num_envs: int,
                  max_episode_steps: Optional[int] = None,
@@ -54,10 +57,14 @@ class VecEnv:
     def reset(self, noise=None):
         return self._reset(self.num_envs, self.generator, noise)
 
-    def step(self, state: EnvState, actions, reset_noise=None):
+    def step(self, state: EnvState, actions, reset_noise=None,
+             perturb_noise=None):
         """reset_noise: optional (2, B, n) noise for the auto-reset branch
-        (see Task.reset_sim)."""
-        new_state, obs, reward, done, step_info = self._step(state, actions)
+        (see Task.reset_sim); perturb_noise: optional perturbation dice
+        (see Task.perturb_noise_sample).  Auto-reset also resets the
+        task's aux (the perturbation state among it)."""
+        new_state, obs, reward, done, step_info = self._step(
+            state, actions, self.generator, perturb_noise)
         if self.max_episode_steps is not None:
             done = done | (new_state.steps >= self.max_episode_steps)
         info = {"terminal_obs": obs, "steps": new_state.steps, **step_info}

@@ -59,7 +59,8 @@ def test_escalate_batch_matches_jax():
     changed = (dqp != dqp0).any(dim=1).numpy()
     jchanged = np.abs(np.asarray(jdqp) - N(dqp0)).max(1) > 0
     np.testing.assert_array_equal(changed, jchanged)
-    K = ths.escalation_size(tm.solver, B)
+    K = ths.escalation_size(B, tm.solver.escalate_frac,
+                            tm.solver.escalate_kmax)
     assert K == 2
     top = np.argsort(-N(outs["res"])[:, 0])[:K]
     assert set(np.nonzero(changed)[0]) <= set(top)

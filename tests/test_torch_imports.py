@@ -43,8 +43,14 @@ def test_port_sources_exist():
     for sub in ("model", "math", "dynamics", "collision", "lcp", "engine",
                 "envs", "parallel", "bench"):
         assert os.path.exists(os.path.join(PKG, sub, "__init__.py")), sub
-    for f in ("csrc/substep.cu", "csrc/bpp.cu", "model/assets/walker2d.skel",
-              "model/assets/hopper_capsule.skel"):
+    for f in ("csrc/substep.cu", "csrc/bpp.cu", "csrc/dynamics.cu",
+              "csrc/pgs.cu", "csrc/dynamics_body.h",
+              "csrc/dynamics_host.cpp", "model/assets/walker2d.skel",
+              "model/assets/hopper_capsule.skel",
+              "model/assets/cartpole.skel",
+              "model/assets/doublependulum.skel",
+              "dynamics/hopper_dynamics.py", "lcp/hopper_pgs.py",
+              "envs/cart_pole.py", "envs/double_pendulum.py"):
         assert os.path.exists(os.path.join(PKG, f)), f
 
 

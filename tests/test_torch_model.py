@@ -13,7 +13,8 @@ from dartenv_tpu_torch.model import skel_parser as tparser
 from dartenv_tpu_torch.model.skel_model import FLOAT_LEAVES, STATIC_FIELDS
 from torch_port_util import flatten_jax_model, port_model
 
-ASSETS = ["walker2d.skel", "hopper_capsule.skel"]
+ASSETS = ["walker2d.skel", "hopper_capsule.skel", "cartpole.skel",
+          "doublependulum.skel"]
 
 
 @pytest.mark.parametrize("asset", ASSETS)

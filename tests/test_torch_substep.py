@@ -209,3 +209,32 @@ def test_host_build_of_kernel_arithmetic_matches_plain(name):
                 f, rel_err(got[f], ref[f]))
     assert float(ref["con_active"].sum()) > B / 4
     assert float(ref["lam_full"].abs().max()) > 0
+
+
+def test_host_build_is_bit_identical_to_the_recorded_outputs():
+    """The dynamics stage of csrc/substep_body.h lives in the shared
+    csrc/dynamics_body.h (with the dynamics kernel).  The host build of
+    the substep arithmetic gives, on the recorded inputs, exactly the
+    outputs the build had before that move (tests/data/
+    substep_host_golden.npz, recorded from it with the same g++ flags):
+    every output of walker2d, hopper and the mixed model, torch.equal."""
+    import os
+    import shutil
+
+    from dartenv_tpu_torch.bench.throughput import make_task
+
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler")
+    gold = np.load(os.path.join(os.path.dirname(__file__), "data",
+                                "substep_host_golden.npz"))
+    for name in ("walker2d", "hopper", "mixed"):
+        model = (_mixed_model() if name == "mixed"
+                 else make_task(name, device="cpu").model)
+        kern = ths.get_substep_kernel(model)
+        ins = [torch.as_tensor(gold[f"{name}/in/{k}"])
+               for k in ("q", "dq", "tau", "lam")]
+        got = kern.run_host(*ins)
+        assert set(got) == set(ths._OUT_FIELDS)
+        for f, v in got.items():
+            assert torch.equal(v, torch.as_tensor(gold[f"{name}/out/{f}"])), (
+                name, f)
