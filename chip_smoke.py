@@ -8,22 +8,28 @@ It builds the port's four CUDA kernels from dartenv_tpu_torch/csrc (all
 nvcc processes started together) and then, in float32:
 
   * for DartWalker2d and DartHopper at B = 4096 (the fused-substep path):
-    the substep and BPP kernels against their plain PyTorch versions at
-    that path's shapes, and the kernel path and a plain path composed here
-    in lockstep;
+    the substep kernel and the BPP kernel's core mode against their plain
+    PyTorch versions at that path's shapes; the escalation stage (the BPP
+    kernel's fused mode, one launch) against its plain version on the same
+    substep outputs, and for walker2d once more with a cold tier 2; the
+    kernel path and a plain path composed here in lockstep;
   * the dynamics kernel against its plain version on cartpole and the
     double pendulum at B = 8192, on walker2d states at B = 4096 and on two
     ModelBuilder chains that hold the six joint types the substep kernel
     lacks, at B = 1024;
-  * the PGS kernel (and the BPP kernel on the hybrid's top K) against
-    their plain versions on the LCPs of perturbed walker2d's phase-wise
-    step at B = 4096;
+  * the PGS kernel, the BPP kernel's core mode on the hybrid's top K and
+    its hybrid mode (the whole escalation, one launch) against their plain
+    versions on the LCPs of perturbed walker2d's phase-wise step at
+    B = 4096;
   * lockstep control steps of cartpole and of perturbed walker2d at
     B = 1024 beside plain paths composed here;
   * each path (bench_env: batched rollout under a random policy) with
     every kernel's launch counter and plain-call counter set to 0 just
     before it and read just after: walker2d and hopper, cartpole at
-    B = 8192 for 1000 control steps, perturbed walker2d at B = 4096 for 100.
+    B = 8192 for 1000 control steps, perturbed walker2d at B = 4096 for 100;
+  * the device launches of one eager walker2d control step at B = 4096,
+    counted by torch.profiler as dartenv_tpu_torch/bench/profile_step.py
+    counts them (line `launches`).
 
 Each phase prints one JSON line; any failing phase raises, and without a
 GPU the script exits non-zero before printing a result.  The last line is
@@ -85,13 +91,34 @@ def substep_work(st, B):
     return 4 * words * B, flops * B
 
 
-def bpp_work(m, K, iters, refine, polish):
-    """(bytes, flops) of one BPP launch for K problems of m rows."""
-    words = m * m + 7 * m
+def solve_flops(m, iters, refine, polish):
+    """Operations of one BPP solve of m rows."""
     pivot = (2 * m ** 3) // 3 + 2 * m * m + 6 * m * m   # GE + back-sub,
     #                                    masked operator, two matvecs
-    flops = (iters + refine) * pivot + polish * 2 * m * m + 2 * m * m
-    return 4 * words * K, flops * K
+    return (iters + refine) * pivot + polish * 2 * m * m + 2 * m * m
+
+
+def bpp_work(m, K, iters, refine, polish):
+    """(bytes, flops) of one core-mode BPP launch for K problems of m
+    rows."""
+    words = m * m + 7 * m
+    return 4 * words * K, solve_flops(m, iters, refine, polish) * K
+
+
+def escalate_work(K, m, budgets, rows_in, rows_out, rebuild_n=0):
+    """(bytes, flops) of one fused- or hybrid-mode launch for K envs: the
+    rows it reads (rows_in floats per env: an `esc` row and the dq_plus /
+    lam_full rows, or A, the vectors and lam) and writes (rows_out), the
+    tiers' solves and residuals, and, in the fused mode, the operator
+    rebuild from M (n x n) and Jc: n^3/3 + 2 m n^2 + 2 m^2 n per env."""
+    it1, rf1, it2, rf2 = budgets
+    n = rebuild_n
+    flops = solve_flops(m, it1, rf1, 3) + 2 * m * m
+    if it2 > 0:
+        flops += solve_flops(m, it2, rf2, 6) + 2 * m * m
+    if n:
+        flops += n ** 3 // 3 + 2 * m * n * n + 2 * m * m * n
+    return 4 * (rows_in + rows_out) * K, flops * K
 
 
 def bound(bytes_, flops):
@@ -140,8 +167,8 @@ def plain_substep(model, st, exact1, q, dq, lam, tau):
     from dartenv_tpu_torch.engine import hopper_substep as hs
 
     outs = hs.substep_reference(model, st, q, dq, tau, lam)
-    dq, lam = hs.escalate_batch(st, model.solver, outs, outs["dq_plus"],
-                                outs["lam_full"], exact1)
+    dq, lam = hs.escalate_reference(st, model.solver, outs, outs["dq_plus"],
+                                    outs["lam_full"], exact1)[:2]
     return integrate_positions(model, q, dq, st.dt), dq, lam
 
 
@@ -211,6 +238,95 @@ def check_bpp(name, cfg, findex, A, b, lo, hi, mu, act, lam_c):
                 bound=bound(bb, bf),
                 shape=f"{name} K={K} m={m_c} iters={cfg.escalate_iters} "
                       f"refine={cfg.escalate_refine} polish=3")
+
+
+def compare_escalation(phase, name, K, got, ref, others_equal):
+    """Hold one escalation launch against its plain version.  got / ref:
+    (patched rows (K, w), take (K,), residual of the kept point (K,)) of
+    the K escalated envs; others_equal: whether every env outside the top
+    K is equal to the bit.  Envs whose rows lie within 1e-5 of
+    max(1, |plain|) and whose take flags agree count as the same; at most
+    BPP_MAY_DIVERGE may part (the f32 re-open sensitivity of the bpp
+    phase), and over all K the kernel must solve (< 1e-4) as many envs as
+    the plain version, less those that parted."""
+    import torch
+
+    rows_k, take_k, res_k = got
+    rows_r, take_r, res_r = ref
+    env_err = ((rows_k - rows_r).abs().max(1).values
+               / rows_r.abs().max(1).values.clamp(min=1.0))
+    same = (env_err <= 1e-5) & (take_k == take_r)
+    n_same = int(same.sum())
+    err = float((rows_k - rows_r)[same].abs().max()) if n_same else 0.0
+    solved = lambda r: int((r < 1e-4).sum())
+    out = dict(env=name, K=K, envs_same=n_same, rows_abs_err_same=err,
+               rows_rel_err_same=float(env_err[same].max()) if n_same
+               else 0.0,
+               take_kernel=int(take_k.sum()), take_plain=int(take_r.sum()),
+               take_equal=int((take_k == take_r).sum()),
+               others_bit_equal=bool(others_equal),
+               solved_kernel=solved(res_k), solved_plain=solved(res_r),
+               res_kernel_max=float(res_k.max()),
+               res_plain_max=float(res_r.max()),
+               tol_rel=1e-5, tol_envs_same=K - BPP_MAY_DIVERGE)
+    assert torch.isfinite(rows_k).all() and torch.isfinite(res_k).all()
+    assert others_equal, f"{phase} {name}: envs outside the top K changed"
+    assert n_same >= K - BPP_MAY_DIVERGE, (phase, name, n_same, K)
+    assert solved(res_k) >= solved(res_r) - (K - n_same), (phase, name)
+    return out, err
+
+
+def check_escalate(name, st, cfg, outs, tier2=False):
+    """Phase escalate: the escalation stage on a float32 CUDA batch (top K
+    + one launch of the BPP kernel's fused mode) against its plain version
+    (escalate_reference with the plain BPP) on the same substep outputs.
+    Returns what the kernels line needs."""
+    import dataclasses
+
+    import torch
+
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+    from dartenv_tpu_torch.lcp import hopper_bpp as hb
+
+    if tier2:
+        cfg = dataclasses.replace(cfg, escalate_iters2=4)
+    exact1 = plain_exact(st.findex_c, cfg.escalate_iters, 3,
+                         cfg.escalate_refine)
+    exact2 = (plain_exact(st.findex_c, cfg.escalate_iters2, 6, None)
+              if cfg.escalate_iters2 > 0 else None)
+    dqp0, lamf0 = outs["dq_plus"], outs["lam_full"]
+    run_k = lambda: hs.escalate_fused(st, cfg, outs, dqp0, lamf0)
+    run_r = lambda: hs.escalate_reference(st, cfg, outs, dqp0, lamf0,
+                                          exact1, exact2)
+    dqp_k, lamf_k, idx, take_k, res_k = run_k()
+    torch.cuda.synchronize()
+    dqp_r, lamf_r, idx_r, take_r, res_r = run_r()
+    assert torch.equal(idx, idx_r)
+    K = idx.shape[0]
+    rest = torch.ones(dqp0.shape[0], dtype=torch.bool, device=dqp0.device)
+    rest[idx] = False
+    others = (torch.equal(dqp_k[rest], dqp_r[rest])
+              and torch.equal(lamf_k[rest], lamf_r[rest])
+              and torch.equal(dqp_k[rest], dqp0[rest]))
+    rows = lambda d, l: torch.cat([d[idx], l[idx]], dim=1)
+    line, err = compare_escalation(
+        "escalate", name, K, (rows(dqp_k, lamf_k), take_k, res_k),
+        (rows(dqp_r, lamf_r), take_r, res_r), others)
+    ms = time_ms(run_k)
+    plain_ms = time_ms(run_r, runs=5, warmup=1)
+    budgets = hb.tier_budgets(cfg.escalate_iters, cfg.escalate_refine,
+                              cfg.escalate_iters2)
+    n, m_c, m, width = st.escalation_dims
+    eb, ef = escalate_work(K, m_c, budgets, width + n + m, n + m,
+                           rebuild_n=n)
+    emit("escalate", **line, iters2=cfg.escalate_iters2, ms=ms,
+         plain_ms=plain_ms, bound_ms=bound(eb, ef)[0])
+    assert torch.equal(dqp0, outs["dq_plus"])      # inputs not modified
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound=bound(eb, ef),
+                shape=f"{name} K={K} m={m_c} n={n} fused "
+                      f"iters={budgets[0]}+{budgets[1]} "
+                      f"iters2={budgets[2]}+{budgets[3]}")
 
 
 def check_env(name, B, dev):
@@ -290,6 +406,9 @@ def check_env(name, B, dev):
                                            cfg.escalate_kmax), st.m_c)
     bpp = check_bpp(name, cfg, st.findex_c, g["A"], g["b"], g["lo"],
                     g["hi"], g["mu"], g["act"], g["lam_c"])
+    escalate = check_escalate(name, st, cfg, outs)
+    if name == "walker2d":
+        check_escalate(name, st, cfg, outs, tier2=True)
 
     # ---- 5. lockstep: kernel path vs plain path, same start, same actions
     # One control step, substep by substep: the port's own substep (the
@@ -348,6 +467,7 @@ def check_env(name, B, dev):
             plain_ms=sub_plain_ms, bound=bound(sb, sf),
             shape=f"{name} B={B} {lay}"),
         "bpp": bpp,
+        "escalate": escalate,
         "states": (q, dq, tau, lam_prev),
     }
 
@@ -493,21 +613,17 @@ def plain_hybrid(cfg, findex, A, b, lo, hi, mu, act, lam0):
     import torch
 
     from dartenv_tpu_torch.lcp.hopper_pgs import pgs_solve_reference
-    from dartenv_tpu_torch.lcp.hybrid import escalation_size, keep_best
+    from dartenv_tpu_torch.lcp.hybrid import escalate_rows, escalation_size
 
     assert cfg.escalate_frac > 0 and cfg.escalate_iters2 == 0
     lam, res = pgs_solve_reference(A, b, lo, hi, findex, mu, act,
                                    iters=cfg.pgs_iters, omega=cfg.pgs_omega,
                                    lam0=lam0, return_residual=True)
-    B, m = b.shape
-    K = escalation_size(B, cfg.escalate_frac, cfg.escalate_kmax)
+    K = escalation_size(b.shape[0], cfg.escalate_frac, cfg.escalate_kmax)
     worst, idx = torch.topk(res, K)
-    pk = torch.cat([b, lo, hi, mu, act, lam], dim=1)[idx]
-    bk, lok, hik, muk, actk, lamk = pk.split(m, dim=1)
     exact1 = plain_exact(findex, cfg.escalate_iters, 3, cfg.escalate_refine)
-    lam_new, _ = keep_best((A[idx], bk, lok, hik, muk, actk), findex, worst,
-                           lamk, cfg.escalate_tol, exact1)
-    return lam.index_copy(0, idx, lam_new)
+    return escalate_rows(A, b, lo, hi, mu, act, lam, idx, worst, findex,
+                         cfg.escalate_tol, exact1)[0]
 
 
 def plain_phasewise_substep(model, q, dq, lam, tau, f_ext):
@@ -550,8 +666,9 @@ def check_pgs(dev, states):
     import torch
 
     from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.lcp import hopper_bpp as hb
     from dartenv_tpu_torch.lcp import hopper_pgs as hp
-    from dartenv_tpu_torch.lcp.hybrid import escalation_size
+    from dartenv_tpu_torch.lcp.hybrid import escalate_rows, escalation_size
 
     task = make_task("walker2d", device=dev)
     model, cfg = task.model, task.model.solver
@@ -596,9 +713,37 @@ def check_pgs(dev, states):
                      f"iters={cfg.pgs_iters} residual")
 
     K = escalation_size(B, cfg.escalate_frac, cfg.escalate_kmax)
-    _, idx = torch.topk(res_k, K)
-    bpp = check_bpp("walker2d_perturbed", cfg, findex, A[idx], b[idx],
-                    lo[idx], hi[idx], mu[idx], act[idx], lam_k[idx])
+    worst, idx = torch.topk(res_k, K)
+    check_bpp("walker2d_perturbed", cfg, findex, A[idx], b[idx], lo[idx],
+              hi[idx], mu[idx], act[idx], lam_k[idx])
+
+    # the hybrid mode: the whole escalation of the phase-wise solve
+    budgets = hb.tier_budgets(cfg.escalate_iters, cfg.escalate_refine,
+                              cfg.escalate_iters2)
+    exact1 = plain_exact(findex, cfg.escalate_iters, 3, cfg.escalate_refine)
+    run_k = lambda: hb.bpp_hybrid(A, b, lo, hi, mu, act, lam_k, idx, worst,
+                                  findex, cfg.escalate_tol, budgets)
+    run_r = lambda: escalate_rows(A, b, lo, hi, mu, act, lam_k, idx, worst,
+                                  findex, cfg.escalate_tol, exact1)
+    out_k, take_k, kept_k = run_k()
+    torch.cuda.synchronize()
+    out_r, take_r, kept_r = run_r()
+    rest = torch.ones(B, dtype=torch.bool, device=dev)
+    rest[idx] = False
+    others = (torch.equal(out_k[rest], out_r[rest])
+              and torch.equal(out_k[rest], lam_k[rest]))
+    line, err = compare_escalation(
+        "hybrid", "walker2d_perturbed", K, (out_k[idx], take_k, kept_k),
+        (out_r[idx], take_r, kept_r), others)
+    ms = time_ms(run_k)
+    plain_ms = time_ms(run_r, runs=5, warmup=1)
+    hbb, hbf = escalate_work(K, m, budgets, m * m + 7 * m, m)
+    emit("hybrid", **line, ms=ms, plain_ms=plain_ms,
+         bound_ms=bound(hbb, hbf)[0])
+    bpp = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound=bound(hbb, hbf),
+               shape=f"walker2d_perturbed K={K} m={m} hybrid "
+                     f"iters={budgets[0]}+{budgets[1]}")
     return pgs, bpp
 
 
@@ -758,18 +903,27 @@ def main():
                   for e in ("cartpole", "doublependulum", "walker2d")}
     dyn_models.update(joint_chains(dev))
     dkerns = {e: hd.get_dynamics_kernel(m) for e, m in dyn_models.items()}
-    builds = ([hb.start_build(), hp.start_build()]
+    # the BPP kernel: core and hybrid modes per row count, fused mode per
+    # substep digest
+    bpp_keys = [(k.st.m_c, None) for k in kerns.values()] + [
+        (k.st.m_c, k.st.escalation_header) for k in kerns.values()]
+    builds = ([hb.start_build(m, h) for m, h in bpp_keys]
+              + [hp.start_build()]
               + [k.start_build() for k in kerns.values()]
               + [k.start_build() for k in dkerns.values()])
-    hb.load(builds[0])
-    hp.load(builds[1])
+    for (m, h), bld in zip(bpp_keys, builds):
+        hb.load(m, bld, h)
+    hp.load(builds[len(bpp_keys)])
     for k in list(kerns.values()) + list(dkerns.values()):
         k.load()
-    ptxas = [ln.strip() for bld in builds
-             for ln in cuda_build.build_log(bld).splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {bld.tag + "/" + bld.so_path.split("/")[-2][-6:]:
+             [ln.strip() for ln in cuda_build.build_log(bld).splitlines()
+              if "registers" in ln or "spill" in ln or "Compiling" in ln]
+             for bld in builds}
     emit("build", seconds=time.time() - t0, libraries=len(builds),
-         ptxas=ptxas)
+         ptxas=ptxas,
+         substep_smem_bytes={e: k.load().substep_smem_bytes()
+                             for e, k in kerns.items()})
     st = kerns["walker2d"].st
     assert (st.n, st.ns, st.cap, st.m_c, st.layout.m) == (9, 14, 6, 24, 48)
 
@@ -797,11 +951,25 @@ def main():
     # ---- 9. the main paths, launches counted per path -------------------
     counts = {key: drive_main_path(dev, *key) for key in PATHS}
 
-    # ---- 10. the kernels line -------------------------------------------
+    # ---- 10. device launches of one eager walker2d control step ---------
+    from dartenv_tpu_torch.bench.profile_step import profile
+
+    prof = profile("walker2d", B, steps=5, top=6)
+    emit("launches", env="walker2d", B=B,
+         device_launches_per_control_step=prof[
+             "device_launches_per_control_step"],
+         wall_ms_per_control_step=prof["wall_ms_per_control_step"],
+         device_busy_share=prof["device_busy_share"],
+         top_device_kernels=prof["top_device_kernels"], limit=700)
+    assert prof["device_launches_per_control_step"] <= 700
+
+    # ---- 11. the kernels line -------------------------------------------
     sources = {
         "substep": ("fused_substep", "dartenv_tpu_torch/csrc/substep.cu",
                     "dartenv_tpu/engine/pallas_substep.py:762"),
-        "bpp": ("bpp_solve", "dartenv_tpu_torch/csrc/bpp.cu",
+        "escalate": ("bpp_escalate", "dartenv_tpu_torch/csrc/bpp.cu",
+                     "dartenv_tpu/lcp/pallas_bpp.py:232"),
+        "bpp": ("bpp_hybrid", "dartenv_tpu_torch/csrc/bpp.cu",
                 "dartenv_tpu/lcp/pallas_bpp.py:232"),
         "dynamics": ("dynamics", "dartenv_tpu_torch/csrc/dynamics.cu",
                      "dartenv_tpu/dynamics/pallas_dynamics.py:807"),
@@ -809,14 +977,15 @@ def main():
                 "dartenv_tpu/lcp/pallas_pgs.py:131"),
     }
     entries = [(e, False, key, checks[e][key])
-               for e in envs for key in ("substep", "bpp")]
+               for e in envs for key in ("substep", "escalate")]
     entries += [("cartpole", False, "dynamics", dyn["cartpole"]),
                 ("walker2d", True, "pgs", pgs),
                 ("walker2d", True, "bpp", bpp_pert)]
     kernels = []
     for e, perturb, key, c in entries:
         kname, src, repl = sources[key]
-        n = counts[(e, perturb)]
+        n = dict(counts[(e, perturb)])
+        n["escalate"] = n["bpp"]
         label = e + ("_perturbed" if perturb else "")
         kernels.append({
             "name": f"{kname}[{label}]", "route": "cuda", "source": src,

@@ -22,7 +22,8 @@
 // read it again; the per-row vectors and lam sit beside it.  A row update is a
 // lane-wise product over the columns (j = lane, lane + 32, ...), a
 // __shfl_xor_sync butterfly that leaves the sum in every lane, and one
-// lane's write of the new lam_i, which the next row reads from shared
+// lane's write of the new lam_i (pgs_row.h, shared with the fused substep
+// kernel), which the next row reads from shared
 // memory (the friction bound reads lam[findex_i] the same way).  The
 // residual walks the rows in the same way, every lane holding the same w_i
 // and the same running max.  m, findex, iters and omega are run-time
@@ -33,20 +34,10 @@
 
 #include <cuda_runtime.h>
 
+#include "pgs_row.h"
+
 #define WARP 32
-#define FULL 0xffffffffu
 #define MAX_WARPS 8
-
-__device__ __forceinline__ float warp_sum(float v) {
-    for (int o = WARP / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-    return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-    for (int o = WARP / 2; o > 0; o >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-    return v;
-}
 
 __global__ void pgs_kernel(const float* __restrict__ A_g,
                            const float* __restrict__ b_g,
@@ -91,33 +82,15 @@ __global__ void pgs_kernel(const float* __restrict__ A_g,
     __syncthreads();
     if (env >= B) return;                       // ragged last block
 
-    for (int i = lane; i < m; i += WARP) {
-        const float d = A[i * m + i];
-        invd[i] = (d > 1e-12f) ? (1.0f / fmaxf(d, 1e-12f)) * omega : 0.0f;
-    }
+    for (int i = lane; i < m; i += WARP)
+        invd[i] = pgs_inv_diag(A[i * m + i], omega);
     __syncwarp();
 
-    // ---- sweeps, static row order --------------------------------------
-    for (int it = 0; it < iters; ++it) {
-        for (int i = 0; i < m; ++i) {
-            const float* Ai = A + i * m;
-            float part = 0.0f;
-            for (int j = lane; j < m; j += WARP) part += Ai[j] * lam[j];
-            const float w = warp_sum(part) + b[i];
-            const float nw = lam[i] - w * invd[i];
-            float l = lo[i], h = hi[i];
-            const int f = fidx[i];
-            if (f >= 0) {
-                const float bound = mu[i] * lam[f];        // no abs here
-                l = fmaxf(l, -bound);
-                h = fminf(h, bound);
-            }
-            const float v = fminf(fmaxf(nw, l), h) * act[i];
-            __syncwarp();            // every lane has read lam before ...
-            if (lane == 0) lam[i] = v;
-            __syncwarp();            // ... the new lam_i is visible to all
-        }
-    }
+    // ---- sweeps, static row order (the row update of pgs_row.h) ---------
+    for (int it = 0; it < iters; ++it)
+        for (int i = 0; i < m; ++i)
+            pgs_row(A + i * m, lam, m, i, b[i], invd[i], lo[i], hi[i], mu[i],
+                    act[i], fidx[i], lane);
     const size_t off = (size_t)env * m;
     for (int i = lane; i < m; i += WARP) lam_g[off + i] = lam[i];
     if (res_g == nullptr) return;
@@ -126,14 +99,11 @@ __global__ void pgs_kernel(const float* __restrict__ A_g,
     // rows in order, each w_i reduced across the lanes as in the sweeps
     float amax = 0.0f;
     for (int i = lane; i < m; i += WARP) amax = fmaxf(amax, fabsf(lam[i]));
-    const float scale = fmaxf(1.0f, warp_max(amax));
+    const float scale = fmaxf(1.0f, lanes_max(amax));
     const float eps = 1e-6f * scale + 1e-9f;
     float res = 0.0f;
     for (int i = 0; i < m; ++i) {
-        const float* Ai = A + i * m;
-        float part = 0.0f;
-        for (int j = lane; j < m; j += WARP) part += Ai[j] * lam[j];
-        const float w = warp_sum(part) + b[i];
+        const float w = row_dot(A + i * m, lam, m, lane) + b[i];
         float l, h;
         const int f = fidx[i];
         if (f >= 0) {

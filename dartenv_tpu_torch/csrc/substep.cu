@@ -15,38 +15,80 @@
 // and not arithmetic (a few 1e4 flops per env); the per-env work is a long
 // dependent chain (tree recursion, two Cholesky solves, PGS_ITERS x M_C
 // sequential Gauss-Seidel row updates), so the kernel is bound by latency
-// and by how many envs are in flight.
+// and by how many envs are in flight.  The earlier design (one thread per
+// env, the working set in local memory, blocks of one warp) ran a batch of
+// 4096 envs as 128 one-warp blocks: one warp on an SM, nothing to hide its
+// local-memory latency, stores 447 floats apart.
 //
-// Design: ONE THREAD PER ENV.  The per-env working set (A 24x24, Jc 24x9,
-// M^-1 J^T 9x24, M 9x9, phi 9x6 for walker2d: ~1.3k floats) is far beyond
-// 255 registers, so the big arrays are thread-local arrays in local memory
-// (which the hardware interleaves across the threads of a warp, so a
-// warp's accesses to one array element coalesce) and stay L1/L2 resident.
-// Blocks are one warp wide, so a 4096-env batch spreads over 128 blocks
-// and every SM gets work.  The ragged last block is masked (no padding).
+// Design: ONE WARP PER ENV, SS_WARPS = 16 envs per block, two blocks per
+// SM (64 registers), the per-env working set in dynamic shared memory
+// (substep_body.h's SS_SMEM floats: A, Jc, M^-1 Jc^T, M, L, phi, R_w, p_w,
+// the slot and row vectors; 6.6 KB for walker2d), so a 4096-env batch is
+// one wave of 32 warps on each SM.  The lanes take the independent items:
+// geoms in collision, the slots' compaction ranks, the contact / limit /
+// friction rows, the M_C columns of M^-1 Jc^T, the rows of A, the
+// residual rows, the output entries (every output row is stored by the
+// warp as one coalesced run; `esc` is laid out in shared memory in its own
+// order and copied).  The serial chains stay serial: the PGS sweeps are the
+// PGS kernel's row update (pgs_row.h: a lane-wise product, a shuffle
+// butterfly, one lane's write); the dynamics stage and the Cholesky of M
+// run one env per THREAD, the block's 16 envs on the lanes of its first
+// warp (a first version ran them on lane 0 of each env's warp: one
+// warp-instruction per env instead of per 16 envs, and the stage took 64 %
+// of the launch's cycles; bench/kernel_stages.py measures the split).
 //
 // The model is NOT passed at run time: sizes are compile-time constants
 // and the model tables are __constant__ arrays, both from a header
 // generated from the model's static digest (substep_model.h; one build per
-// distinct digest).  Every thread of a warp reads the same table entry at
-// the same time, which is what the constant cache serves best.
+// distinct digest).
 //
 // Joint types: WELD, REVOLUTE, PRISMATIC, PLANAR (the wrapper's gate; the
 // shared dynamics stage takes all ten).  Geoms: sphere, capsule, box.  The
 // per-env arithmetic lives in substep_body.h, whose dynamics stage is
 // dynamics_body.h (shared with dynamics.cu); a host compiler can build both
-// (substep_host.cpp).  Built with -fmad=false so
-// products and sums round separately, as in the plain PyTorch version
-// (engine/hopper_substep.substep_reference).
+// (substep_host.cpp), running each env as one lane.  Built with
+// -fmad=false so products and sums round separately, as in the plain
+// PyTorch version (engine/hopper_substep.substep_reference).
 
 #include <cuda_runtime.h>
 
 #include "substep_model.h"
+
+// Envs (warps) per block and the blocks per SM that __launch_bounds__
+// asks registers for; a generated header may set either.
+#ifndef SS_WARPS
+#define SS_WARPS 16
+#endif
+#ifndef SS_MIN_BLOCKS
+#define SS_MIN_BLOCKS 2
+#endif
+// envs per warp in the dynamics stage (lanes 0.. of the first warps)
+#ifndef SS_DYN_LANES
+#define SS_DYN_LANES SS_WARPS
+#endif
+
+// With SS_STAMPS defined (bench/kernel_stages.py), lane 0 of every warp
+// adds the clock64() cycles of each stage of substep_body.h to
+// ss_cycles[stage]; substep_stage_cycles reads and clears them.  Stages:
+// 0 load + dynamics (to the block's barrier), 1 collision + compaction,
+// 2 rows, 3 M^-1 Jc^T + A + warm start, 4 PGS, 5 residual + stores.
+#define SS_NSTAGES 6
+#ifdef SS_STAMPS
+__device__ unsigned long long ss_cycles[SS_NSTAGES];
+#define SS_STAMP_DECL long long ss_t0 = clock64();
+#define SS_STAMP(k)                                                   \
+    do {                                                              \
+        if (lane == 0) {                                              \
+            const long long t = clock64();                            \
+            atomicAdd(&ss_cycles[k], (unsigned long long)(t - ss_t0)); \
+            ss_t0 = t;                                                \
+        }                                                             \
+    } while (0)
+#endif
+
 #include "substep_body.h"
 
-#define SS_BLOCK 32
-
-__global__ void __launch_bounds__(SS_BLOCK)
+__global__ void __launch_bounds__(SS_WARPS * 32, SS_MIN_BLOCKS)
 substep_kernel(const float* __restrict__ q_g, const float* __restrict__ dq_g,
                const float* __restrict__ tau_g,
                const float* __restrict__ lam_g, float* __restrict__ dqp_g,
@@ -54,15 +96,47 @@ substep_kernel(const float* __restrict__ q_g, const float* __restrict__ dq_g,
                float* __restrict__ ovf_g, float* __restrict__ cpos_g,
                float* __restrict__ cdep_g, float* __restrict__ cact_g,
                float* __restrict__ esc_g, int B) {
-    const int e = blockIdx.x * SS_BLOCK + threadIdx.x;
-    if (e >= B) return;                       // ragged edge: masked
-    substep_env(e, q_g, dq_g, tau_g, lam_g, dqp_g, lamf_g, res_g, ovf_g,
-                cpos_g, cdep_g, cact_g, esc_g);
+    extern __shared__ float smem[];
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int e0 = blockIdx.x * SS_WARPS;
+    SS_STAMP_DECL
+    // the dynamics stage: one thread per env, the block's envs on the
+    // first SS_DYN_LANES lanes of its first warps
+    {
+        const int j = warp * SS_DYN_LANES + lane;
+        if (lane < SS_DYN_LANES && j < SS_WARPS && e0 + j < B)
+            substep_dyn(e0 + j, smem + j * SS_SMEM, q_g, dq_g, tau_g);
+    }
+    __syncthreads();
+    SS_STAMP(0);
+    const int e = e0 + warp;
+    if (e >= B) return;               // ragged edge: whole warps, masked
+    substep_warp(e, lane, smem + warp * SS_SMEM, lam_g, dqp_g, lamf_g,
+                 res_g, ovf_g, cpos_g, cdep_g, cact_g, esc_g);
 }
 
 extern "C" int substep_dims(int* out) {
     out[0] = SS_N; out[1] = SS_M; out[2] = SS_NS; out[3] = SS_ESC;
     return 4;
+}
+
+// Dynamic shared memory of one block (SS_WARPS envs), in bytes.
+extern "C" int substep_smem_bytes() {
+    return SS_WARPS * SS_SMEM * (int)sizeof(float);
+}
+
+// The stage cycles summed over warps since the last call (cleared);
+// returns the number of stages, or 0 in a build without SS_STAMPS.
+extern "C" int substep_stage_cycles(unsigned long long* out) {
+#ifdef SS_STAMPS
+    cudaMemcpyFromSymbol(out, ss_cycles, sizeof(ss_cycles));
+    unsigned long long zero[SS_NSTAGES] = {0};
+    cudaMemcpyToSymbol(ss_cycles, zero, sizeof(zero));
+    return SS_NSTAGES;
+#else
+    (void)out;
+    return 0;
+#endif
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = ok).
@@ -72,8 +146,15 @@ extern "C" int substep_launch(const float* q, const float* dq,
                               float* overflow, float* con_pos,
                               float* con_depth, float* con_active,
                               float* esc, int B, void* stream) {
-    const int grid = (B + SS_BLOCK - 1) / SS_BLOCK;
-    substep_kernel<<<grid, SS_BLOCK, 0, (cudaStream_t)stream>>>(
+    const int bytes = substep_smem_bytes();
+    if (bytes > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(
+            substep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            bytes);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const int grid = (B + SS_WARPS - 1) / SS_WARPS;
+    substep_kernel<<<grid, SS_WARPS * 32, bytes, (cudaStream_t)stream>>>(
         q, dq, tau, lam_prev, dq_plus, lam_full, res, overflow, con_pos,
         con_depth, con_active, esc, B);
     return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
 // Host build of the fused substep's per-env arithmetic (substep_body.h):
-// the same code the CUDA kernel runs per thread, as a plain loop over envs.
+// the same code the CUDA kernel runs per warp, as a plain loop over envs,
+// each env run as one lane (every lane loop takes all its items in order).
 // Build with a C++ compiler and -ffp-contract=off (no a*b+c contraction,
 // like the kernel's -fmad=false).  For tests on machines without a GPU;
 // nothing on the main path calls it.
@@ -18,8 +19,11 @@ extern "C" int substep_host(const float* q, const float* dq,
                             float* overflow, float* con_pos,
                             float* con_depth, float* con_active,
                             float* esc, int B) {
-    for (int e = 0; e < B; ++e)
-        substep_env(e, q, dq, tau, lam_prev, dq_plus, lam_full, res,
-                    overflow, con_pos, con_depth, con_active, esc);
+    static float sm[SS_SMEM];
+    for (int e = 0; e < B; ++e) {
+        substep_dyn(e, sm, q, dq, tau);
+        substep_warp(e, 0, sm, lam_prev, dq_plus, lam_full, res, overflow,
+                     con_pos, con_depth, con_active, esc);
+    }
     return 0;
 }

@@ -9,8 +9,10 @@ One substep of a batch is
      dof-friction rows -> A = J M^-1 J^T + cfm -> warm-started PGS ->
      normalized residual -> dq_plus, lam_full, packed `esc`;
   2. `escalate_batch`: the worst K = min(B, kmax, ceil(frac * B)) envs by
-     residual are re-solved exactly (lcp/hopper_bpp) and patched in place
-     (`escalation_size` and `keep_best` of lcp/hybrid);
+     residual are re-solved exactly and patched (`escalation_size` and
+     `keep_best` of lcp/hybrid): on a float32 CUDA batch a top-K and ONE
+     launch of the escalation kernel's fused mode (lcp/hopper_bpp.
+     bpp_fused), otherwise its plain version `escalate_reference`;
   3. `integrate_positions`.
 
 Scope of the fused path (as in the JAX package): world pairs of sphere /
@@ -26,6 +28,7 @@ the plain version (so a run can show it took none).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -41,6 +44,7 @@ from dartenv_tpu_torch.engine.constraints import (
     assemble_lcp, build_layout, compact_lam, compacted_findex,
     has_servo_rows, scatter_lam,
 )
+from dartenv_tpu_torch.lcp import hopper_bpp
 from dartenv_tpu_torch.lcp.hybrid import (
     comp_residual, escalation_size, keep_best,
 )
@@ -122,6 +126,25 @@ class _SubStatic:
         self.m_c = 3 * self.cap + (self.layout.m - 3 * self.ns)
         self.findex_c = (compacted_findex(self.layout, self.cap)
                          if self.ns else np.asarray(self.layout.findex))
+
+    @functools.cached_property
+    def escalation_header(self) -> str:
+        """The generated header of the escalation kernel's fused mode
+        (csrc/bpp.cu + escalate_body.h) for this digest: the sizes, cfm
+        and the offsets of `esc`'s blocks (`_esc_layout`) as constants."""
+        tab, width = _esc_layout(self)
+        defs = dict(ES_M=self.m_c, ES_N=self.n, ES_CAP=self.cap,
+                    ES_NS=self.ns, ES_MFULL=self.layout.m,
+                    ES_CFM=c_float(self.cfg.cfm), ES_W=width)
+        names = dict(b="B", lo="LO", hi="HI", mu="MU", act="ACT",
+                     lam_c="LAM", sel_slots="SEL", M="M", Jc="JC")
+        defs.update({f"ES_O_{names[k]}": a for k, (a, _) in tab.items()})
+        return "".join(f"#define {k} {v}\n" for k, v in defs.items())
+
+    @property
+    def escalation_dims(self):
+        """(n, m_c, m, esc width), as lcp/hopper_bpp.bpp_fused takes them."""
+        return (self.n, self.m_c, self.layout.m, _esc_layout(self)[1])
 
 
 def _esc_layout(st: _SubStatic):
@@ -267,6 +290,10 @@ class SubstepKernel:
     def __init__(self, model: SkelModel, st: Optional[_SubStatic] = None):
         self.st = st or _SubStatic(model)
         self.sizes = _out_sizes(self.st)
+        ends = np.cumsum([0] + [self.sizes[f] for f in _OUT_FIELDS])
+        self._spans = {f: (int(ends[i]), int(ends[i + 1]))
+                       for i, f in enumerate(_OUT_FIELDS)}
+        self._width = int(ends[-1])
         self._header = model_header(model, self.st)
         self._build = None
         self._lib = None
@@ -277,7 +304,7 @@ class SubstepKernel:
             self._build = cuda_build.start_build(
                 "dartenv_substep", "substep.cu", header_text=self._header,
                 header_name="substep_model.h",
-                deps=("substep_body.h", "dynamics_body.h"))
+                deps=("substep_body.h", "dynamics_body.h", "pgs_row.h"))
         return self._build
 
     def load(self):
@@ -307,7 +334,7 @@ class SubstepKernel:
             lib = cuda_build.build_host(
                 "dartenv_substep_host", "substep_host.cpp",
                 header_text=self._header, header_name="substep_model.h",
-                deps=("substep_body.h", "dynamics_body.h"))
+                deps=("substep_body.h", "dynamics_body.h", "pgs_row.h"))
             lib.substep_host.argtypes = [ctypes.c_void_p] * 12 + [
                 ctypes.c_int]
             lib.substep_host.restype = ctypes.c_int
@@ -340,8 +367,11 @@ class SubstepKernel:
                     f"{x.device}")
         lib = self.load()
         ins = [x.contiguous() for x in (q, dq, tau, lam_prev)]
-        outs = {f: torch.empty((B, self.sizes[f]), dtype=torch.float32,
-                               device=q.device) for f in _OUT_FIELDS}
+        # one allocation; each output a contiguous (B, k) view of it
+        buf = torch.empty((B * self._width,), dtype=torch.float32,
+                          device=q.device)
+        outs = {f: buf[B * a:B * b].view(B, b - a)
+                for f, (a, b) in self._spans.items()}
         if B == 0:
             return outs
         with torch.cuda.device(q.device):
@@ -396,25 +426,23 @@ def gather_escalation(st: _SubStatic, cfg, outs):
                 sel_slots=blk["sel_slots"], MinvJt=MinvJt)
 
 
-def escalate_batch(st: _SubStatic, cfg, outs, dq_plus, lam_full,
-                   exact1, exact2=None):
-    """The hybrid exact-escalation stage over the substep's outputs:
-    top-K by residual, one gather of `esc`, operator rebuild, warm tier-1
-    (+ optional cold tier-2) exact re-solve, keep-best by residual, and
-    DELTA-form `index_add_` patches of dq_plus and lam_full (envs outside
-    the top K, and escalated envs whose re-solve is no better, keep their
-    values bit for bit).  Returns new (dq_plus, lam_full)."""
-    if cfg.escalate_ref > 0 or cfg.escalate_ref64 > 0:
-        raise NotImplementedError(
-            "escalate_ref / escalate_ref64 refinement tiers are not ported "
-            "yet")
+def escalate_reference(st: _SubStatic, cfg, outs, dq_plus, lam_full,
+                       exact1, exact2=None):
+    """The plain version of the escalation kernel's fused mode, as torch
+    ops: top-K by residual, one gather of `esc`, operator rebuild, warm
+    tier-1 (+ optional cold tier-2) exact re-solve by `exact1` / `exact2`,
+    keep-best by residual, and DELTA-form `index_add` patches of dq_plus
+    and lam_full (envs outside the top K, and escalated envs whose
+    re-solve is no better, keep their values bit for bit).  Returns new
+    (dq_plus, lam_full), the top-K idx, take (K,) bool and the residual
+    of the point kept (K,)."""
     ns, cap = st.ns, st.cap
     g = gather_escalation(st, cfg, outs)
     worst, idx, lamk = g["worst"], g["idx"], g["lam_c"]
     K = idx.shape[0]
     prob = (g["A"], g["b"], g["lo"], g["hi"], g["mu"], g["act"])
-    lam_new, take = keep_best(prob, st.findex_c, worst, lamk,
-                              cfg.escalate_tol, exact1, exact2)
+    lam_new, take, res_kept = keep_best(prob, st.findex_c, worst, lamk,
+                                        cfg.escalate_tol, exact1, exact2)
     dlam = torch.where(take[:, None], lam_new - lamk,
                        torch.zeros_like(lamk))
     dqp_delta = torch.sum(g["MinvJt"] * dlam[:, None, :], dim=-1)
@@ -425,7 +453,44 @@ def escalate_batch(st: _SubStatic, cfg, outs, dq_plus, lam_full,
                      dim=1).reshape(K, 3 * ns)
     lamf_delta = torch.cat([scat, dlam[:, 3 * cap:]], dim=1)
     return (dq_plus.index_add(0, idx, dqp_delta),
-            lam_full.index_add(0, idx, lamf_delta))
+            lam_full.index_add(0, idx, lamf_delta), idx, take, res_kept)
+
+
+def escalate_fused(st: _SubStatic, cfg, outs, dq_plus, lam_full):
+    """The escalation stage on a float32 CUDA batch: the top K of the
+    residuals in torch (a selection across the whole batch), then ONE
+    launch of the escalation kernel's fused mode, which reads its envs'
+    `esc` rows, rebuilds their operators, re-solves with `cfg`'s tier
+    budgets, keeps the best and patches copies of dq_plus and lam_full.
+    Returns what `escalate_reference` returns."""
+    res = outs["res"][:, 0]
+    K = escalation_size(res.shape[0], cfg.escalate_frac, cfg.escalate_kmax)
+    worst, idx = torch.topk(res, K)
+    budgets = hopper_bpp.tier_budgets(cfg.escalate_iters,
+                                      cfg.escalate_refine,
+                                      cfg.escalate_iters2)
+    dqp, lamf, take, res_kept = hopper_bpp.bpp_fused(
+        st.escalation_header, st.escalation_dims, outs["esc"], dq_plus,
+        lam_full, idx, worst, st.findex_c, cfg.escalate_tol, budgets)
+    return dqp, lamf, idx, take, res_kept
+
+
+def escalate_batch(st: _SubStatic, cfg, outs, dq_plus, lam_full,
+                   exact1, exact2=None):
+    """The hybrid exact-escalation stage over the substep's outputs.  A
+    float32 CUDA batch runs `escalate_fused` (the kernel re-solves with the
+    tier budgets of `cfg`, which are those `exact1` / `exact2` were made
+    with); any other batch runs `escalate_reference` with `exact1` /
+    `exact2`.  The inputs are not modified.  Returns new (dq_plus,
+    lam_full)."""
+    if cfg.escalate_ref > 0 or cfg.escalate_ref64 > 0:
+        raise NotImplementedError(
+            "escalate_ref / escalate_ref64 refinement tiers are not ported "
+            "yet")
+    if cuda_build.use_kernel(dq_plus):
+        return escalate_fused(st, cfg, outs, dq_plus, lam_full)[:2]
+    return escalate_reference(st, cfg, outs, dq_plus, lam_full, exact1,
+                              exact2)[:2]
 
 
 # ---------------------------------------------------------------------------
@@ -437,9 +502,9 @@ def make_substep_phase(model: SkelModel):
     for a batch, or None when the model is outside the fused path's scope
     (the caller keeps the phase-wise path).
 
-    A float32 CUDA batch runs the substep kernel + `escalate_batch` (with
-    the block-pivoting kernel) + `integrate_positions`; a CPU or float64
-    batch runs the plain versions in the same sequence."""
+    A float32 CUDA batch runs the substep kernel + `escalate_batch` (the
+    escalation kernel's fused mode) + `integrate_positions`; a CPU or
+    float64 batch runs the plain versions in the same sequence."""
     if not in_fused_scope(model):
         return None
     if model.solver.solver != "pgs":

@@ -25,7 +25,8 @@ _LIB = None
 
 def start_build():
     """Start compiling the kernel (returns a cuda_build.Build)."""
-    return cuda_build.start_build("dartenv_pgs", "pgs.cu")
+    return cuda_build.start_build("dartenv_pgs", "pgs.cu",
+                                  deps=("pgs_row.h",))
 
 
 def load(build=None):

@@ -14,6 +14,11 @@ After the batched PGS solve,
   5. scatter back: envs outside the top K keep their PGS impulses bit for
      bit.
 
+On a float32 CUDA batch, stages 3-5 are ONE launch of the escalation
+kernel's hybrid mode (lcp/hopper_bpp.bpp_hybrid); any other batch runs
+them as the torch composition below (`escalate_rows`), which is that
+mode's plain version.
+
 `make_hybrid_solver` is the phase-wise path's solver (the fused substep
 phase runs the same stages over its packed buffer, in
 engine/hopper_substep.escalate_batch, through `escalation_size` and
@@ -62,8 +67,9 @@ def keep_best(prob, findex, worst, lamk, tol, exact1, exact2=None):
     prob: (A, b, lo, hi, mu, active) of the K envs; worst: their PGS
     residuals; lamk: their PGS impulses.  Tier 1 re-solves warm from lamk,
     the optional tier 2 cold; a point is taken only where the residual it
-    replaces exceeds `tol` and its own is lower.  Returns (lam_new, take)
-    with take (K,) bool: which envs changed."""
+    replaces exceeds `tol` and its own is lower.  Returns (lam_new, take,
+    res_kept) with take (K,) bool: which envs changed, and res_kept (K,):
+    the residual of the point kept (`worst` where none was taken)."""
     A, b, lo, hi, mu, act = prob
 
     def resid(lam):
@@ -73,14 +79,31 @@ def keep_best(prob, findex, worst, lamk, tol, exact1, exact2=None):
     res_ex = resid(lam_ex)
     take = (worst > tol) & (res_ex < worst)
     lam_new = torch.where(take[:, None], lam_ex, lamk)
+    res_kept = torch.where(take, res_ex, worst)
     if exact2 is not None:
-        res_kept = torch.where(take, res_ex, worst)
         lam_c2 = exact2(*prob, torch.zeros_like(lamk))
         res_c2 = resid(lam_c2)
         take2 = (res_kept > tol) & (res_c2 < res_kept)
         lam_new = torch.where(take2[:, None], lam_c2, lam_new)
+        res_kept = torch.where(take2, res_c2, res_kept)
         take = take | take2
-    return lam_new, take
+    return lam_new, take, res_kept
+
+
+def escalate_rows(A, b, lo, hi, mu, active, lam, idx, worst, findex, tol,
+                  exact1, exact2=None):
+    """The plain version of the escalation kernel's hybrid mode: ONE
+    packed gather of rows idx, `keep_best`, and the rows written back into
+    a copy of lam (envs outside idx keep their impulses bit for bit).
+    Returns (lam, take, res_kept)."""
+    m = b.shape[1]
+    # the six (B, m) operands gathered as one packed buffer
+    pk = torch.cat([b, lo, hi, mu, active, lam], dim=1)[idx]
+    bk, lok, hik, muk, actk, lamk = pk.split(m, dim=1)
+    prob = (A[idx], bk, lok, hik, muk, actk)
+    lam_new, take, res_kept = keep_best(prob, findex, worst, lamk, tol,
+                                        exact1, exact2)
+    return lam.index_copy(0, idx, lam_new), take, res_kept
 
 
 def make_hybrid_solver(findex, iters: int, omega: float = 1.0,
@@ -95,8 +118,10 @@ def make_hybrid_solver(findex, iters: int, omega: float = 1.0,
     """Batched boxed-LCP solver: solve(A, b, lo, hi, mu, active, lam0) ->
     lam (B, m), PGS with exact re-solve of the worst envs when
     escalate_frac > 0 (plain PGS otherwise).  A float32 CUDA batch runs
-    the PGS kernel with its fused residual and the BPP kernel; a CPU or
-    float64 batch runs their plain versions."""
+    the PGS kernel with its fused residual and the escalation kernel's
+    hybrid mode; a CPU or float64 batch runs their plain versions."""
+    from dartenv_tpu_torch.cuda_build import use_kernel
+    from dartenv_tpu_torch.lcp import hopper_bpp
     from dartenv_tpu_torch.lcp.dantzig import make_exact_solver
     from dartenv_tpu_torch.lcp.hopper_pgs import pgs_solve_batch
 
@@ -111,6 +136,8 @@ def make_hybrid_solver(findex, iters: int, omega: float = 1.0,
     exact2 = (make_exact_solver(findex, iters=escalate_iters2,
                                 polish_iters=6)
               if escalate_iters2 > 0 else None)
+    budgets = hopper_bpp.tier_budgets(escalate_iters, escalate_refine,
+                                      escalate_iters2)
 
     def solve(A, b, lo, hi, mu, active, lam0):
         B, m = b.shape
@@ -123,12 +150,11 @@ def make_hybrid_solver(findex, iters: int, omega: float = 1.0,
                                    return_residual=True)
         K = escalation_size(B, escalate_frac, escalate_kmax)
         worst, idx = torch.topk(res, K)
-        # the six (B, m) operands gathered as one packed buffer
-        pk = torch.cat([b, lo, hi, mu, active, lam], dim=1)[idx]
-        bk, lok, hik, muk, actk, lamk = pk.split(m, dim=1)
-        prob = (A[idx], bk, lok, hik, muk, actk)
-        lam_new, _ = keep_best(prob, findex, worst, lamk, escalate_tol,
-                               exact1, exact2)
-        return lam.index_copy(0, idx, lam_new)
+        if use_kernel(A):
+            return hopper_bpp.bpp_hybrid(A, b, lo, hi, mu, active, lam, idx,
+                                         worst, findex, escalate_tol,
+                                         budgets)[0]
+        return escalate_rows(A, b, lo, hi, mu, active, lam, idx, worst,
+                             findex, escalate_tol, exact1, exact2)[0]
 
     return solve

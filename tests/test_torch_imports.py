@@ -45,7 +45,9 @@ def test_port_sources_exist():
         assert os.path.exists(os.path.join(PKG, sub, "__init__.py")), sub
     for f in ("csrc/substep.cu", "csrc/bpp.cu", "csrc/dynamics.cu",
               "csrc/pgs.cu", "csrc/dynamics_body.h",
-              "csrc/dynamics_host.cpp", "model/assets/walker2d.skel",
+              "csrc/dynamics_host.cpp", "csrc/pgs_row.h",
+              "csrc/escalate_body.h", "csrc/escalate_host.cpp",
+              "model/assets/walker2d.skel",
               "model/assets/hopper_capsule.skel",
               "model/assets/cartpole.skel",
               "model/assets/doublependulum.skel",

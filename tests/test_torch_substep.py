@@ -212,12 +212,17 @@ def test_host_build_of_kernel_arithmetic_matches_plain(name):
 
 
 def test_host_build_is_bit_identical_to_the_recorded_outputs():
-    """The dynamics stage of csrc/substep_body.h lives in the shared
-    csrc/dynamics_body.h (with the dynamics kernel).  The host build of
-    the substep arithmetic gives, on the recorded inputs, exactly the
-    outputs the build had before that move (tests/data/
-    substep_host_golden.npz, recorded from it with the same g++ flags):
-    every output of walker2d, hopper and the mixed model, torch.equal."""
+    """tests/data/substep_host_golden.npz holds the host build's outputs
+    on recorded inputs from before two changes of csrc/substep_body.h: the
+    dynamics stage moved into the shared csrc/dynamics_body.h, and the
+    kernel became one warp per env.  On those inputs, for walker2d, hopper
+    and the mixed model, every output computed before the PGS sweeps is
+    still torch.equal to the record: the contact outputs and overflow, and
+    the b, lo, hi, mu, act, sel_slots, M and Jc blocks of `esc`.  The
+    outputs downstream of the sweeps (dq_plus, lam_full, res and the lam_c
+    block) moved with the sweeps' row sums, which are now the PGS kernel's
+    lane-wise products and shuffle butterfly (csrc/pgs_row.h), and the
+    residual's row sums: they are held within 1e-4 of max(1, |recorded|)."""
     import os
     import shutil
 
@@ -227,6 +232,7 @@ def test_host_build_is_bit_identical_to_the_recorded_outputs():
         pytest.skip("no host C++ compiler")
     gold = np.load(os.path.join(os.path.dirname(__file__), "data",
                                 "substep_host_golden.npz"))
+    bounded = ("dq_plus", "lam_full", "res", "lam_c")
     for name in ("walker2d", "hopper", "mixed"):
         model = (_mixed_model() if name == "mixed"
                  else make_task(name, device="cpu").model)
@@ -235,6 +241,12 @@ def test_host_build_is_bit_identical_to_the_recorded_outputs():
                for k in ("q", "dq", "tau", "lam")]
         got = kern.run_host(*ins)
         assert set(got) == set(ths._OUT_FIELDS)
+        rec = {f: torch.as_tensor(gold[f"{name}/out/{f}"])
+               for f in ths._OUT_FIELDS}
+        got, rec = (ths.output_blocks(kern.st, x) for x in (got, rec))
         for f, v in got.items():
-            assert torch.equal(v, torch.as_tensor(gold[f"{name}/out/{f}"])), (
-                name, f)
+            if f in bounded:
+                assert rel_err(v, rec[f]) <= 1e-4, (name, f,
+                                                    rel_err(v, rec[f]))
+            else:
+                assert torch.equal(v, rec[f]), (name, f)
