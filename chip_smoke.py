@@ -111,11 +111,11 @@ def escalate_work(K, m, budgets, rows_in, rows_out, rebuild_n=0):
     lam_full rows, or A, the vectors and lam) and writes (rows_out), the
     tiers' solves and residuals, and, in the fused mode, the operator
     rebuild from M (n x n) and Jc: n^3/3 + 2 m n^2 + 2 m^2 n per env."""
-    it1, rf1, it2, rf2 = budgets
+    it1, rf1, po1, it2, rf2, po2 = budgets
     n = rebuild_n
-    flops = solve_flops(m, it1, rf1, 3) + 2 * m * m
+    flops = solve_flops(m, it1, rf1, po1) + 2 * m * m
     if it2 > 0:
-        flops += solve_flops(m, it2, rf2, 6) + 2 * m * m
+        flops += solve_flops(m, it2, rf2, po2) + 2 * m * m
     if n:
         flops += n ** 3 // 3 + 2 * m * n * n + 2 * m * m * n
     return 4 * (rows_in + rows_out) * K, flops * K
@@ -146,19 +146,32 @@ DYN_TOL = {"dq_star": 2e-4, "M": 5e-6, "phi": 5e-6, "R_w": 5e-6,
            "p_w": 5e-6}
 
 
-def plain_exact(findex, iters, polish, refine):
-    """An exact solver for the escalation stage that runs the BPP kernel's
-    plain version whatever the device."""
+def cfg_budgets(cfg):
+    """The escalation's tier tuple (lcp/hopper_bpp.tier_budgets) of a
+    solver config."""
+    from dartenv_tpu_torch.lcp.hopper_bpp import tier_budgets
+
+    return tier_budgets(cfg.escalate_iters, cfg.escalate_refine,
+                        cfg.escalate_iters2)
+
+
+def plain_tiers(findex, budgets):
+    """(exact1, exact2) of the escalation's tiers in `budgets` that run the
+    BPP kernel's plain version whatever the device (exact2 None without
+    tier 2)."""
     from dartenv_tpu_torch.lcp.hopper_bpp import bpp_solve_reference
 
-    def solve(A, b, lo, hi, mu, active, lam0):
-        return bpp_solve_reference(A, b, lo, hi, findex, mu, active,
-                                   iters=iters, polish_iters=polish,
-                                   lam0=lam0, refine_iters=refine)
-    return solve
+    def make(iters, refine, polish):
+        def solve(A, b, lo, hi, mu, active, lam0):
+            return bpp_solve_reference(A, b, lo, hi, findex, mu, active,
+                                       iters=iters, polish_iters=polish,
+                                       lam0=lam0, refine_iters=refine)
+        return solve
+    return (make(*budgets[:3]),
+            make(*budgets[3:]) if budgets[3] > 0 else None)
 
 
-def plain_substep(model, st, exact1, q, dq, lam, tau):
+def plain_substep(model, st, tiers, q, dq, lam, tau):
     """One substep through the plain versions only, composed here as the
     port's substep phase composes the kernels: substep_reference ->
     escalate_batch with the plain BPP -> integrate_positions.  Returns
@@ -168,7 +181,7 @@ def plain_substep(model, st, exact1, q, dq, lam, tau):
 
     outs = hs.substep_reference(model, st, q, dq, tau, lam)
     dq, lam = hs.escalate_reference(st, model.solver, outs, outs["dq_plus"],
-                                    outs["lam_full"], exact1)[:2]
+                                    outs["lam_full"], *tiers)[:2]
     return integrate_positions(model, q, dq, st.dt), dq, lam
 
 
@@ -183,8 +196,8 @@ def check_bpp(name, cfg, findex, A, b, lo, hi, mu, act, lam_c):
 
     K, m_c = b.shape
     bpp_args = (A, b, lo, hi, findex, mu, act)
-    bpp_kw = dict(iters=cfg.escalate_iters, polish_iters=3, lam0=lam_c,
-                  refine_iters=cfg.escalate_refine)
+    it1, rf1, po1 = cfg_budgets(cfg)[:3]
+    bpp_kw = dict(iters=it1, polish_iters=po1, lam0=lam_c, refine_iters=rf1)
     lam_k = hb.bpp_solve(*bpp_args, **bpp_kw)
     torch.cuda.synchronize()
     lam_r = hb.bpp_solve_reference(*bpp_args, **bpp_kw)
@@ -286,18 +299,15 @@ def check_escalate(name, st, cfg, outs, tier2=False):
     import torch
 
     from dartenv_tpu_torch.engine import hopper_substep as hs
-    from dartenv_tpu_torch.lcp import hopper_bpp as hb
 
     if tier2:
         cfg = dataclasses.replace(cfg, escalate_iters2=4)
-    exact1 = plain_exact(st.findex_c, cfg.escalate_iters, 3,
-                         cfg.escalate_refine)
-    exact2 = (plain_exact(st.findex_c, cfg.escalate_iters2, 6, None)
-              if cfg.escalate_iters2 > 0 else None)
+    budgets = cfg_budgets(cfg)
+    tiers = plain_tiers(st.findex_c, budgets)
     dqp0, lamf0 = outs["dq_plus"], outs["lam_full"]
-    run_k = lambda: hs.escalate_fused(st, cfg, outs, dqp0, lamf0)
+    run_k = lambda: hs.escalate_fused(st, cfg, outs, dqp0, lamf0, budgets)
     run_r = lambda: hs.escalate_reference(st, cfg, outs, dqp0, lamf0,
-                                          exact1, exact2)
+                                          *tiers)
     dqp_k, lamf_k, idx, take_k, res_k = run_k()
     torch.cuda.synchronize()
     dqp_r, lamf_r, idx_r, take_r, res_r = run_r()
@@ -314,8 +324,6 @@ def check_escalate(name, st, cfg, outs, tier2=False):
         (rows(dqp_r, lamf_r), take_r, res_r), others)
     ms = time_ms(run_k)
     plain_ms = time_ms(run_r, runs=5, warmup=1)
-    budgets = hb.tier_budgets(cfg.escalate_iters, cfg.escalate_refine,
-                              cfg.escalate_iters2)
     n, m_c, m, width = st.escalation_dims
     eb, ef = escalate_work(K, m_c, budgets, width + n + m, n + m,
                            rebuild_n=n)
@@ -326,7 +334,7 @@ def check_escalate(name, st, cfg, outs, tier2=False):
                 bound=bound(eb, ef),
                 shape=f"{name} K={K} m={m_c} n={n} fused "
                       f"iters={budgets[0]}+{budgets[1]} "
-                      f"iters2={budgets[2]}+{budgets[3]}")
+                      f"iters2={budgets[3]}+{budgets[4]}")
 
 
 def check_env(name, B, dev):
@@ -418,8 +426,7 @@ def check_env(name, B, dev):
     Bl = min(B, 1024)
     sl = lambda x: x[:Bl].clone()
     sim_step = make_sim_step(model)
-    exact1 = plain_exact(st.findex_c, cfg.escalate_iters, 3,
-                         cfg.escalate_refine)
+    tiers = plain_tiers(st.findex_c, cfg_budgets(cfg))
     rows = list(range(0, 3 * st.ns, 3)) + list(
         range(3 * st.ns, st.layout.m))
     # error relative to max(1, |plain|) per entry: dq reaches tens of
@@ -436,7 +443,7 @@ def check_env(name, B, dev):
         same = torch.ones(Bl, dtype=torch.bool, device=dev)
         for _ in range(task.frame_skip):
             sk, _ = sim_step(sk, tau_l)
-            sp = plain_substep(model, st, exact1, *sp, tau_l)
+            sp = plain_substep(model, st, tiers, *sp, tau_l)
             same &= (sk.lam[:, rows] > 0).eq(sp[2][:, rows] > 0).all(1)
         dq_err, q_err = rel(sk.dq, sp[1]), rel(sk.q, sp[0])
         if i == 0:
@@ -621,9 +628,9 @@ def plain_hybrid(cfg, findex, A, b, lo, hi, mu, act, lam0):
                                    lam0=lam0, return_residual=True)
     K = escalation_size(b.shape[0], cfg.escalate_frac, cfg.escalate_kmax)
     worst, idx = torch.topk(res, K)
-    exact1 = plain_exact(findex, cfg.escalate_iters, 3, cfg.escalate_refine)
     return escalate_rows(A, b, lo, hi, mu, act, lam, idx, worst, findex,
-                         cfg.escalate_tol, exact1)[0]
+                         cfg.escalate_tol,
+                         *plain_tiers(findex, cfg_budgets(cfg)))[0]
 
 
 def plain_phasewise_substep(model, q, dq, lam, tau, f_ext):
@@ -718,13 +725,12 @@ def check_pgs(dev, states):
               hi[idx], mu[idx], act[idx], lam_k[idx])
 
     # the hybrid mode: the whole escalation of the phase-wise solve
-    budgets = hb.tier_budgets(cfg.escalate_iters, cfg.escalate_refine,
-                              cfg.escalate_iters2)
-    exact1 = plain_exact(findex, cfg.escalate_iters, 3, cfg.escalate_refine)
+    budgets = cfg_budgets(cfg)
+    tiers = plain_tiers(findex, budgets)
     run_k = lambda: hb.bpp_hybrid(A, b, lo, hi, mu, act, lam_k, idx, worst,
                                   findex, cfg.escalate_tol, budgets)
     run_r = lambda: escalate_rows(A, b, lo, hi, mu, act, lam_k, idx, worst,
-                                  findex, cfg.escalate_tol, exact1)
+                                  findex, cfg.escalate_tol, *tiers)
     out_k, take_k, kept_k = run_k()
     torch.cuda.synchronize()
     out_r, take_r, kept_r = run_r()
@@ -832,15 +838,16 @@ def drive_main_path(dev, name, perturb=False):
     from dartenv_tpu_torch.lcp import hopper_pgs as hp
 
     B, horizon, rollouts = PATHS[(name, perturb)]
-    hs.SUBSTEP_LAUNCHES = hb.LAUNCHES = 0
-    hd.DYNAMICS_LAUNCHES = hp.PGS_LAUNCHES = 0
+    hs.SUBSTEP_LAUNCHES = hd.DYNAMICS_LAUNCHES = hp.PGS_LAUNCHES = 0
+    hb.CORE_LAUNCHES = hb.FUSED_LAUNCHES = hb.HYBRID_LAUNCHES = 0
     hs.PLAIN_CALLS = hb.PLAIN_CALLS = hd.PLAIN_CALLS = hp.PLAIN_CALLS = 0
     t0 = time.time()
     out = bench_env(name, batch=B, horizon=horizon, iters=rollouts - 1,
                     max_episode_steps=1000, device=dev,
                     return_state=True, perturb=perturb)
     seconds = time.time() - t0
-    counts = dict(substep=hs.SUBSTEP_LAUNCHES, bpp=hb.LAUNCHES,
+    counts = dict(substep=hs.SUBSTEP_LAUNCHES, bpp_core=hb.CORE_LAUNCHES,
+                  bpp_fused=hb.FUSED_LAUNCHES, bpp_hybrid=hb.HYBRID_LAUNCHES,
                   dynamics=hd.DYNAMICS_LAUNCHES, pgs=hp.PGS_LAUNCHES)
     plain = sum(plain_counts())
     end, task = out.pop("state"), out.pop("task")
@@ -854,12 +861,13 @@ def drive_main_path(dev, name, perturb=False):
     assert obs.shape[0] == B and end.sim.q.shape == (B, task.model.n)
     assert out["episodes_seen"] > 0
     sub = task.frame_skip * steps_run
+    want = dict.fromkeys(counts, 0)
     if perturb:                      # the external-force route
-        want = dict(substep=0, bpp=sub, dynamics=0, pgs=sub)
+        want.update(bpp_hybrid=sub, pgs=sub)
     elif hs.in_fused_scope(task.model):
-        want = dict(substep=sub, bpp=sub, dynamics=0, pgs=0)
+        want.update(substep=sub, bpp_fused=sub)
     else:                            # no constraint rows: kernel 3 only
-        want = dict(substep=0, bpp=0, dynamics=sub, pgs=0)
+        want.update(dynamics=sub)
     assert counts == want, (counts, want)
     assert plain == 0
     return dict(counts, steps=steps_run)
@@ -967,25 +975,25 @@ def main():
     sources = {
         "substep": ("fused_substep", "dartenv_tpu_torch/csrc/substep.cu",
                     "dartenv_tpu/engine/pallas_substep.py:762"),
-        "escalate": ("bpp_escalate", "dartenv_tpu_torch/csrc/bpp.cu",
-                     "dartenv_tpu/lcp/pallas_bpp.py:232"),
-        "bpp": ("bpp_hybrid", "dartenv_tpu_torch/csrc/bpp.cu",
-                "dartenv_tpu/lcp/pallas_bpp.py:232"),
+        "bpp_fused": ("bpp_escalate", "dartenv_tpu_torch/csrc/bpp.cu",
+                      "dartenv_tpu/lcp/pallas_bpp.py:232"),
+        "bpp_hybrid": ("bpp_hybrid", "dartenv_tpu_torch/csrc/bpp.cu",
+                       "dartenv_tpu/lcp/pallas_bpp.py:232"),
         "dynamics": ("dynamics", "dartenv_tpu_torch/csrc/dynamics.cu",
                      "dartenv_tpu/dynamics/pallas_dynamics.py:807"),
         "pgs": ("pgs_solve", "dartenv_tpu_torch/csrc/pgs.cu",
                 "dartenv_tpu/lcp/pallas_pgs.py:131"),
     }
-    entries = [(e, False, key, checks[e][key])
-               for e in envs for key in ("substep", "escalate")]
+    entries = [(e, False, key, checks[e][phase])
+               for e in envs for key, phase in (("substep", "substep"),
+                                                ("bpp_fused", "escalate"))]
     entries += [("cartpole", False, "dynamics", dyn["cartpole"]),
                 ("walker2d", True, "pgs", pgs),
-                ("walker2d", True, "bpp", bpp_pert)]
+                ("walker2d", True, "bpp_hybrid", bpp_pert)]
     kernels = []
     for e, perturb, key, c in entries:
         kname, src, repl = sources[key]
-        n = dict(counts[(e, perturb)])
-        n["escalate"] = n["bpp"]
+        n = counts[(e, perturb)]
         label = e + ("_perturbed" if perturb else "")
         kernels.append({
             "name": f"{kname}[{label}]", "route": "cuda", "source": src,

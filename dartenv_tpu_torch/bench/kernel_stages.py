@@ -9,10 +9,6 @@ the random policy), it prints one JSON object with
   * kernel 1 (csrc/substep.cu) built with SS_STAMPS: the clock64() cycles
     of each stage of substep_body.h, per env (lane 0 of each warp stamps
     the end of each stage), beside the stamped launch's device time;
-  * kernel 1 built at several launch shapes (SS_WARPS envs per block,
-    SS_MIN_BLOCKS blocks per SM in __launch_bounds__, SS_DYN_LANES envs per
-    warp in the dynamics stage): registers and spills (ptxas) and device ms
-    per launch;
   * kernel 2's fused mode (csrc/bpp.cu) built with ES_STAMPS on the same
     batch's escalation: cycles per escalated env and stage, beside its
     device time.
@@ -30,9 +26,6 @@ import subprocess
 
 import torch
 
-# (SS_WARPS, SS_MIN_BLOCKS, SS_DYN_LANES) shapes of kernel 1 to time
-SHAPES = ((4, 4, 4), (8, 4, 8), (16, 2, 16), (16, 2, 8), (16, 2, 4),
-          (16, 2, 2), (32, 1, 32), (32, 1, 8))
 SS_STAGES = ("load_dynamics", "collision_compaction", "rows",
              "minv_jt_A_warm", "pgs", "residual_stores")
 ES_STAGES = ("load", "rebuild", "tiers", "patch")
@@ -76,7 +69,6 @@ def live_batch(env, batch, steps=25):
 
 
 def run(env="walker2d", batch=4096):
-    from dartenv_tpu_torch import cuda_build
     from dartenv_tpu_torch.engine import hopper_substep as hs
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
 
@@ -86,22 +78,11 @@ def run(env="walker2d", batch=4096):
     model, cfg = task.model, task.model.solver
     st = hs._SubStatic(model)
 
-    def variant(extra):
-        k = hs.SubstepKernel(model, st)
-        k._header += extra
-        return k
-
-    stamped = variant("#define SS_STAMPS 1\n")
-    shapes = {s: variant(f"#define SS_WARPS {s[0]}\n"
-                         f"#define SS_MIN_BLOCKS {s[1]}\n"
-                         f"#define SS_DYN_LANES {s[2]}\n") for s in SHAPES}
+    stamped = hs.SubstepKernel(model, st)
+    stamped._header += "#define SS_STAMPS 1\n"
     es_header = st.escalation_header + "#define ES_STAMPS 1\n"
-    builds = ([stamped.start_build()]
-              + [k.start_build() for k in shapes.values()]
-              + [hb.start_build(st.m_c, es_header)])
-    hb.load(st.m_c, builds[-1], es_header)
-    for k in [stamped, *shapes.values()]:
-        k.load()
+    stamped.start_build()
+    hb.load(st.m_c, hb.start_build(st.m_c, es_header), es_header)
 
     # ---- kernel 1, stage split -------------------------------------------
     cyc = (ctypes.c_ulonglong * len(SS_STAGES))()
@@ -118,18 +99,6 @@ def run(env="walker2d", batch=4096):
         cycles_per_env=per_env, total_cycles_per_env=sum(per_env.values()),
         stamped_device_ms=device_ms(lambda: stamped(q, dq, tau, lam),
                                     "substep_kernel"))
-
-    # ---- kernel 1, launch shapes ------------------------------------------
-    ss_shapes = []
-    for (w, mb, dl), k in shapes.items():
-        log = cuda_build.build_log(k.start_build())
-        ss_shapes.append(dict(
-            warps_per_block=w, min_blocks=mb, dyn_envs_per_warp=dl,
-            ptxas=[ln.strip() for ln in log.splitlines()
-                   if "registers" in ln or "spill" in ln],
-            smem_bytes_per_block=k.load().substep_smem_bytes(),
-            device_ms=device_ms(lambda: k(q, dq, tau, lam),
-                                "substep_kernel")))
 
     # ---- kernel 2, fused mode, stage split --------------------------------
     res = outs["res"][:, 0]
@@ -160,8 +129,7 @@ def run(env="walker2d", batch=4096):
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip()
     return {"env": env, "batch": batch, "card": smi,
-            "substep_stages": ss_split, "substep_shapes": ss_shapes,
-            "escalate_stages": es_split}
+            "substep_stages": ss_split, "escalate_stages": es_split}
 
 
 def main():

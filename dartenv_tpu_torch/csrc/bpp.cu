@@ -222,11 +222,12 @@ __device__ __noinline__ float bpp_warp(const float* As, Row rw, float x0,
 // entry; take / kept residual are the same in every lane.
 __device__ float tiers(const float* As, const Row& rw, const float* vec,
                        const int* fs, float* xs, float lamc, float worst,
-                       float tol, int iters1, int refine1, int iters2,
-                       int refine2, int lane, bool& take, float& kept) {
+                       float tol, int iters1, int refine1, int polish1,
+                       int iters2, int refine2, int polish2, int lane,
+                       bool& take, float& kept) {
     const bool live = lane < ES_M;
     const float* b = vec;
-    const float x1 = bpp_warp(As, rw, lamc, iters1, refine1, 3, lane);
+    const float x1 = bpp_warp(As, rw, lamc, iters1, refine1, polish1, lane);
     if (live) xs[lane] = x1;
     __syncwarp();
     const float r1 = es_residual(As, b, b + ES_M, b + 2 * ES_M, b + 3 * ES_M,
@@ -236,7 +237,8 @@ __device__ float tiers(const float* As, const Row& rw, const float* vec,
     kept = take ? r1 : worst;
     float lam = take ? x1 : lamc;
     if (iters2 > 0) {
-        const float x2 = bpp_warp(As, rw, 0.0f, iters2, refine2, 6, lane);
+        const float x2 = bpp_warp(As, rw, 0.0f, iters2, refine2, polish2,
+                                  lane);
         if (live) xs[lane] = x2;
         __syncwarp();
         const float r2 = es_residual(As, b, b + ES_M, b + 2 * ES_M,
@@ -309,8 +311,8 @@ bpp_hybrid_kernel(const float* __restrict__ A_g,
                   const float* __restrict__ worst_g,
                   const int* __restrict__ findex, float* __restrict__ out_g,
                   int* __restrict__ take_g, float* __restrict__ res_g,
-                  float tol, int iters1, int refine1, int iters2,
-                  int refine2) {
+                  float tol, int iters1, int refine1, int polish1,
+                  int iters2, int refine2, int polish2) {
     extern __shared__ float sm[];
     float* As = sm;
     float* vec = As + ES_M * ES_LD;               // b lo hi mu act
@@ -334,8 +336,8 @@ bpp_hybrid_kernel(const float* __restrict__ A_g,
     bool take;
     float kept;
     const float lam = tiers(As, rw, vec, fs, xs, lamc, worst_g[k], tol,
-                            iters1, refine1, iters2, refine2, lane, take,
-                            kept);
+                            iters1, refine1, polish1, iters2, refine2,
+                            polish2, lane, take, kept);
     if (lane == 0) {
         take_g[k] = take;
         res_g[k] = kept;
@@ -354,8 +356,8 @@ bpp_fused_kernel(const float* __restrict__ esc_g,
                  const int* __restrict__ findex,
                  float* __restrict__ dqp_out, float* __restrict__ lamf_out,
                  int* __restrict__ take_g, float* __restrict__ res_g,
-                 float tol, int iters1, int refine1, int iters2,
-                 int refine2) {
+                 float tol, int iters1, int refine1, int polish1,
+                 int iters2, int refine2, int polish2) {
     extern __shared__ float sm[];
     float* esc = sm;                               // the env's `esc` row
     float* L = esc + ES_W;
@@ -381,8 +383,8 @@ bpp_fused_kernel(const float* __restrict__ esc_g,
     bool take;
     float kept;
     const float lam = tiers(As, rw, vec, fs, xs, lamc, worst_g[k], tol,
-                            iters1, refine1, iters2, refine2, lane, take,
-                            kept);
+                            iters1, refine1, polish1, iters2, refine2,
+                            polish2, lane, take, kept);
     if (lane == 0) {
         take_g[k] = take;
         res_g[k] = kept;
@@ -442,13 +444,14 @@ extern "C" int bpp_hybrid_launch(const float* A, const float* b,
                                  const float* worst, const int* findex,
                                  float* out, int* take, float* res, int K,
                                  float tol, int iters1, int refine1,
-                                 int iters2, int refine2, void* stream) {
+                                 int polish1, int iters2, int refine2,
+                                 int polish2, void* stream) {
     const int bytes = (ES_M * ES_LD + 7 * ES_M) * (int)sizeof(float);
     int e = set_smem((const void*)bpp_hybrid_kernel, bytes);
     if (e) return e;
     bpp_hybrid_kernel<<<K, WARP, bytes, (cudaStream_t)stream>>>(
         A, b, lo, hi, mu, act, lam, idx, worst, findex, out, take, res, tol,
-        iters1, refine1, iters2, refine2);
+        iters1, refine1, polish1, iters2, refine2, polish2);
     return (int)cudaGetLastError();
 }
 
@@ -463,15 +466,15 @@ extern "C" int bpp_fused_launch(const float* esc, const float* dq_plus,
                                 const float* worst, const int* findex,
                                 float* dqp_out, float* lamf_out, int* take,
                                 float* res, int K, float tol, int iters1,
-                                int refine1, int iters2, int refine2,
-                                void* stream) {
+                                int refine1, int polish1, int iters2,
+                                int refine2, int polish2, void* stream) {
     const int bytes = (ES_W + ES_N * ES_N + ES_M * ES_N + ES_M * ES_LD
                        + 2 * ES_M) * (int)sizeof(float);
     int e = set_smem((const void*)bpp_fused_kernel, bytes);
     if (e) return e;
     bpp_fused_kernel<<<K, WARP, bytes, (cudaStream_t)stream>>>(
         esc, dq_plus, lam_full, idx, worst, findex, dqp_out, lamf_out, take,
-        res, tol, iters1, refine1, iters2, refine2);
+        res, tol, iters1, refine1, polish1, iters2, refine2, polish2);
     return (int)cudaGetLastError();
 }
 #endif

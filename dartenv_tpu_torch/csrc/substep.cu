@@ -54,18 +54,11 @@
 
 #include "substep_model.h"
 
-// Envs (warps) per block and the blocks per SM that __launch_bounds__
-// asks registers for; a generated header may set either.
-#ifndef SS_WARPS
+// Envs (warps) per block; __launch_bounds__ asks for two blocks per SM
+// (64 registers).  The dynamics stage runs the block's SS_WARPS envs on
+// the first lanes of warp 0, so SS_WARPS must not exceed a warp.
 #define SS_WARPS 16
-#endif
-#ifndef SS_MIN_BLOCKS
-#define SS_MIN_BLOCKS 2
-#endif
-// envs per warp in the dynamics stage (lanes 0.. of the first warps)
-#ifndef SS_DYN_LANES
-#define SS_DYN_LANES SS_WARPS
-#endif
+static_assert(SS_WARPS <= 32, "the dynamics stage takes one lane per env");
 
 // With SS_STAMPS defined (bench/kernel_stages.py), lane 0 of every warp
 // adds the clock64() cycles of each stage of substep_body.h to
@@ -88,7 +81,7 @@ __device__ unsigned long long ss_cycles[SS_NSTAGES];
 
 #include "substep_body.h"
 
-__global__ void __launch_bounds__(SS_WARPS * 32, SS_MIN_BLOCKS)
+__global__ void __launch_bounds__(SS_WARPS * 32, 2)
 substep_kernel(const float* __restrict__ q_g, const float* __restrict__ dq_g,
                const float* __restrict__ tau_g,
                const float* __restrict__ lam_g, float* __restrict__ dqp_g,
@@ -101,12 +94,9 @@ substep_kernel(const float* __restrict__ q_g, const float* __restrict__ dq_g,
     const int e0 = blockIdx.x * SS_WARPS;
     SS_STAMP_DECL
     // the dynamics stage: one thread per env, the block's envs on the
-    // first SS_DYN_LANES lanes of its first warps
-    {
-        const int j = warp * SS_DYN_LANES + lane;
-        if (lane < SS_DYN_LANES && j < SS_WARPS && e0 + j < B)
-            substep_dyn(e0 + j, smem + j * SS_SMEM, q_g, dq_g, tau_g);
-    }
+    // first lanes of warp 0
+    if (warp == 0 && lane < SS_WARPS && e0 + lane < B)
+        substep_dyn(e0 + lane, smem + lane * SS_SMEM, q_g, dq_g, tau_g);
     __syncthreads();
     SS_STAMP(0);
     const int e = e0 + warp;

@@ -456,19 +456,16 @@ def escalate_reference(st: _SubStatic, cfg, outs, dq_plus, lam_full,
             lam_full.index_add(0, idx, lamf_delta), idx, take, res_kept)
 
 
-def escalate_fused(st: _SubStatic, cfg, outs, dq_plus, lam_full):
+def escalate_fused(st: _SubStatic, cfg, outs, dq_plus, lam_full, budgets):
     """The escalation stage on a float32 CUDA batch: the top K of the
     residuals in torch (a selection across the whole batch), then ONE
     launch of the escalation kernel's fused mode, which reads its envs'
-    `esc` rows, rebuilds their operators, re-solves with `cfg`'s tier
-    budgets, keeps the best and patches copies of dq_plus and lam_full.
-    Returns what `escalate_reference` returns."""
+    `esc` rows, rebuilds their operators, re-solves with the tiers of
+    `budgets` (hopper_bpp.tier_budgets), keeps the best and patches copies
+    of dq_plus and lam_full.  Returns what `escalate_reference` returns."""
     res = outs["res"][:, 0]
     K = escalation_size(res.shape[0], cfg.escalate_frac, cfg.escalate_kmax)
     worst, idx = torch.topk(res, K)
-    budgets = hopper_bpp.tier_budgets(cfg.escalate_iters,
-                                      cfg.escalate_refine,
-                                      cfg.escalate_iters2)
     dqp, lamf, take, res_kept = hopper_bpp.bpp_fused(
         st.escalation_header, st.escalation_dims, outs["esc"], dq_plus,
         lam_full, idx, worst, st.findex_c, cfg.escalate_tol, budgets)
@@ -478,17 +475,17 @@ def escalate_fused(st: _SubStatic, cfg, outs, dq_plus, lam_full):
 def escalate_batch(st: _SubStatic, cfg, outs, dq_plus, lam_full,
                    exact1, exact2=None):
     """The hybrid exact-escalation stage over the substep's outputs.  A
-    float32 CUDA batch runs `escalate_fused` (the kernel re-solves with the
-    tier budgets of `cfg`, which are those `exact1` / `exact2` were made
-    with); any other batch runs `escalate_reference` with `exact1` /
-    `exact2`.  The inputs are not modified.  Returns new (dq_plus,
-    lam_full)."""
+    float32 CUDA batch runs `escalate_fused` with the tiers that `exact1` /
+    `exact2` carry (solvers of hopper_bpp.tier_solvers; others raise); any
+    other batch runs `escalate_reference` with `exact1` / `exact2`.  The
+    inputs are not modified.  Returns new (dq_plus, lam_full)."""
     if cfg.escalate_ref > 0 or cfg.escalate_ref64 > 0:
         raise NotImplementedError(
             "escalate_ref / escalate_ref64 refinement tiers are not ported "
             "yet")
     if cuda_build.use_kernel(dq_plus):
-        return escalate_fused(st, cfg, outs, dq_plus, lam_full)[:2]
+        return escalate_fused(st, cfg, outs, dq_plus, lam_full,
+                              hopper_bpp.solver_budgets(exact1, exact2))[:2]
     return escalate_reference(st, cfg, outs, dq_plus, lam_full, exact1,
                               exact2)[:2]
 
@@ -509,8 +506,6 @@ def make_substep_phase(model: SkelModel):
         return None
     if model.solver.solver != "pgs":
         return None
-    from dartenv_tpu_torch.lcp.dantzig import make_exact_solver
-
     st = _SubStatic(model)
     cfg = model.solver
     dt = st.dt
@@ -522,14 +517,10 @@ def make_substep_phase(model: SkelModel):
 
     exact1 = exact2 = None
     if cfg.escalate_frac > 0.0 and st.m_c > 0:
-        exact1 = make_exact_solver(
-            st.findex_c, iters=cfg.escalate_iters, polish_iters=3,
-            refine_iters=(None if cfg.escalate_refine < 0
-                          else cfg.escalate_refine))
-        if cfg.escalate_iters2 > 0:
-            exact2 = make_exact_solver(st.findex_c,
-                                       iters=cfg.escalate_iters2,
-                                       polish_iters=6)
+        exact1, exact2 = hopper_bpp.tier_solvers(
+            st.findex_c, hopper_bpp.tier_budgets(
+                cfg.escalate_iters, cfg.escalate_refine,
+                cfg.escalate_iters2))
     kernel: List[Optional[SubstepKernel]] = [None]
     slot_consts = {}      # (device, dtype) -> static per-slot contact data
 

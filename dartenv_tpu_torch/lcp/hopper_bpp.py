@@ -23,8 +23,13 @@ modes, each a wrapper here:
 `bpp_fused` and `bpp_hybrid` take float32 CUDA tensors only (their plain
 versions are the torch compositions in hopper_substep and hybrid, which
 their callers run for any other batch).  On a CUDA tensor every wrapper
-launches the kernel or raises — none falls back.  `LAUNCHES` counts kernel
-launches of all three modes and nothing else.
+launches the kernel or raises — none falls back.  `CORE_LAUNCHES`,
+`FUSED_LAUNCHES` and `HYBRID_LAUNCHES` count each mode's launches and
+nothing else.
+
+The escalation's tier policy has one source, `tier_budgets`: the fused and
+hybrid modes take its tuple as their launch arguments, and `tier_solvers`
+builds the plain compositions' exact solvers from the same tuple.
 
 Iteration structure (shared with lcp/dantzig.dantzig_solve): warm
 partition from lam0, `iters` damped pivots, `refine_iters` undamped pivots
@@ -45,10 +50,14 @@ from dartenv_tpu_torch.lcp.pgs import findex_i32, findex_tensors
 
 _FREE, _AT_LO, _AT_HI = 0, 1, 2
 
-LAUNCHES = 0          # kernel launches (every mode, on a CUDA batch)
+CORE_LAUNCHES = 0     # launches of the core mode (bpp_solve)
+FUSED_LAUNCHES = 0    # launches of the fused mode (bpp_fused)
+HYBRID_LAUNCHES = 0   # launches of the hybrid mode (bpp_hybrid)
 PLAIN_CALLS = 0       # plain-version runs through lcp/dantzig.make_exact_solver
 MAX_ROWS = 32         # one row per lane of a warp
+TIER_POLISH = (3, 6)  # PGS polish sweeps after tier 1 (warm), tier 2 (cold)
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUSED_DIMS: Dict[str, tuple] = {}    # fused header -> (n, m_c, m, width)
 
 
 def check_rows(m: int):
@@ -81,11 +90,11 @@ def load(m: int = 24, build=None, header_text=None):
         lib = cuda_build.finish_build(build or start_build(m, text))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.bpp_core_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp]
-        lib.bpp_hybrid_launch.argtypes = ([vp] * 13 + [ci, cf] + [ci] * 4
+        lib.bpp_hybrid_launch.argtypes = ([vp] * 13 + [ci, cf] + [ci] * 6
                                           + [vp])
         fns = [lib.bpp_core_launch, lib.bpp_hybrid_launch]
         if "ES_N" in text:
-            lib.bpp_fused_launch.argtypes = ([vp] * 10 + [ci, cf] + [ci] * 4
+            lib.bpp_fused_launch.argtypes = ([vp] * 10 + [ci, cf] + [ci] * 6
                                              + [vp])
             fns.append(lib.bpp_fused_launch)
         for fn in fns:
@@ -93,15 +102,52 @@ def load(m: int = 24, build=None, header_text=None):
         if lib.bpp_rows() != m:
             raise RuntimeError(f"BPP kernel built for {lib.bpp_rows()} "
                                f"rows, asked for {m}")
+        if "ES_N" in text:
+            lib.bpp_fused_dims.argtypes = [vp]
+            dims = (ctypes.c_int * 4)()
+            lib.bpp_fused_dims(dims)
+            _FUSED_DIMS[text] = tuple(dims)
         _LIBS[text] = lib
     return _LIBS[text]
 
 
 def tier_budgets(iters: int, refine: int, iters2: int):
-    """(iters1, refine1, iters2, refine2) of the escalation's two tiers, as
-    make_exact_solver gets them (refine < 0: the default count)."""
+    """(iters1, refine1, polish1, iters2, refine2, polish2) of the
+    escalation's two tiers (refine < 0: the default count; iters2 = 0: no
+    tier 2, and its refine and polish are 0)."""
+    tier2 = ((int(iters2), _refine_count(iters2, None), TIER_POLISH[1])
+             if iters2 > 0 else (0, 0, 0))
     return (int(iters), _refine_count(iters, None if refine < 0 else refine),
-            int(iters2), _refine_count(iters2, None) if iters2 > 0 else 0)
+            TIER_POLISH[0]) + tier2
+
+
+def tier_solvers(findex, budgets):
+    """(exact1, exact2) of `budgets` (exact2 None without tier 2): the
+    exact solvers of the plain compositions, lcp/dantzig.make_exact_solver.
+    Each carries its (iters, refine, polish) as `.budget`, from which
+    `solver_budgets` reads the tuple back."""
+    from dartenv_tpu_torch.lcp.dantzig import make_exact_solver
+
+    def make(iters, refine, polish):
+        solve = make_exact_solver(findex, iters=iters, polish_iters=polish,
+                                  refine_iters=refine)
+        solve.budget = (iters, refine, polish)
+        return solve
+
+    exact2 = make(*budgets[3:]) if budgets[3] > 0 else None
+    return make(*budgets[:3]), exact2
+
+
+def solver_budgets(exact1, exact2=None):
+    """The `tier_budgets` tuple of solvers made by `tier_solvers`; a solver
+    made otherwise has no budget the kernel could run and is refused."""
+    for s in (exact1, exact2):
+        if s is not None and not hasattr(s, "budget"):
+            raise TypeError(
+                "the escalation kernel runs the tiers of solvers made by "
+                f"hopper_bpp.tier_solvers; {s!r} carries no budget")
+    return tuple(exact1.budget) + (
+        (0, 0, 0) if exact2 is None else tuple(exact2.budget))
 
 
 def _refine_count(iters, refine_iters):
@@ -237,7 +283,7 @@ def bpp_solve(A, b, lo, hi, findex, mu, active, iters: int = 24,
     """Batched exact boxed-LCP solve; same contract as
     bpp_solve_reference.  CUDA float32 -> the kernel (core mode); CPU ->
     the plain version; anything else on a CUDA device raises."""
-    global LAUNCHES
+    global CORE_LAUNCHES
     if not A.is_cuda:
         return bpp_solve_reference(A, b, lo, hi, findex, mu, active,
                                    iters=iters, polish_iters=polish_iters,
@@ -269,7 +315,7 @@ def bpp_solve(A, b, lo, hi, findex, mu, active, iters: int = 24,
             lam.data_ptr(), B, int(iters),
             _refine_count(iters, refine_iters), int(polish_iters), _stream())
     cuda_build.check_launch(code, "bpp_solve")
-    LAUNCHES += 1
+    CORE_LAUNCHES += 1
     return lam
 
 
@@ -280,10 +326,9 @@ def bpp_hybrid(A, b, lo, hi, mu, active, lam, idx, worst, findex,
     A: (B, m, m); b, lo, hi, mu, active, lam (the PGS impulses): (B, m);
     idx (K,) int64 and worst (K,): the top K of the PGS residuals;
     budgets: `tier_budgets(...)`.  Tier 1 re-solves rows idx warm from
-    lam[idx] (3 polish sweeps), tier 2 cold (6), keep-best against worst
-    and tol.  Returns (lam with rows idx patched, a copy; take (K,) bool;
+    lam[idx], tier 2 cold, keep-best against worst and tol.  Returns (lam with rows idx patched, a copy; take (K,) bool;
     residual of the kept point (K,))."""
-    global LAUNCHES
+    global HYBRID_LAUNCHES
     B, m = b.shape
     K = idx.shape[0]
     check_rows(m)
@@ -307,7 +352,7 @@ def bpp_hybrid(A, b, lo, hi, mu, active, lam, idx, worst, findex,
             take.data_ptr(), res.data_ptr(), K, float(tol), *budgets,
             _stream())
     cuda_build.check_launch(code, "bpp_hybrid")
-    LAUNCHES += 1
+    HYBRID_LAUNCHES += 1
     return out, take.bool(), res
 
 
@@ -321,7 +366,7 @@ def bpp_fused(header_text: str, dims, esc, dq_plus, lam_full, idx, worst,
     (B, m): the substep's outputs; idx (K,) int64 and worst (K,): the top K
     of its residuals.  Returns (dq_plus and lam_full with the taken rows
     patched, copies; take (K,) bool; residual of the kept point (K,))."""
-    global LAUNCHES
+    global FUSED_LAUNCHES
     n, m_c, m, width = dims
     B, K = esc.shape[0], idx.shape[0]
     check_rows(m_c)
@@ -336,6 +381,9 @@ def bpp_fused(header_text: str, dims, esc, dq_plus, lam_full, idx, worst,
     if K == 0 or m_c == 0:
         return dqp, lamf, take.bool(), worst.clone()
     lib = load(m_c, header_text=header_text)
+    if _FUSED_DIMS[header_text] != tuple(dims):
+        raise ValueError(f"bpp_fused: dims {tuple(dims)} do not match the "
+                         f"build's {_FUSED_DIMS[header_text]}")
     ins = [x.contiguous() for x in (esc, dq_plus, lam_full, idx, worst)]
     fidx = findex_i32(findex, esc.device)
     with torch.cuda.device(esc.device):
@@ -344,7 +392,7 @@ def bpp_fused(header_text: str, dims, esc, dq_plus, lam_full, idx, worst,
             lamf.data_ptr(), take.data_ptr(), res.data_ptr(), K, float(tol),
             *budgets, _stream())
     cuda_build.check_launch(code, "bpp_fused")
-    LAUNCHES += 1
+    FUSED_LAUNCHES += 1
     return dqp, lamf, take.bool(), res
 
 

@@ -122,7 +122,6 @@ def make_hybrid_solver(findex, iters: int, omega: float = 1.0,
     hybrid mode; a CPU or float64 batch runs their plain versions."""
     from dartenv_tpu_torch.cuda_build import use_kernel
     from dartenv_tpu_torch.lcp import hopper_bpp
-    from dartenv_tpu_torch.lcp.dantzig import make_exact_solver
     from dartenv_tpu_torch.lcp.hopper_pgs import pgs_solve_batch
 
     if escalate_ref64 > 0 or escalate_ref > 0:
@@ -130,14 +129,9 @@ def make_hybrid_solver(findex, iters: int, omega: float = 1.0,
             "escalate_ref / escalate_ref64 refinement tiers are not ported "
             "yet")
     findex = np.asarray(findex)
-    exact1 = make_exact_solver(
-        findex, iters=escalate_iters, polish_iters=3,
-        refine_iters=None if escalate_refine < 0 else escalate_refine)
-    exact2 = (make_exact_solver(findex, iters=escalate_iters2,
-                                polish_iters=6)
-              if escalate_iters2 > 0 else None)
     budgets = hopper_bpp.tier_budgets(escalate_iters, escalate_refine,
                                       escalate_iters2)
+    exact1, exact2 = hopper_bpp.tier_solvers(findex, budgets)
 
     def solve(A, b, lo, hi, mu, active, lam0):
         B, m = b.shape

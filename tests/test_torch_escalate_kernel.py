@@ -6,7 +6,9 @@
       and hopper at K = 8, float32, the plain BPP's impulses handed in,
       within 1e-5 of max(1, |ref|);
   (b) the dispatch rule: a CPU batch runs the plain composition;
-  (c) the refusal of m > 32 rows, before any CUDA call."""
+  (c) the refusal of m > 32 rows, before any CUDA call;
+  (d) the tier policy's one source: the solvers of the plain composition
+      carry the tuple the kernel is launched with."""
 import shutil
 
 import numpy as np
@@ -17,7 +19,6 @@ import torch_port_util  # noqa: F401  (one PyTorch thread per test worker)
 from dartenv_tpu_torch.bench.throughput import make_task
 from dartenv_tpu_torch.engine import hopper_substep as ths
 from dartenv_tpu_torch.lcp import hopper_bpp
-from dartenv_tpu_torch.lcp.dantzig import make_exact_solver
 from dartenv_tpu_torch.lcp.hopper_pgs import pgs_solve_reference
 from dartenv_tpu_torch.lcp.hybrid import (
     comp_residual, escalation_size, keep_best, make_hybrid_solver,
@@ -42,14 +43,13 @@ def _substep_outputs(name, B, seed, **solver_kw):
 
 
 def _tiers(st, cfg):
-    exact1 = make_exact_solver(
-        st.findex_c, iters=cfg.escalate_iters, polish_iters=3,
-        refine_iters=None if cfg.escalate_refine < 0 else
-        cfg.escalate_refine)
-    exact2 = (make_exact_solver(st.findex_c, iters=cfg.escalate_iters2,
-                                polish_iters=6)
-              if cfg.escalate_iters2 > 0 else None)
-    return exact1, exact2
+    return hopper_bpp.tier_solvers(st.findex_c, hopper_bpp.tier_budgets(
+        cfg.escalate_iters, cfg.escalate_refine, cfg.escalate_iters2))
+
+
+def _launches():
+    return (hopper_bpp.CORE_LAUNCHES, hopper_bpp.FUSED_LAUNCHES,
+            hopper_bpp.HYBRID_LAUNCHES)
 
 
 @pytest.mark.parametrize("name,iters2", [("walker2d", 0), ("hopper", 4)])
@@ -102,7 +102,7 @@ def test_cpu_batch_runs_the_plain_composition():
     model, st, outs = _substep_outputs("walker2d", 64, 4)
     cfg = model.solver
     exact1, _ = _tiers(st, cfg)
-    launches, plain = hopper_bpp.LAUNCHES, hopper_bpp.PLAIN_CALLS
+    launches, plain = _launches(), hopper_bpp.PLAIN_CALLS
     dqp, lamf = ths.escalate_batch(st, cfg, outs, outs["dq_plus"],
                                    outs["lam_full"], exact1)
     ref = ths.escalate_reference(st, cfg, outs, outs["dq_plus"],
@@ -130,7 +130,7 @@ def test_cpu_batch_runs_the_plain_composition():
                               st.findex_c, worst, lamk, cfg.escalate_tol,
                               exact1)
     assert torch.equal(got, lam.index_copy(0, idx, lam_new))
-    assert hopper_bpp.LAUNCHES == launches
+    assert _launches() == launches
     assert hopper_bpp.PLAIN_CALLS > plain
 
 
@@ -152,3 +152,22 @@ def test_more_than_32_rows_are_refused_before_any_cuda_call():
     with pytest.raises(ValueError, match="CUDA"):
         hopper_bpp.bpp_hybrid(torch.zeros((K, 24, 24)), *[z[:, :24]] * 6,
                               idx, z[:, 0], findex[:24], 1e-5, budgets)
+
+
+def test_tier_solvers_carry_the_kernels_budgets():
+    """tier_budgets is the one source of the escalation's tiers: the
+    solvers built from it give the same tuple back (what the fused and
+    hybrid modes are launched with), and a solver built otherwise is
+    refused rather than ignored."""
+    for iters2 in (0, 4):
+        budgets = hopper_bpp.tier_budgets(4, 2, iters2)
+        assert budgets[:3] == (4, 2, hopper_bpp.TIER_POLISH[0])
+        assert budgets[3:] == ((iters2, 6, hopper_bpp.TIER_POLISH[1])
+                               if iters2 else (0, 0, 0))
+        exact1, exact2 = hopper_bpp.tier_solvers(np.array([-1, 0, 0]),
+                                                 budgets)
+        assert (exact2 is None) == (iters2 == 0)
+        assert hopper_bpp.solver_budgets(exact1, exact2) == budgets
+    assert hopper_bpp.tier_budgets(6, -1, 0)[1] == 6     # default refine
+    with pytest.raises(TypeError, match="tier_solvers"):
+        hopper_bpp.solver_budgets(lambda *a: None)
