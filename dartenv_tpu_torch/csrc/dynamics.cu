@@ -32,9 +32,30 @@
 #include <cuda_runtime.h>
 
 #include "dynamics_model.h"
-#include "dynamics_body.h"
 
 #define DY_BLOCK 32
+
+// With DY_STAMPS defined (bench/kernel_stages.py), lane 0 of every warp
+// adds the clock64() cycles of each stage to dy_cycles[stage];
+// dynamics_stage_cycles reads and clears them.  Stages: 0 load, 1 joint
+// kinematics, 2 tree composition, 3 phi, 4 mass matrix, 5 bias forces,
+// 6 solve, 7 stores.
+#define DY_NSTAGES 8
+#ifdef DY_STAMPS
+__device__ unsigned long long dy_cycles[DY_NSTAGES];
+#define DY_STAMP_DECL long long dy_t0 = clock64();
+#define DY_STAMP_RESTART dy_t0 = clock64();
+#define DY_STAMP(k)                                                   \
+    do {                                                              \
+        if ((threadIdx.x & 31) == 0) {                                \
+            const long long t = clock64();                            \
+            atomicAdd(&dy_cycles[k], (unsigned long long)(t - dy_t0)); \
+            dy_t0 = t;                                                \
+        }                                                             \
+    } while (0)
+#endif
+
+#include "dynamics_body.h"
 
 __global__ void __launch_bounds__(DY_BLOCK)
 dynamics_kernel(const float* __restrict__ q, const float* __restrict__ dq,
@@ -49,6 +70,20 @@ dynamics_kernel(const float* __restrict__ q, const float* __restrict__ dq,
 extern "C" int dynamics_dims(int* out) {
     out[0] = DY_N; out[1] = DY_NB;
     return 2;
+}
+
+// The stage cycles summed over warps since the last call (cleared);
+// returns the number of stages, or 0 in a build without DY_STAMPS.
+extern "C" int dynamics_stage_cycles(unsigned long long* out) {
+#ifdef DY_STAMPS
+    cudaMemcpyFromSymbol(out, dy_cycles, sizeof(dy_cycles));
+    unsigned long long zero[DY_NSTAGES] = {0};
+    cudaMemcpyToSymbol(dy_cycles, zero, sizeof(zero));
+    return DY_NSTAGES;
+#else
+    (void)out;
+    return 0;
+#endif
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = ok).

@@ -36,6 +36,13 @@
 #define JT_SCREW 9
 #define DY_HAS(t) (((DY_JMASK) >> (t)) & 1)
 
+// Stage stamps (dynamics.cu with DY_STAMPS); nothing in another build.
+#ifndef DY_STAMP
+#define DY_STAMP_DECL
+#define DY_STAMP_RESTART
+#define DY_STAMP(k) ((void)0)
+#endif
+
 
 DI float dot3(const float* a, const float* b) {
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
@@ -289,6 +296,7 @@ DI void joint_kin(int b, const float* q, const float* dq, float* Rj,
 DI void dyn_stage(const float* q, const float* dq, const float* tau,
                   float (*R_w)[9], float (*p_w)[3], float (*phi)[6],
                   float* M, float* dq_star, float* L) {
+    DY_STAMP_DECL
     // ---- joint kinematics + tree recursion ------------------------------
     float vel[DY_NB][6], ab[DY_NB][6];
     float S[DY_N][6], Sd[DY_N][6];
@@ -322,6 +330,7 @@ DI void dyn_stage(const float* q, const float* dq, const float* tau,
                 cJ[c] += Sd[d][c] * dq[d];
             }
         }
+        DY_STAMP(1);
         const int par = c_parent[b];
         float xa[6], cr[6];
         if (par < 0) {
@@ -340,6 +349,7 @@ DI void dyn_stage(const float* q, const float* dq, const float* tau,
         }
         crm6(vel[b], vJ, cr);
         for (int c = 0; c < 6; ++c) ab[b][c] = xa[c] + (cr[c] + cJ[c]);
+        DY_STAMP(2);
     }
 
     // ---- world-frame dof columns at the world origin --------------------
@@ -351,6 +361,7 @@ DI void dyn_stage(const float* q, const float* dq, const float* tau,
         cross3(p_w[b], phi[d], t3);
         for (int k = 0; k < 3; ++k) phi[d][3 + k] += t3[k];
     }
+    DY_STAMP(3);
 
     // ---- mass matrix: M[i][j] = sum_b phi_i . (I_w(b) phi_j) ------------
     for (int i = 0; i < DY_N * DY_N; ++i) M[i] = 0.0f;
@@ -384,6 +395,7 @@ DI void dyn_stage(const float* q, const float* dq, const float* tau,
     }
     for (int i = 0; i < DY_N; ++i)
         for (int j = 0; j < i; ++j) M[i * DY_N + j] = M[j * DY_N + i];
+    DY_STAMP(4);
 
     // ---- bias forces ----------------------------------------------------
     float f_sub[DY_NB][6];
@@ -404,6 +416,7 @@ DI void dyn_stage(const float* q, const float* dq, const float* tau,
         if (par >= 0)
             for (int c = 0; c < 6; ++c) f_sub[par][c] += f_sub[b][c];
     }
+    DY_STAMP(5);
 
     // ---- implicit-scheme forward dynamics -------------------------------
     float rhs[DY_N], Mi[DY_N * DY_N], ddq[DY_N];
@@ -422,6 +435,7 @@ DI void dyn_stage(const float* q, const float* dq, const float* tau,
     chol_n(Mi, L);
     chol_solve_n(L, rhs, ddq);
     for (int d = 0; d < DY_N; ++d) dq_star[d] = dq[d] + DY_DT * ddq[d];
+    DY_STAMP(6);
 }
 
 // One env of the dynamics kernel: reads row e of q, dq, tau and writes row
@@ -433,15 +447,18 @@ SS_FN void dynamics_env(int e, const float* __restrict__ q_g,
                         float* __restrict__ dqs_g, float* __restrict__ M_g,
                         float* __restrict__ phi_g, float* __restrict__ Rw_g,
                         float* __restrict__ pw_g) {
+    DY_STAMP_DECL
     float q[DY_N], dq[DY_N], tau[DY_N];
     for (int d = 0; d < DY_N; ++d) {
         q[d] = q_g[(size_t)e * DY_N + d];
         dq[d] = dq_g[(size_t)e * DY_N + d];
         tau[d] = tau_g[(size_t)e * DY_N + d];
     }
+    DY_STAMP(0);
     float R_w[DY_NB][9], p_w[DY_NB][3], phi[DY_N][6];
     float M[DY_N * DY_N], dq_star[DY_N], L[DY_N * DY_N];
     dyn_stage(q, dq, tau, R_w, p_w, phi, M, dq_star, L);
+    DY_STAMP_RESTART
     for (int d = 0; d < DY_N; ++d) dqs_g[(size_t)e * DY_N + d] = dq_star[d];
     for (int i = 0; i < DY_N * DY_N; ++i)
         M_g[(size_t)e * DY_N * DY_N + i] = M[i];
@@ -454,4 +471,5 @@ SS_FN void dynamics_env(int e, const float* __restrict__ q_g,
         for (int k = 0; k < 3; ++k)
             pw_g[((size_t)e * DY_NB + b) * 3 + k] = p_w[b][k];
     }
+    DY_STAMP(7);
 }

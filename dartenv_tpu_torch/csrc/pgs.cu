@@ -39,6 +39,27 @@
 #define WARP 32
 #define MAX_WARPS 8
 
+// With PG_STAMPS defined (bench/kernel_stages.py), lane 0 of every warp
+// adds the clock64() cycles of each stage to pg_cycles[stage];
+// pgs_stage_cycles reads and clears them.  Stages: 0 load, 1 sweeps,
+// 2 residual, 3 stores.
+#define PG_NSTAGES 4
+#ifdef PG_STAMPS
+__device__ unsigned long long pg_cycles[PG_NSTAGES];
+#define PG_STAMP_DECL long long pg_t0 = clock64();
+#define PG_STAMP(k)                                                   \
+    do {                                                              \
+        if (lane == 0) {                                              \
+            const long long t = clock64();                            \
+            atomicAdd(&pg_cycles[k], (unsigned long long)(t - pg_t0)); \
+            pg_t0 = t;                                                \
+        }                                                             \
+    } while (0)
+#else
+#define PG_STAMP_DECL
+#define PG_STAMP(k) ((void)0)
+#endif
+
 __global__ void pgs_kernel(const float* __restrict__ A_g,
                            const float* __restrict__ b_g,
                            const float* __restrict__ lo_g,
@@ -55,6 +76,7 @@ __global__ void pgs_kernel(const float* __restrict__ A_g,
     const int wpb = blockDim.x / WARP;
     const int env = blockIdx.x * wpb + warp;
     const int per = m * m + 8 * m;              // floats per env
+    PG_STAMP_DECL
     int* fidx = reinterpret_cast<int*>(smem + wpb * per);
     float* A = smem + warp * per;
     float* b = A + m * m;
@@ -85,14 +107,17 @@ __global__ void pgs_kernel(const float* __restrict__ A_g,
     for (int i = lane; i < m; i += WARP)
         invd[i] = pgs_inv_diag(A[i * m + i], omega);
     __syncwarp();
+    PG_STAMP(0);
 
     // ---- sweeps, static row order (the row update of pgs_row.h) ---------
     for (int it = 0; it < iters; ++it)
         for (int i = 0; i < m; ++i)
             pgs_row(A + i * m, lam, m, i, b[i], invd[i], lo[i], hi[i], mu[i],
                     act[i], fidx[i], lane);
+    PG_STAMP(1);
     const size_t off = (size_t)env * m;
     for (int i = lane; i < m; i += WARP) lam_g[off + i] = lam[i];
+    PG_STAMP(3);
     if (res_g == nullptr) return;
 
     // ---- fused normalized residual (lcp/hybrid.comp_residual) -----------
@@ -122,7 +147,22 @@ __global__ void pgs_kernel(const float* __restrict__ A_g,
         r = fmaxf(r, fmaxf(l - x, x - h));
         if (act[i] > 0.5f) res = fmaxf(res, r);
     }
+    PG_STAMP(2);
     if (lane == 0) res_g[env] = res / scale;
+}
+
+// The stage cycles summed over warps since the last call (cleared);
+// returns the number of stages, or 0 in a build without PG_STAMPS.
+extern "C" int pgs_stage_cycles(unsigned long long* out) {
+#ifdef PG_STAMPS
+    cudaMemcpyFromSymbol(out, pg_cycles, sizeof(pg_cycles));
+    unsigned long long zero[PG_NSTAGES] = {0};
+    cudaMemcpyToSymbol(pg_cycles, zero, sizeof(zero));
+    return PG_NSTAGES;
+#else
+    (void)out;
+    return 0;
+#endif
 }
 
 // Envs per block for m rows: as many warps as fit in 48 KB of shared

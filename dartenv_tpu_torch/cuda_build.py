@@ -70,8 +70,8 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 
 def _keyed_dir(tag, source, header_text, header_name, deps, flags):
     """(out_dir, src_path): the build directory keyed by a hash of the
-    source, its csrc dependencies, the generated header and the flags;
-    the header is written into it."""
+    source, its csrc dependencies, the generated header and the flags
+    (with any -D defines); the header is written into it."""
     src_path = os.path.join(CSRC_DIR, source)
     h = hashlib.sha256()
     for name in (source, *deps):
@@ -89,19 +89,21 @@ def _keyed_dir(tag, source, header_text, header_name, deps, flags):
 
 def start_build(tag: str, source: str, header_text: Optional[str] = None,
                 header_name: str = "generated.h",
-                deps: Sequence[str] = ()) -> Build:
+                deps: Sequence[str] = (),
+                defines: Sequence[str] = ()) -> Build:
     """Start compiling csrc/<source> with nvcc (an optional generated
     header and csrc/ are on its include path; `deps` are further csrc
-    files the source includes).  Returns at once; an up-to-date library is
-    reused."""
+    files the source includes; `defines` are passed as -D flags).
+    Returns at once; an up-to-date library is reused."""
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     out_dir, src_path = _keyed_dir(tag, source, header_text, header_name,
-                                   deps, NVCC_FLAGS)
+                                   deps, flags)
     so_path = os.path.join(out_dir, f"lib{tag}.so")
     log_path = os.path.join(out_dir, "nvcc.log")
     if so_path in _LOADED or os.path.exists(so_path):
         return Build(tag, so_path, None, log_path)
     tmp = so_path + f".tmp{os.getpid()}"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v",
+    cmd = [find_nvcc(), *flags, "-Xptxas", "-v",
            "-I", out_dir, "-I", CSRC_DIR, "-o", tmp, src_path]
     log = open(log_path, "w")
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)

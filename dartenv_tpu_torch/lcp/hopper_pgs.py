@@ -29,16 +29,20 @@ def start_build():
                                   deps=("pgs_row.h",))
 
 
+def bind(lib):
+    """Set the ctypes signature of a loaded build's launch function."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.pgs_solve_launch.argtypes = ([vp] * 10 + [ci] * 3
+                                     + [ctypes.c_float, vp])
+    lib.pgs_solve_launch.restype = ci
+    return lib
+
+
 def load(build=None):
     """Compile (if needed) and load the kernel library."""
     global _LIB
     if _LIB is None:
-        lib = cuda_build.finish_build(build or start_build())
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.pgs_solve_launch.argtypes = ([vp] * 10 + [ci] * 3
-                                         + [ctypes.c_float, vp])
-        lib.pgs_solve_launch.restype = ci
-        _LIB = lib
+        _LIB = bind(cuda_build.finish_build(build or start_build()))
     return _LIB
 
 
