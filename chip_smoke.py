@@ -17,10 +17,11 @@ nvcc processes started together) and then, in float32:
     double pendulum at B = 8192, on walker2d states at B = 4096 and on two
     ModelBuilder chains that hold the six joint types the substep kernel
     lacks, at B = 1024;
-  * the PGS kernel, the BPP kernel's core mode on the hybrid's top K and
-    its hybrid mode (the whole escalation, one launch) against their plain
-    versions on the LCPs of perturbed walker2d's phase-wise step at
-    B = 4096;
+  * the PGS kernel against its plain version on the LCPs of perturbed
+    walker2d's phase-wise step and on random LCPs of 40 rows at B = 4096;
+    the BPP kernel's core mode on the hybrid's top K and its hybrid mode
+    (the whole escalation, one launch) against their plain versions on
+    the first;
   * lockstep control steps of cartpole and of perturbed walker2d at
     B = 1024 beside plain paths composed here;
   * each path (bench_env: batched rollout under a random policy) with
@@ -549,6 +550,7 @@ def check_dynamics(name, model, B, q, dq, tau):
     output by output, relative to max(1, |ref|_inf)."""
     import torch
 
+    from dartenv_tpu_torch.bench.kernel_stages import device_ms
     from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
 
     kern = hd.get_dynamics_kernel(model)
@@ -561,16 +563,19 @@ def check_dynamics(name, model, B, q, dq, tau):
         abs_errs[k] = float((a - r).abs().max())
         errs[k] = abs_errs[k] / max(1.0, float(r.abs().max()))
     ms = time_ms(lambda: kern(q, dq, tau))
+    dev_ms = device_ms(lambda: kern(q, dq, tau), "dynamics_kernel")
     plain_ms = time_ms(lambda: hd.dynamics_reference(model, q, dq, tau),
                        runs=5, warmup=1)
     joints = sorted({int(t) for t in model.joint_type})
     emit("dynamics", env=name, B=B, n=model.n, nb=model.nb,
-         joint_types=joints, rel_err=errs, abs_err=abs_errs, ms=ms,
-         plain_ms=plain_ms, tol_rel=DYN_TOL)
+         lane_group=kern.group, joint_types=joints, rel_err=errs,
+         abs_err=abs_errs, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+         tol_rel=DYN_TOL)
     bad = {k: e for k, e in errs.items() if not e <= DYN_TOL[k]}
     assert not bad, f"dynamics kernel disagrees on {name}: {bad}"
     return dict(max_abs_err=max(abs_errs.values()), ms=ms,
-                plain_ms=plain_ms, bound=bound(*dynamics_work(model, B)),
+                device_ms=dev_ms, plain_ms=plain_ms,
+                bound=bound(*dynamics_work(model, B)),
                 shape=f"{name} B={B} n={model.n} nb={model.nb}")
 
 
@@ -664,17 +669,93 @@ def plain_phasewise_substep(model, q, dq, lam, tau, f_ext):
             dq_plus, lam)
 
 
+def random_lcps(B, nc, nl, seed, dev):
+    """Boxed LCPs as the JAX package's kernel tests draw them
+    (tests/test_pallas_kernels.py::_problems): m = 3 nc + nl rows, nc
+    contacts with two friction rows each (mu 0.8), A = G G^T / (m + 4) +
+    1e-5 I, about 80 % of the rows active; a warm start U(0, 0.2) on the
+    active rows.  Returns (A, b, lo, hi, findex, mu, act, lam0), float32 on
+    `dev`."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    m = 3 * nc + nl
+    findex = -np.ones(m, dtype=np.int64)
+    lo = np.zeros(m)
+    mu = np.zeros(m)
+    for s in range(nc):
+        findex[3 * s + 1:3 * s + 3] = 3 * s
+        lo[3 * s + 1:3 * s + 3] = -1e20
+        mu[3 * s + 1:3 * s + 3] = 0.8
+    G = rng.normal(size=(B, m, m + 4))
+    A = G @ np.swapaxes(G, 1, 2) / (m + 4) + 1e-5 * np.eye(m)
+    act = (rng.uniform(size=(B, m)) > 0.2).astype(np.float64)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    return (f(A), f(rng.normal(size=(B, m))), f(np.tile(lo, (B, 1))),
+            f(np.full((B, m), 1e20)), findex, f(np.tile(mu, (B, 1))),
+            f(act), f(rng.uniform(0.0, 0.2, (B, m)) * act))
+
+
+def compare_pgs(label, prob, iters, omega):
+    """The PGS kernel against its plain version on one batch of LCPs, at
+    the JAX package's bound between its Pallas kernel and XLA: impulses
+    rtol 1e-5 / atol 1e-6, residuals rtol 1e-4 / atol 1e-7.  Returns the
+    kernel's (lam, res) and what the kernels line needs."""
+    import torch
+
+    from dartenv_tpu_torch.bench.kernel_stages import device_ms
+    from dartenv_tpu_torch.lcp import hopper_pgs as hp
+
+    A, b, lo, hi, findex, mu, act, lam0 = prob
+    B, m = b.shape
+    args = (A, b, lo, hi, findex, mu, act)
+    kw = dict(iters=iters, omega=omega, lam0=lam0, return_residual=True)
+    lam_k, res_k = hp.pgs_solve_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    lam_r, res_r = hp.pgs_solve_reference(*args, **kw)
+    lam_bad = (lam_k - lam_r).abs() > 1e-6 + 1e-5 * lam_r.abs()
+    res_bad = (res_k - res_r).abs() > 1e-7 + 1e-4 * res_r.abs()
+    lam_err = float((lam_k - lam_r).abs().max())
+    run = lambda: hp.pgs_solve_cuda(*args, **kw)
+    ms = time_ms(run)
+    dev_ms = device_ms(run, "pgs_kernel")
+    plain_ms = time_ms(lambda: hp.pgs_solve_reference(*args, **kw),
+                       runs=5, warmup=1)
+    emit("pgs", env=label, B=B, m=m, iters=iters,
+         active_rows=float(act.sum()), lam_abs_err=lam_err,
+         lam_abs_max=float(lam_r.abs().max()),
+         res_abs_err=float((res_k - res_r).abs().max()),
+         res_max=float(res_r.max()), res_median=float(res_r.median()),
+         lam_entries_beyond_tol=int(lam_bad.sum()),
+         res_envs_beyond_tol=int(res_bad.sum()),
+         lam_envs_unequal=int((lam_k != lam_r).any(1).sum()),
+         res_envs_unequal=int((res_k != res_r).sum()), ms=ms,
+         device_ms=dev_ms, plain_ms=plain_ms,
+         tol_lam=dict(rtol=1e-5, atol=1e-6),
+         tol_res=dict(rtol=1e-4, atol=1e-7))
+    assert float(act.sum()) > B, "constraint rows are not live"
+    assert torch.isfinite(lam_k).all() and torch.isfinite(res_k).all()
+    assert not bool(lam_bad.any()) and not bool(res_bad.any()), label
+    words = m * m + 7 * m + 1          # A, 6 vectors in; lam, res out
+    flops = 2 * (iters + 1) * m * (m + 4)
+    return lam_k, res_k, dict(
+        max_abs_err=lam_err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        bound=bound(4 * words * B, flops * B),
+        shape=f"{label} B={B} m_c={m} iters={iters} residual")
+
+
 def check_pgs(dev, states):
     """Phase pgs: the PGS kernel against its plain version on the LCPs of
     perturbed walker2d's phase-wise step at B = 4096 (states from the
-    walker2d rollout, about half of the envs pushed), then the BPP kernel
-    on the hybrid's top K of those.  Returns what the kernels line needs
-    for both."""
+    walker2d rollout, about half of the envs pushed) and on random LCPs of
+    m = 40 rows (beyond a warp's 32 lanes), then the BPP kernel on the
+    hybrid's top K of the first.  Returns what the kernels line needs for
+    both."""
     import torch
 
     from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
-    from dartenv_tpu_torch.lcp import hopper_pgs as hp
     from dartenv_tpu_torch.lcp.hybrid import escalate_rows, escalation_size
 
     task = make_task("walker2d", device=dev)
@@ -687,37 +768,11 @@ def check_pgs(dev, states):
     _, _, prob, lam0 = phasewise_lcp(model, q, dq, tau, lam_prev, f_ext)
     A, b, lo, hi, act, mu, findex, _, _ = prob
     m = b.shape[1]
-    args = (A, b, lo, hi, findex, mu, act)
-    kw = dict(iters=cfg.pgs_iters, omega=cfg.pgs_omega, lam0=lam0,
-              return_residual=True)
-    lam_k, res_k = hp.pgs_solve_cuda(*args, **kw)
-    torch.cuda.synchronize()
-    lam_r, res_r = hp.pgs_solve_reference(*args, **kw)
-    lam_bad = (lam_k - lam_r).abs() > 1e-6 + 1e-5 * lam_r.abs()
-    res_bad = (res_k - res_r).abs() > 1e-7 + 1e-4 * res_r.abs()
-    lam_err = float((lam_k - lam_r).abs().max())
-    ms = time_ms(lambda: hp.pgs_solve_cuda(*args, **kw))
-    plain_ms = time_ms(lambda: hp.pgs_solve_reference(*args, **kw),
-                       runs=5, warmup=1)
-    emit("pgs", env="walker2d_perturbed", B=B, m=m, iters=cfg.pgs_iters,
-         active_rows=float(act.sum()), lam_abs_err=lam_err,
-         lam_abs_max=float(lam_r.abs().max()),
-         res_abs_err=float((res_k - res_r).abs().max()),
-         res_max=float(res_r.max()), res_median=float(res_r.median()),
-         lam_entries_beyond_tol=int(lam_bad.sum()),
-         res_envs_beyond_tol=int(res_bad.sum()),
-         res_envs_unequal=int((res_k != res_r).sum()), ms=ms,
-         plain_ms=plain_ms, tol_lam=dict(rtol=1e-5, atol=1e-6),
-         tol_res=dict(rtol=1e-4, atol=1e-7))
-    assert float(act.sum()) > B, "constraint rows are not live"
-    assert torch.isfinite(lam_k).all() and torch.isfinite(res_k).all()
-    assert not bool(lam_bad.any()) and not bool(res_bad.any())
-    words = m * m + 7 * m + 1          # A, 6 vectors in; lam, res out
-    flops = 2 * (cfg.pgs_iters + 1) * m * (m + 4)
-    pgs = dict(max_abs_err=lam_err, ms=ms, plain_ms=plain_ms,
-               bound=bound(4 * words * B, flops * B),
-               shape=f"walker2d_perturbed B={B} m_c={m} "
-                     f"iters={cfg.pgs_iters} residual")
+    lam_k, res_k, pgs = compare_pgs(
+        "walker2d_perturbed", (A, b, lo, hi, findex, mu, act, lam0),
+        cfg.pgs_iters, cfg.pgs_omega)
+    compare_pgs("random_m40", random_lcps(B, 10, 10, 3, dev),
+                cfg.pgs_iters, cfg.pgs_omega)
 
     K = escalation_size(B, cfg.escalate_frac, cfg.escalate_kmax)
     worst, idx = torch.topk(res_k, K)
@@ -1002,7 +1057,12 @@ def main():
             "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
             "bound_by": c["bound"][1], "library_ms": None,
             "launches_per_control_step": n[key] / n["steps"],
-            "shape": c["shape"]})
+            "device_ms": c.get("device_ms"), "shape": c["shape"]})
+        if key == "dynamics":
+            w = dyn["walker2d"]
+            kernels[-1].update(walker2d_states_device_ms=w["device_ms"],
+                               walker2d_states_ms=w["ms"],
+                               walker2d_states_shape=w["shape"])
     assert all(k["launches"] > 0 for k in kernels)
     emit("done", seconds=time.time() - t_start)
     print(smi, flush=True)

@@ -15,25 +15,37 @@
 // recursion, then the Cholesky solve), so the kernel is bound by latency
 // and by how many envs are in flight.
 //
-// Design: ONE THREAD PER ENV, blocks of one warp, as the fused substep
-// kernel (whose dynamics stage this is: both include dynamics_body.h).
-// The per-env working set (poses, velocities, S rows, M, its factor) sits
-// in registers and local memory.  The model is compiled in: sizes as
-// macros and tables as __constant__ arrays from a header generated from
-// the model's static digest (dynamics_model.h; one build per digest), read
-// uniformly by a warp.  Outputs are written row-major in the boundary
-// layout of the JAX kernel.  Domain-randomized model leaves as per-env
-// inputs (the JAX kernel's DR_FIELDS_DYN) are not ported yet: they wait
-// for the domain-randomization slice of the port.
+// Design: A GROUP OF DY_G LANES PER ENV (the smallest power of two >=
+// max(nb, n), at most 32: cartpole 2, walker2d 16; from the generated
+// header), DY_THREADS / DY_G envs per block, the per-env working set in
+// shared memory.  The group takes the independent items of each stage
+// (bodies, tree levels, dofs, (body, dof) columns, mass-matrix entries;
+// dynamics_body.h's dyn_group, shared with the fused substep kernel) and
+// lane 0 the serial tail (the tree sum of the bias forces, the Cholesky
+// and its solves).  The block loads its envs' rows of q, dq, tau and
+// stores each output's rows as contiguous runs.  The earlier design ran
+// one env per thread in one-warp blocks: 2 warps per SM for cartpole at
+// B = 8192, each env's chain exposed, the working set in local memory,
+// every store 32 rows apart.  The model is compiled in: sizes as macros
+// and tables as __constant__ arrays from a header generated from the
+// model's static digest (dynamics_model.h; one build per digest), read
+// uniformly by a warp.  Domain-randomized model leaves as per-env inputs
+// (the JAX kernel's DR_FIELDS_DYN) are not ported yet: they wait for the
+// domain-randomization slice of the port.
 //
 // Built with -fmad=false: products and sums round separately, like the
-// plain PyTorch version (dynamics/hopper_dynamics.dynamics_reference).
+// plain PyTorch version (dynamics/hopper_dynamics.dynamics_reference);
+// every output entry keeps the earlier design's operations in its order,
+// so the two agree to the bit.
 
 #include <cuda_runtime.h>
 
 #include "dynamics_model.h"
 
-#define DY_BLOCK 32
+#define DY_THREADS 128
+#define DY_EPB (DY_THREADS / DY_G)           // envs per block
+static_assert(DY_G >= 1 && DY_G <= 32 && 32 % DY_G == 0,
+              "a lane group is a power of two within a warp");
 
 // With DY_STAMPS defined (bench/kernel_stages.py), lane 0 of every warp
 // adds the clock64() cycles of each stage to dy_cycles[stage];
@@ -57,19 +69,64 @@ __device__ unsigned long long dy_cycles[DY_NSTAGES];
 
 #include "dynamics_body.h"
 
-__global__ void __launch_bounds__(DY_BLOCK)
-dynamics_kernel(const float* __restrict__ q, const float* __restrict__ dq,
-                const float* __restrict__ tau, float* __restrict__ dq_star,
-                float* __restrict__ M, float* __restrict__ phi,
-                float* __restrict__ R_w, float* __restrict__ p_w, int B) {
-    const int e = blockIdx.x * DY_BLOCK + threadIdx.x;
-    if (e >= B) return;                       // ragged edge: masked
-    dynamics_env(e, q, dq, tau, dq_star, M, phi, R_w, p_w);
+// floats of one env in shared memory: q, dq, tau, dq_star, M, phi, R_w,
+// p_w, L and the group's scratch
+#define DY_ENV_F (4 * DY_N + 2 * DY_N * DY_N + 6 * DY_N + 12 * DY_NB \
+                  + DY_SCRATCH)
+
+__global__ void __launch_bounds__(DY_THREADS)
+dynamics_kernel(const float* __restrict__ q_g, const float* __restrict__ dq_g,
+                const float* __restrict__ tau_g, float* __restrict__ dqs_g,
+                float* __restrict__ M_g, float* __restrict__ phi_g,
+                float* __restrict__ Rw_g, float* __restrict__ pw_g, int B) {
+    extern __shared__ float smem[];
+    const int k = threadIdx.x / DY_G, gl = threadIdx.x % DY_G;
+    const int e0 = blockIdx.x * DY_EPB;
+    const int nv = min(DY_EPB, B - e0);       // envs of this block
+    // one array per field for the block's envs, each a run of rows
+    float* sq = smem;
+    float* sdq = sq + DY_EPB * DY_N;
+    float* stau = sdq + DY_EPB * DY_N;
+    float* sdqs = stau + DY_EPB * DY_N;
+    float* sM = sdqs + DY_EPB * DY_N;
+    float* sphi = sM + DY_EPB * DY_N * DY_N;
+    float* sRw = sphi + DY_EPB * 6 * DY_N;
+    float* spw = sRw + DY_EPB * 9 * DY_NB;
+    float* sL = spw + DY_EPB * 3 * DY_NB;
+    float* sscr = sL + DY_EPB * DY_N * DY_N;
+    DY_STAMP_DECL
+
+    const size_t in0 = (size_t)e0 * DY_N;
+    for (int i = threadIdx.x; i < DY_EPB * DY_N; i += DY_THREADS) {
+        const bool in = i < nv * DY_N;        // ragged edge: zeros
+        sq[i] = in ? q_g[in0 + i] : 0.0f;
+        sdq[i] = in ? dq_g[in0 + i] : 0.0f;
+        stau[i] = in ? tau_g[in0 + i] : 0.0f;
+    }
+    __syncthreads();
+    DY_STAMP(0);
+    dyn_group(gl, sq + k * DY_N, sdq + k * DY_N, stau + k * DY_N,
+              sRw + k * 9 * DY_NB, spw + k * 3 * DY_NB, sphi + k * 6 * DY_N,
+              sM + k * DY_N * DY_N, sdqs + k * DY_N, sL + k * DY_N * DY_N,
+              sscr + k * DY_SCRATCH);
+    __syncthreads();
+    DY_STAMP_RESTART
+    for (int i = threadIdx.x; i < nv * DY_N; i += DY_THREADS)
+        dqs_g[in0 + i] = sdqs[i];
+    for (int i = threadIdx.x; i < nv * DY_N * DY_N; i += DY_THREADS)
+        M_g[(size_t)e0 * DY_N * DY_N + i] = sM[i];
+    for (int i = threadIdx.x; i < nv * 6 * DY_N; i += DY_THREADS)
+        phi_g[(size_t)e0 * 6 * DY_N + i] = sphi[i];
+    for (int i = threadIdx.x; i < nv * 9 * DY_NB; i += DY_THREADS)
+        Rw_g[(size_t)e0 * 9 * DY_NB + i] = sRw[i];
+    for (int i = threadIdx.x; i < nv * 3 * DY_NB; i += DY_THREADS)
+        pw_g[(size_t)e0 * 3 * DY_NB + i] = spw[i];
+    DY_STAMP(7);
 }
 
 extern "C" int dynamics_dims(int* out) {
-    out[0] = DY_N; out[1] = DY_NB;
-    return 2;
+    out[0] = DY_N; out[1] = DY_NB; out[2] = DY_G;
+    return 3;
 }
 
 // The stage cycles summed over warps since the last call (cleared);
@@ -91,8 +148,15 @@ extern "C" int dynamics_launch(const float* q, const float* dq,
                                const float* tau, float* dq_star, float* M,
                                float* phi, float* R_w, float* p_w, int B,
                                void* stream) {
-    const int grid = (B + DY_BLOCK - 1) / DY_BLOCK;
-    dynamics_kernel<<<grid, DY_BLOCK, 0, (cudaStream_t)stream>>>(
+    const int bytes = DY_EPB * DY_ENV_F * (int)sizeof(float);
+    if (bytes > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            dynamics_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            bytes);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const int grid = (B + DY_EPB - 1) / DY_EPB;
+    dynamics_kernel<<<grid, DY_THREADS, bytes, (cudaStream_t)stream>>>(
         q, dq, tau, dq_star, M, phi, R_w, p_w, B);
     return (int)cudaGetLastError();
 }

@@ -2,15 +2,17 @@
 // fused substep kernel (substep_body.h) and their host builds
 // (dynamics_host.cpp, substep_host.cpp): joint kinematics of all ten joint
 // types -> tree recursion -> world dof columns phi -> mass matrix -> bias
-// forces -> implicit spring/damping forward solve (Cholesky).  This is the
-// per-env body _trace_env of dartenv_tpu/dynamics/pallas_dynamics.py.
+// forces -> implicit spring/damping forward solve (Cholesky), on a group
+// of lanes (dyn_group).  This is the per-env body _trace_env of
+// dartenv_tpu/dynamics/pallas_dynamics.py.
 //
 // The includer first includes a header generated from the model's static
 // digest (dartenv_tpu_torch/dynamics/hopper_dynamics.dynamics_header): the
 // sizes DY_N, DY_NB, DY_MAXDOF, the step DY_DT, the mask DY_JMASK of joint
 // types present (bit t set for type t; branches of absent types are
-// removed at compile time), and the model tables as DY_CONST arrays
-// (__constant__ under nvcc, static const in a host build).
+// removed at compile time), the lane group DY_G and the item counts of
+// its stages, and the model tables as DY_CONST arrays (__constant__ under
+// nvcc, static const in a host build).
 #pragma once
 
 #include <math.h>
@@ -41,6 +43,21 @@
 #define DY_STAMP_DECL
 #define DY_STAMP_RESTART
 #define DY_STAMP(k) ((void)0)
+#endif
+
+// Lane-group loops of dyn_group: on the card an env runs on DY_G lanes
+// (gl = 0..DY_G-1; a lane with gl >= DY_G takes no item) and
+// `GL_FOR(i, lo, hi)` spreads a loop's items over them; GL_SYNC() is
+// __syncwarp() (every lane of the warp calls it: the groups of a warp run
+// the same stages).  A host build runs one lane that takes every item in
+// order.
+#ifdef __CUDACC__
+#define GL_FOR(i, lo, hi) \
+    for (int i = (lo) + gl; gl < DY_G && i < (hi); i += DY_G)
+#define GL_SYNC() __syncwarp()
+#else
+#define GL_FOR(i, lo, hi) for (int i = (lo); i < (hi); ++i)
+#define GL_SYNC() ((void)0)
 #endif
 
 
@@ -290,20 +307,64 @@ DI void joint_kin(int b, const float* q, const float* dq, float* Rj,
     }
 }
 
-// The dynamics stage of one env: (q, dq, tau) -> world poses R_w / p_w,
-// world dof columns phi, mass matrix M (full, symmetric), dq_star, and the
-// Cholesky factor L of M + diag(dt d + dt^2 k).
-DI void dyn_stage(const float* q, const float* dq, const float* tau,
-                  float (*R_w)[9], float (*p_w)[3], float (*phi)[6],
-                  float* M, float* dq_star, float* L) {
+// ---- the dynamics stage on a group of lanes ------------------------------
+// One env's (q, dq, tau) -> world poses R_w / p_w, world dof columns phi,
+// mass matrix M (full, symmetric), dq_star, and the Cholesky factor L of
+// M + diag(dt d + dt^2 k).  The arithmetic of the serial body it replaced
+// (one env per thread), entry by entry and in the same order (so the
+// outputs are the same to the bit), with the independent items over the
+// group's lanes: one body per lane
+// for the joint kinematics, T_rel, the S / S-dot rows and vJ / cJ; the
+// world composition (R_w, p_w, vel, ab) one tree level at a time (the
+// levels are a table of the generated header); one dof per lane for phi;
+// one body per lane for Ic_w and d_w, one (body, dof) per lane for the F
+// columns; the M entries (i <= j) over lanes, each summing over bodies
+// b = 0..nb-1 in order; one body per lane for the bias forces.  The
+// backward accumulation of f_sub (a parent with two children adds them in
+// index order), the Cholesky and its solves stay on lane 0.  The working
+// set is `scr` (DY_SCRATCH floats, shared memory on the card).
+#define DY_O_S 0                             // S rows, 6 per dof
+#define DY_O_VEL (DY_O_S + 6 * DY_N)
+#define DY_O_AB (DY_O_VEL + 6 * DY_NB)
+#define DY_O_FSUB (DY_O_AB + 6 * DY_NB)
+#define DY_O_MI (DY_O_FSUB + 6 * DY_NB)
+#define DY_O_RHS (DY_O_MI + DY_N * DY_N)
+#define DY_O_U (DY_O_RHS + DY_N)             // two phases share this
+#define DY_O_RREL DY_O_U                     // kinematics + composition
+#define DY_O_PREL (DY_O_RREL + 9 * DY_NB)
+#define DY_O_VJ (DY_O_PREL + 3 * DY_NB)
+#define DY_O_CJ (DY_O_VJ + 6 * DY_NB)
+#define DY_U_A (24 * DY_NB)
+#define DY_O_F DY_O_U                        // mass matrix
+#define DY_O_ICW (DY_O_F + 6 * DY_NB * DY_N)
+#define DY_O_DW (DY_O_ICW + 9 * DY_NB)
+#define DY_U_B (6 * DY_NB * DY_N + 12 * DY_NB)
+#define DY_SCRATCH (DY_O_U + (DY_U_A > DY_U_B ? DY_U_A : DY_U_B))
+
+// q, dq, tau in; world poses R_w (9 per body) / p_w (3 per body), world dof
+// columns phi (6 per dof), mass matrix M (full), dq_star and the Cholesky
+// factor L of M + diag(dt d + dt^2 k) out (written by lane 0 or by the
+// lanes; visible to the group after its last GL_SYNC).
+DI void dyn_group(int gl, const float* q, const float* dq, const float* tau,
+                  float* R_w, float* p_w, float* phi, float* M,
+                  float* dq_star, float* L, float* scr) {
+    float* S = scr + DY_O_S;
+    float* vel = scr + DY_O_VEL;
+    float* ab = scr + DY_O_AB;
+    float* f_sub = scr + DY_O_FSUB;
+    float* Mi = scr + DY_O_MI;
+    float* rhs = scr + DY_O_RHS;
+    float* R_rel = scr + DY_O_RREL;
+    float* p_rel = scr + DY_O_PREL;
+    float* vJ = scr + DY_O_VJ;
+    float* cJ = scr + DY_O_CJ;
+    float* F = scr + DY_O_F;
+    float* Ic_w = scr + DY_O_ICW;
+    float* d_w = scr + DY_O_DW;
     DY_STAMP_DECL
-    // ---- joint kinematics + tree recursion ------------------------------
-    float vel[DY_NB][6], ab[DY_NB][6];
-    float S[DY_N][6], Sd[DY_N][6];
-    const float a_base[6] = {0.0f, 0.0f, 0.0f, -c_gravity[0], -c_gravity[1],
-                             -c_gravity[2]};
-#pragma unroll 1
-    for (int b = 0; b < DY_NB; ++b) {
+
+    // ---- joint kinematics: one body per lane ----------------------------
+    GL_FOR(b, 0, DY_NB) {
         float Rj[9] = {1, 0, 0, 0, 1, 0, 0, 0, 1};
         float pj[3] = {0, 0, 0};
         float Sj[DY_MAXDOF][6], Sdj[DY_MAXDOF][6];
@@ -312,164 +373,172 @@ DI void dyn_stage(const float* q, const float* dq, const float* tau,
         const int qs = c_qstart[b], nd = c_ndof[b];
         joint_kin(b, q, dq, Rj, pj, Sj, Sdj);
         // T_rel = T_pj o T_joint o inv(T_cj)
-        float R1[9], p1[3], R_rel[9], p_rel[3], t3[3];
+        float R1[9], p1[3], t3[3];
         m3m(&c_pj_rot[9 * b], Rj, R1);
         m3v(&c_pj_rot[9 * b], pj, t3);
         for (int k = 0; k < 3; ++k) p1[k] = c_pj_pos[3 * b + k] + t3[k];
-        m3m(R1, &c_cji_rot[9 * b], R_rel);
+        m3m(R1, &c_cji_rot[9 * b], &R_rel[9 * b]);
         m3v(R1, &c_cji_pos[3 * b], t3);
-        for (int k = 0; k < 3; ++k) p_rel[k] = p1[k] + t3[k];
-
-        float vJ[6] = {0, 0, 0, 0, 0, 0}, cJ[6] = {0, 0, 0, 0, 0, 0};
+        for (int k = 0; k < 3; ++k) p_rel[3 * b + k] = p1[k] + t3[k];
+        float vj[6] = {0, 0, 0, 0, 0, 0}, cj[6] = {0, 0, 0, 0, 0, 0};
         for (int k = 0; k < nd; ++k) {
             const int d = qs + k;
-            ad_cj(b, Sj[k], S[d]);
-            ad_cj(b, Sdj[k], Sd[d]);
+            float Sr[6], Sdr[6];
+            ad_cj(b, Sj[k], Sr);
+            ad_cj(b, Sdj[k], Sdr);
             for (int c = 0; c < 6; ++c) {
-                vJ[c] += S[d][c] * dq[d];
-                cJ[c] += Sd[d][c] * dq[d];
+                S[6 * d + c] = Sr[c];
+                vj[c] += Sr[c] * dq[d];
+                cj[c] += Sdr[c] * dq[d];
             }
         }
-        DY_STAMP(1);
-        const int par = c_parent[b];
-        float xa[6], cr[6];
-        if (par < 0) {
-            for (int k = 0; k < 9; ++k) R_w[b][k] = R_rel[k];
-            for (int k = 0; k < 3; ++k) p_w[b][k] = p_rel[k];
-            for (int c = 0; c < 6; ++c) vel[b][c] = vJ[c];
-            xmotion_Rt(R_rel, p_rel, a_base, xa);
-        } else {
-            m3m(R_w[par], R_rel, R_w[b]);
-            m3v(R_w[par], p_rel, t3);
-            for (int k = 0; k < 3; ++k) p_w[b][k] = p_w[par][k] + t3[k];
-            float xv[6];
-            xmotion_Rt(R_rel, p_rel, vel[par], xv);
-            for (int c = 0; c < 6; ++c) vel[b][c] = xv[c] + vJ[c];
-            xmotion_Rt(R_rel, p_rel, ab[par], xa);
+        for (int c = 0; c < 6; ++c) {
+            vJ[6 * b + c] = vj[c];
+            cJ[6 * b + c] = cj[c];
         }
-        crm6(vel[b], vJ, cr);
-        for (int c = 0; c < 6; ++c) ab[b][c] = xa[c] + (cr[c] + cJ[c]);
-        DY_STAMP(2);
     }
+    GL_SYNC();
+    DY_STAMP(1);
 
-    // ---- world-frame dof columns at the world origin --------------------
-    for (int d = 0; d < DY_N; ++d) {
-        const int b = c_dof_body[d];
-        float t3[3];
-        m3v(R_w[b], S[d], phi[d]);
-        m3v(R_w[b], &S[d][3], &phi[d][3]);
-        cross3(p_w[b], phi[d], t3);
-        for (int k = 0; k < 3; ++k) phi[d][3 + k] += t3[k];
+    // ---- world composition, one tree level at a time --------------------
+    const float a_base[6] = {0.0f, 0.0f, 0.0f, -c_gravity[0], -c_gravity[1],
+                             -c_gravity[2]};
+    for (int lv = 0; lv < DY_NLEVEL; ++lv) {
+        GL_FOR(t, c_lvl_start[lv], c_lvl_start[lv + 1]) {
+            const int b = c_lvl_body[t];
+            const int par = c_parent[b];
+            const float* Rr = &R_rel[9 * b];
+            const float* pr = &p_rel[3 * b];
+            float xa[6], cr[6], t3[3];
+            if (par < 0) {
+                for (int k = 0; k < 9; ++k) R_w[9 * b + k] = Rr[k];
+                for (int k = 0; k < 3; ++k) p_w[3 * b + k] = pr[k];
+                for (int c = 0; c < 6; ++c) vel[6 * b + c] = vJ[6 * b + c];
+                xmotion_Rt(Rr, pr, a_base, xa);
+            } else {
+                m3m(&R_w[9 * par], Rr, &R_w[9 * b]);
+                m3v(&R_w[9 * par], pr, t3);
+                for (int k = 0; k < 3; ++k)
+                    p_w[3 * b + k] = p_w[3 * par + k] + t3[k];
+                float xv[6];
+                xmotion_Rt(Rr, pr, &vel[6 * par], xv);
+                for (int c = 0; c < 6; ++c)
+                    vel[6 * b + c] = xv[c] + vJ[6 * b + c];
+                xmotion_Rt(Rr, pr, &ab[6 * par], xa);
+            }
+            crm6(&vel[6 * b], &vJ[6 * b], cr);
+            for (int c = 0; c < 6; ++c)
+                ab[6 * b + c] = xa[c] + (cr[c] + cJ[6 * b + c]);
+        }
+        GL_SYNC();
     }
+    DY_STAMP(2);
+
+    // ---- world-frame dof columns at the world origin: one dof per lane --
+    GL_FOR(d, 0, DY_N) {
+        const int b = c_dof_body[d];
+        float t3[3], ph[6];
+        m3v(&R_w[9 * b], &S[6 * d], ph);
+        m3v(&R_w[9 * b], &S[6 * d + 3], ph + 3);
+        cross3(&p_w[3 * b], ph, t3);
+        for (int k = 0; k < 3; ++k) ph[3 + k] += t3[k];
+        for (int c = 0; c < 6; ++c) phi[6 * d + c] = ph[c];
+    }
+    GL_SYNC();
     DY_STAMP(3);
 
     // ---- mass matrix: M[i][j] = sum_b phi_i . (I_w(b) phi_j) ------------
-    for (int i = 0; i < DY_N * DY_N; ++i) M[i] = 0.0f;
-#pragma unroll 1
-    for (int b = 0; b < DY_NB; ++b) {
+    GL_FOR(b, 0, DY_NB) {                   // world COM and inertia
+        float IcR[9], t3[3];
+        m3v(&R_w[9 * b], &c_com[3 * b], t3);
+        for (int k = 0; k < 3; ++k) d_w[3 * b + k] = p_w[3 * b + k] + t3[k];
+        m3m(&R_w[9 * b], &c_inertia[9 * b], IcR);
+        m3mt(IcR, &R_w[9 * b], &Ic_w[9 * b]);
+    }
+    GL_SYNC();
+    GL_FOR(t, 0, DY_NF) {                   // F columns of (body, dof)
+        const int b = c_f_body[t], j = c_f_dof[t];
         const float m_b = c_mass[b];
-        float d_w[3], IcR[9], Ic_w[9], t3[3];
-        m3v(R_w[b], &c_com[3 * b], t3);
-        for (int k = 0; k < 3; ++k) d_w[k] = p_w[b][k] + t3[k];
-        m3m(R_w[b], &c_inertia[9 * b], IcR);
-        m3mt(IcR, R_w[b], Ic_w);
-        float F[DY_N][6];
-        for (int j = 0; j < DY_N; ++j) {
-            if (!c_anc[b * DY_N + j]) continue;
-            float u[3], a3[3], c3[3];
-            cross3(d_w, phi[j], t3);
-            for (int k = 0; k < 3; ++k) u[k] = phi[j][3 + k] - t3[k];
-            m3v(Ic_w, phi[j], a3);
-            cross3(d_w, u, c3);
-            for (int k = 0; k < 3; ++k) {
-                F[j][k] = a3[k] + c3[k] * m_b;
-                F[j][3 + k] = u[k] * m_b;
-            }
-            for (int i = 0; i <= j; ++i) {
-                if (!c_anc[b * DY_N + i]) continue;
-                float acc = 0.0f;
-                for (int c = 0; c < 6; ++c) acc += phi[i][c] * F[j][c];
-                M[i * DY_N + j] += acc;
-            }
+        const float* dw = &d_w[3 * b];
+        const float* pj = &phi[6 * j];
+        float* Fj = &F[6 * (b * DY_N + j)];
+        float u[3], a3[3], c3[3], t3[3];
+        cross3(dw, pj, t3);
+        for (int k = 0; k < 3; ++k) u[k] = pj[3 + k] - t3[k];
+        m3v(&Ic_w[9 * b], pj, a3);
+        cross3(dw, u, c3);
+        for (int k = 0; k < 3; ++k) {
+            Fj[k] = a3[k] + c3[k] * m_b;
+            Fj[3 + k] = u[k] * m_b;
         }
     }
-    for (int i = 0; i < DY_N; ++i)
-        for (int j = 0; j < i; ++j) M[i * DY_N + j] = M[j * DY_N + i];
+    GL_SYNC();
+    GL_FOR(t, 0, DY_NPAIR) {                // entries i <= j, and mirrored
+        const int i = c_pair_i[t], j = c_pair_j[t];
+        float mij = 0.0f;
+        for (int b = 0; b < DY_NB; ++b) {
+            if (!c_anc[b * DY_N + j] || !c_anc[b * DY_N + i]) continue;
+            const float* Fj = &F[6 * (b * DY_N + j)];
+            float acc = 0.0f;
+            for (int c = 0; c < 6; ++c) acc += phi[6 * i + c] * Fj[c];
+            mij += acc;
+        }
+        M[i * DY_N + j] = mij;
+        M[j * DY_N + i] = mij;
+    }
     DY_STAMP(4);
 
-    // ---- bias forces ----------------------------------------------------
-    float f_sub[DY_NB][6];
-    for (int b = 0; b < DY_NB; ++b) {
+    // ---- bias forces: one body per lane, then the tree sum on lane 0 ----
+    GL_FOR(b, 0, DY_NB) {
         float Ia[6], Iv[6], cf[6], fb[6], t3[3];
-        inertia_mul(b, ab[b], Ia);
-        inertia_mul(b, vel[b], Iv);
-        crf6(vel[b], Iv, cf);
+        float* fs = &f_sub[6 * b];
+        inertia_mul(b, &ab[6 * b], Ia);
+        inertia_mul(b, &vel[6 * b], Iv);
+        crf6(&vel[6 * b], Iv, cf);
         for (int c = 0; c < 6; ++c) fb[c] = Ia[c] + cf[c];
         // inverse force transform (E = R_w^T, r = p_w)
-        m3v(R_w[b], fb + 3, &f_sub[b][3]);
-        m3v(R_w[b], fb, f_sub[b]);
-        cross3(p_w[b], &f_sub[b][3], t3);
-        for (int k = 0; k < 3; ++k) f_sub[b][k] += t3[k];
+        m3v(&R_w[9 * b], fb + 3, fs + 3);
+        m3v(&R_w[9 * b], fb, fs);
+        cross3(&p_w[3 * b], fs + 3, t3);
+        for (int k = 0; k < 3; ++k) fs[k] += t3[k];
     }
-    for (int b = DY_NB - 1; b > 0; --b) {
-        const int par = c_parent[b];
-        if (par >= 0)
-            for (int c = 0; c < 6; ++c) f_sub[par][c] += f_sub[b][c];
+    GL_SYNC();
+    if (gl == 0) {
+        for (int b = DY_NB - 1; b > 0; --b) {
+            const int par = c_parent[b];
+            if (par >= 0)
+                for (int c = 0; c < 6; ++c)
+                    f_sub[6 * par + c] += f_sub[6 * b + c];
+        }
     }
+    GL_SYNC();
     DY_STAMP(5);
 
     // ---- implicit-scheme forward dynamics -------------------------------
-    float rhs[DY_N], Mi[DY_N * DY_N], ddq[DY_N];
-    for (int i = 0; i < DY_N * DY_N; ++i) Mi[i] = M[i];
-    for (int d = 0; d < DY_N; ++d) {
+    GL_FOR(k, 0, DY_N * DY_N) {
+        float v = M[k];
+        if (k % (DY_N + 1) == 0) {
+            const int d = k / (DY_N + 1);
+            v += DY_DT * c_damping[d] + (DY_DT * DY_DT) * c_spring[d];
+        }
+        Mi[k] = v;
+    }
+    GL_FOR(d, 0, DY_N) {
         const int b = c_dof_body[d];
         float Cd = 0.0f;
-        for (int c = 0; c < 6; ++c) Cd += phi[d][c] * f_sub[b][c];
+        for (int c = 0; c < 6; ++c) Cd += phi[6 * d + c] * f_sub[6 * b + c];
         float td = tau[d] - Cd;
         td -= c_damping[d] * dq[d];
         td -= c_spring[d] * ((q[d] - c_rest[d]) + DY_DT * dq[d]);
         rhs[d] = td;
-        Mi[d * DY_N + d] += DY_DT * c_damping[d]
-                            + (DY_DT * DY_DT) * c_spring[d];
     }
-    chol_n(Mi, L);
-    chol_solve_n(L, rhs, ddq);
-    for (int d = 0; d < DY_N; ++d) dq_star[d] = dq[d] + DY_DT * ddq[d];
+    GL_SYNC();
+    if (gl == 0) {
+        float ddq[DY_N];
+        chol_n(Mi, L);
+        chol_solve_n(L, rhs, ddq);
+        for (int d = 0; d < DY_N; ++d) dq_star[d] = dq[d] + DY_DT * ddq[d];
+    }
+    GL_SYNC();
     DY_STAMP(6);
-}
-
-// One env of the dynamics kernel: reads row e of q, dq, tau and writes row
-// e of the five outputs in the boundary layout (dq_star (n), M (n, n),
-// phi (n, 6), R_w (nb, 3, 3), p_w (nb, 3), row-major).
-SS_FN void dynamics_env(int e, const float* __restrict__ q_g,
-                        const float* __restrict__ dq_g,
-                        const float* __restrict__ tau_g,
-                        float* __restrict__ dqs_g, float* __restrict__ M_g,
-                        float* __restrict__ phi_g, float* __restrict__ Rw_g,
-                        float* __restrict__ pw_g) {
-    DY_STAMP_DECL
-    float q[DY_N], dq[DY_N], tau[DY_N];
-    for (int d = 0; d < DY_N; ++d) {
-        q[d] = q_g[(size_t)e * DY_N + d];
-        dq[d] = dq_g[(size_t)e * DY_N + d];
-        tau[d] = tau_g[(size_t)e * DY_N + d];
-    }
-    DY_STAMP(0);
-    float R_w[DY_NB][9], p_w[DY_NB][3], phi[DY_N][6];
-    float M[DY_N * DY_N], dq_star[DY_N], L[DY_N * DY_N];
-    dyn_stage(q, dq, tau, R_w, p_w, phi, M, dq_star, L);
-    DY_STAMP_RESTART
-    for (int d = 0; d < DY_N; ++d) dqs_g[(size_t)e * DY_N + d] = dq_star[d];
-    for (int i = 0; i < DY_N * DY_N; ++i)
-        M_g[(size_t)e * DY_N * DY_N + i] = M[i];
-    for (int d = 0; d < DY_N; ++d)
-        for (int c = 0; c < 6; ++c)
-            phi_g[((size_t)e * DY_N + d) * 6 + c] = phi[d][c];
-    for (int b = 0; b < DY_NB; ++b) {
-        for (int k = 0; k < 9; ++k)
-            Rw_g[((size_t)e * DY_NB + b) * 9 + k] = R_w[b][k];
-        for (int k = 0; k < 3; ++k)
-            pw_g[((size_t)e * DY_NB + b) * 3 + k] = p_w[b][k];
-    }
-    DY_STAMP(7);
 }

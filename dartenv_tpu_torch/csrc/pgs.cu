@@ -17,17 +17,26 @@
 // impulses the previous one wrote.  So the kernel is bound by the latency
 // of that chain and by how many envs are in flight.
 //
-// Design: ONE WARP PER ENV, several envs (warps) per block.  Each env's A
-// is staged once into shared memory, since every sweep and the residual
-// read it again; the per-row vectors and lam sit beside it.  A row update is a
-// lane-wise product over the columns (j = lane, lane + 32, ...), a
-// __shfl_xor_sync butterfly that leaves the sum in every lane, and one
-// lane's write of the new lam_i (pgs_row.h, shared with the fused substep
-// kernel), which the next row reads from shared
-// memory (the friction bound reads lam[findex_i] the same way).  The
-// residual walks the rows in the same way, every lane holding the same w_i
-// and the same running max.  m, findex, iters and omega are run-time
-// arguments, so one build serves every model.
+// Design: ONE WARP PER ENV, up to 8 envs (warps) per block, and the chain
+// in registers: the ROW form of pgs_row.h.  Lane l holds lam_j of its rows
+// (j = l, l + 32, ...: R = ceil(m / 32) slots, a template argument chosen
+// at launch) with the row's b, bounds, mu, act and inverse diagonal.  Row
+// i is each lane's partial of A_i . lam over its own lam, the xor
+// butterfly, and the owner lane's clip, which it keeps in its register:
+// the next row's partials read it there.  So a row costs the butterfly
+// and the clip, with no __syncwarp and no shared-memory round trip (the
+// earlier design passed lam_i through shared memory between two
+// __syncwarp per row, 700 cycles a row on perturbed walker2d).  A is staged
+// once into shared memory and read by rows.  The fused residual is lane-
+// parallel over rows, each lane replaying the butterfly's order on its
+// row (it walked the rows one by one).  The sums keep the order of the
+// plain version's row sums on the card, so the kernel follows it to the
+// bit there; the faster COLUMN form of pgs_row.h (no reduction on the
+// chain, the fused substep kernel's) moves the impulses by rounding and
+// its residuals beyond the JAX package's Pallas-vs-XLA bound of 1e-4 /
+// 1e-7 on some envs (scripts/pgs_forms_cpu.py).  m, findex, iters and
+// omega are run-time arguments, so one build serves every model
+// (m <= 32 * PG_MAX_R).
 //
 // Built with -fmad=false: products and sums round separately, like the
 // plain PyTorch version (lcp/hopper_pgs.pgs_solve_reference).
@@ -38,6 +47,7 @@
 
 #define WARP 32
 #define MAX_WARPS 8
+#define PG_MAX_R 8              // rows per lane: m <= 256
 
 // With PG_STAMPS defined (bench/kernel_stages.py), lane 0 of every warp
 // adds the clock64() cycles of each stage to pg_cycles[stage];
@@ -60,6 +70,7 @@ __device__ unsigned long long pg_cycles[PG_NSTAGES];
 #define PG_STAMP(k) ((void)0)
 #endif
 
+template <int R>
 __global__ void pgs_kernel(const float* __restrict__ A_g,
                            const float* __restrict__ b_g,
                            const float* __restrict__ lo_g,
@@ -75,80 +86,53 @@ __global__ void pgs_kernel(const float* __restrict__ A_g,
     const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
     const int wpb = blockDim.x / WARP;
     const int env = blockIdx.x * wpb + warp;
-    const int per = m * m + 8 * m;              // floats per env
     PG_STAMP_DECL
-    int* fidx = reinterpret_cast<int*>(smem + wpb * per);
-    float* A = smem + warp * per;
-    float* b = A + m * m;
-    float* lo = b + m;
-    float* hi = lo + m;
-    float* mu = hi + m;
-    float* act = mu + m;
-    float* invd = act + m;
-    float* lam = invd + m;
+    int* fidx = reinterpret_cast<int*>(smem + wpb * m * m);
+    float* A = smem + warp * m * m;
 
     for (int i = threadIdx.x; i < m; i += blockDim.x) fidx[i] = findex[i];
+    PgLane<R> s;
     if (env < B) {
         const float* Ae = A_g + (size_t)env * m * m;
         for (int k = lane; k < m * m; k += WARP) A[k] = Ae[k];
         const size_t off = (size_t)env * m;
-        for (int i = lane; i < m; i += WARP) {
-            b[i] = b_g[off + i];
-            lo[i] = lo_g[off + i];
-            hi[i] = hi_g[off + i];
-            mu[i] = mu_g[off + i];
-            act[i] = act_g[off + i];
-            lam[i] = lam0_g[off + i];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            const int j = lane + r * WARP;
+            const bool in = j < m;
+            s.b[r] = in ? b_g[off + j] : 0.0f;
+            s.lo[r] = in ? lo_g[off + j] : 0.0f;
+            s.hi[r] = in ? hi_g[off + j] : 0.0f;
+            s.mu[r] = in ? mu_g[off + j] : 0.0f;
+            s.act[r] = in ? act_g[off + j] : 0.0f;
+            s.lam[r] = in ? lam0_g[off + j] : 0.0f;
         }
     }
     __syncthreads();
     if (env >= B) return;                       // ragged last block
-
-    for (int i = lane; i < m; i += WARP)
-        invd[i] = pgs_inv_diag(A[i * m + i], omega);
-    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        const int j = lane + r * WARP;
+        s.invd[r] = j < m ? pgs_inv_diag(A[j * m + j], omega) : 0.0f;
+    }
     PG_STAMP(0);
 
-    // ---- sweeps, static row order (the row update of pgs_row.h) ---------
+    // ---- sweeps, static row order (the row form of pgs_row.h) ----------
+#pragma unroll 1
     for (int it = 0; it < iters; ++it)
-        for (int i = 0; i < m; ++i)
-            pgs_row(A + i * m, lam, m, i, b[i], invd[i], lo[i], hi[i], mu[i],
-                    act[i], fidx[i], lane);
+        pg_row_sweep(s, A, m, m, fidx, lane);
     PG_STAMP(1);
-    const size_t off = (size_t)env * m;
-    for (int i = lane; i < m; i += WARP) lam_g[off + i] = lam[i];
-    PG_STAMP(3);
-    if (res_g == nullptr) return;
 
-    // ---- fused normalized residual (lcp/hybrid.comp_residual) -----------
-    // rows in order, each w_i reduced across the lanes as in the sweeps
-    float amax = 0.0f;
-    for (int i = lane; i < m; i += WARP) amax = fmaxf(amax, fabsf(lam[i]));
-    const float scale = fmaxf(1.0f, lanes_max(amax));
-    const float eps = 1e-6f * scale + 1e-9f;
+    // ---- fused normalized residual, lanes over rows ---------------------
     float res = 0.0f;
-    for (int i = 0; i < m; ++i) {
-        const float w = row_dot(A + i * m, lam, m, lane) + b[i];
-        float l, h;
-        const int f = fidx[i];
-        if (f >= 0) {
-            const float bound = mu[i] * fabsf(lam[f]);
-            l = fmaxf(lo[i], -bound);
-            h = fminf(hi[i], bound);
-        } else {
-            l = fmaxf(lo[i], -1e20f);
-            h = fminf(hi[i], 1e20f);
-        }
-        const float x = lam[i];
-        const bool at_lo = x <= l + eps;
-        const bool at_hi = x >= h - eps;
-        float r = (at_lo && at_hi) ? 0.0f
-                  : (at_lo ? -w : (at_hi ? w : fabsf(w)));
-        r = fmaxf(r, fmaxf(l - x, x - h));
-        if (act[i] > 0.5f) res = fmaxf(res, r);
-    }
+    if (res_g != nullptr) res = pg_row_residual(s, A, m, m, fidx, lane);
     PG_STAMP(2);
-    if (lane == 0) res_g[env] = res / scale;
+    const size_t off = (size_t)env * m;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+        if (lane + r * WARP < m) lam_g[off + lane + r * WARP] = s.lam[r];
+    if (res_g != nullptr && lane == 0) res_g[env] = res;
+    PG_STAMP(3);
 }
 
 // The stage cycles summed over warps since the last call (cleared);
@@ -169,34 +153,55 @@ extern "C" int pgs_stage_cycles(unsigned long long* out) {
 // memory, at most MAX_WARPS (at least one; larger problems opt in to more
 // dynamic shared memory at launch).
 extern "C" int pgs_warps_per_block(int m) {
-    const int per = (m * m + 8 * m) * (int)sizeof(float);
+    const int per = m * m * (int)sizeof(float);
     int w = (48 * 1024 - m * (int)sizeof(int)) / (per > 0 ? per : 1);
     if (w > MAX_WARPS) w = MAX_WARPS;
     return w < 1 ? 1 : w;
 }
 
 extern "C" int pgs_smem_bytes(int m, int wpb) {
-    return wpb * (m * m + 8 * m) * (int)sizeof(float)
-           + m * (int)sizeof(int);
+    return wpb * m * m * (int)sizeof(float) + m * (int)sizeof(int);
+}
+
+template <int R>
+static int launch_r(const float* A, const float* b, const float* lo,
+                    const float* hi, const float* mu, const float* act,
+                    const float* lam0, const int* findex, float* lam,
+                    float* res, int B, int m, int iters, float omega,
+                    cudaStream_t stream) {
+    const int wpb = pgs_warps_per_block(m);
+    const int bytes = pgs_smem_bytes(m, wpb);
+    if (bytes > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            pgs_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            bytes);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const int grid = (B + wpb - 1) / wpb;
+    pgs_kernel<R><<<grid, wpb * WARP, bytes, stream>>>(
+        A, b, lo, hi, mu, act, lam0, findex, lam, res, B, m, iters, omega);
+    return (int)cudaGetLastError();
 }
 
 // Launch on `stream`; `res` may be null (no residual).  Returns the
-// cudaError_t of the launch (0 = ok).
+// cudaError_t of the launch (0 = ok; cudaErrorInvalidValue for m beyond
+// 32 * PG_MAX_R rows).
 extern "C" int pgs_solve_launch(const float* A, const float* b,
                                 const float* lo, const float* hi,
                                 const float* mu, const float* act,
                                 const float* lam0, const int* findex,
                                 float* lam, float* res, int B, int m,
                                 int iters, float omega, void* stream) {
-    const int wpb = pgs_warps_per_block(m);
-    const int bytes = pgs_smem_bytes(m, wpb);
-    if (bytes > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            pgs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-        if (e != cudaSuccess) return (int)e;
+    cudaStream_t st = (cudaStream_t)stream;
+    switch ((m + WARP - 1) / WARP) {
+#define PG_CASE(R)                                                        \
+    case R:                                                               \
+        return launch_r<R>(A, b, lo, hi, mu, act, lam0, findex, lam, res, \
+                           B, m, iters, omega, st);
+        PG_CASE(1) PG_CASE(2) PG_CASE(3) PG_CASE(4)
+        PG_CASE(5) PG_CASE(6) PG_CASE(7) PG_CASE(8)
+#undef PG_CASE
+        default:
+            return (int)cudaErrorInvalidValue;
     }
-    const int grid = (B + wpb - 1) / wpb;
-    pgs_kernel<<<grid, wpb * WARP, bytes, (cudaStream_t)stream>>>(
-        A, b, lo, hi, mu, act, lam0, findex, lam, res, B, m, iters, omega);
-    return (int)cudaGetLastError();
 }

@@ -5,8 +5,8 @@ PyTorch version.
 of all ten joint types, tree recursion, world dof columns, mass matrix,
 bias forces and the implicit spring/damping forward solve.  On a float32
 CUDA batch `make_dynamics_phase` runs `DynamicsKernel` (csrc/dynamics.cu,
-one thread per env); on a CPU or float64 batch it runs
-`dynamics_reference` (dynamics/batched.bkin + forward_dynamics).
+a group of `lane_group(model)` lanes per env); on a CPU or float64 batch
+it runs `dynamics_reference` (dynamics/batched.bkin + forward_dynamics).
 
 `DYNAMICS_LAUNCHES` counts kernel launches; `PLAIN_CALLS` counts runs of
 the plain version through the phase (so a run can show it took none).
@@ -64,21 +64,48 @@ def c_float(v) -> str:
     return f"{np.float32(v):.9e}f"
 
 
+def lane_group(model: SkelModel) -> int:
+    """Lanes per env of the dynamics stage: the smallest power of two >=
+    max(nb, n), at most a warp (cartpole 2, walker2d 16)."""
+    g = 1
+    while g < max(model.nb, model.n) and g < 32:
+        g *= 2
+    return g
+
+
+def depth_levels(parent) -> list:
+    """Bodies by tree depth, each level in index order (a parent precedes
+    its children in the model)."""
+    depth = []
+    for b, p in enumerate(parent):
+        depth.append(0 if p < 0 else depth[p] + 1)
+    return [[b for b, d in enumerate(depth) if d == lv]
+            for lv in range(max(depth) + 1)] if depth else []
+
+
 def dynamics_header(model: SkelModel) -> str:
     """The C header that fixes csrc/dynamics_body.h to one model: sizes,
-    dt and the mask of joint types as macros, the tables (topology, joint
-    frames, axes, inertias, gravity, springs and dampers) as DY_CONST
-    arrays (__constant__ under nvcc, static const in a host build)."""
+    dt, the mask of joint types and the lane group as macros, the tables
+    (topology and its tree levels, the (body, dof) columns and the
+    mass-matrix entries the lanes take, joint frames, axes, inertias,
+    gravity, springs and dampers) as DY_CONST arrays (__constant__ under
+    nvcc, static const in a host build)."""
     h = model.host
     n, nb = model.n, model.nb
     mask = 0
     for t in set(model.joint_type):
         mask |= 1 << int(t)
+    anc = h("ancestor_mask") > 0.5
+    levels = depth_levels(model.parent)
+    fcols = [(b, j) for b in range(nb) for j in range(n) if anc[b, j]]
+    pairs = [(i, j) for j in range(n) for i in range(j + 1)]
     out = ["// generated from the model's static digest; do not edit\n",
            "#pragma once\n",
            "#ifndef DY_CONST\n#define DY_CONST __constant__\n#endif\n"]
     defs = dict(DY_N=n, DY_NB=nb, DY_MAXDOF=max(1, max(model.ndof)),
-                DY_JMASK=mask, DY_DT=c_float(model.dt))
+                DY_JMASK=mask, DY_DT=c_float(model.dt),
+                DY_G=lane_group(model), DY_NLEVEL=len(levels),
+                DY_NF=len(fcols), DY_NPAIR=len(pairs))
     out += [f"#define {k} {v}\n" for k, v in defs.items()]
     cj_rot, cj_pos = h("cj_rot"), h("cj_pos")
     axes = h("axes")
@@ -90,7 +117,13 @@ def dynamics_header(model: SkelModel) -> str:
         c_ints("c_parent", model.parent), c_ints("c_jt", model.joint_type),
         c_ints("c_qstart", model.q_start), c_ints("c_ndof", model.ndof),
         c_ints("c_dof_body", model.dof_body_index()),
-        c_ints("c_anc", h("ancestor_mask") > 0.5),
+        c_ints("c_anc", anc),
+        c_ints("c_lvl_start", np.cumsum([0] + [len(lv) for lv in levels])),
+        c_ints("c_lvl_body", [b for lv in levels for b in lv]),
+        c_ints("c_f_body", [b for b, _ in fcols]),
+        c_ints("c_f_dof", [j for _, j in fcols]),
+        c_ints("c_pair_i", [i for i, _ in pairs]),
+        c_ints("c_pair_j", [j for _, j in pairs]),
         c_floats("c_pj_rot", h("pj_rot")), c_floats("c_pj_pos", h("pj_pos")),
         c_floats("c_cj_rot", cj_rot), c_floats("c_cj_pos", cj_pos),
         # inv(T_cj) applied on the right: R_rel = R1 cj_rot^T,
@@ -120,15 +153,28 @@ class DynamicsKernel:
         if model.nb < 1:
             raise ValueError("the dynamics kernel needs at least one body")
         self.n, self.nb = model.n, model.nb
+        self.group = lane_group(model)
         self._header = dynamics_header(model)
         self._build = None
         self._lib = None
         self._host_lib = None
+        # per-env widths of the five outputs, in the packed buffer's order
+        n, nb = self.n, self.nb
+        self._widths = (n, n * n, 6 * n, 9 * nb, 3 * nb)
+        self._tails = ((n,), (n, n), (n, 6), (nb, 3, 3), (nb, 3))
 
     def shapes(self, B: int):
-        n, nb = self.n, self.nb
-        return dict(dq_star=(B, n), M=(B, n, n), phi=(B, n, 6),
-                    R_w=(B, nb, 3, 3), p_w=(B, nb, 3))
+        return {k: (B, *t) for k, t in zip(_OUTS, self._tails)}
+
+    def _outputs(self, B: int, device):
+        """One allocation; each output a contiguous view of it."""
+        buf = torch.empty((B * sum(self._widths),), dtype=torch.float32,
+                          device=device)
+        outs, a = [], 0
+        for w, t in zip(self._widths, self._tails):
+            outs.append(buf[a:a + B * w].view(B, *t))
+            a += B * w
+        return outs
 
     def start_build(self):
         if self._build is None:
@@ -148,12 +194,12 @@ class DynamicsKernel:
         return self._lib
 
     def _check_dims(self, lib):
-        dims = (ctypes.c_int * 2)()
+        dims = (ctypes.c_int * 3)()
         lib.dynamics_dims(dims)
-        if list(dims) != [self.n, self.nb]:
+        if list(dims) != [self.n, self.nb, self.group]:
             raise RuntimeError(
                 f"dynamics kernel built for sizes {list(dims)}, the model "
-                f"needs {[self.n, self.nb]}")
+                f"needs {[self.n, self.nb, self.group]}")
 
     def run_host(self, q, dq, tau):
         """The kernel's per-env arithmetic (csrc/dynamics_body.h) built
@@ -174,39 +220,39 @@ class DynamicsKernel:
         if any(x.is_cuda for x in ins):
             raise ValueError("run_host takes CPU tensors")
         B = q.shape[0]
-        outs = {k: torch.zeros(s, dtype=torch.float32)
-                for k, s in self.shapes(B).items()}
-        self._host_lib.dynamics_host(
-            *[x.data_ptr() for x in ins],
-            *[outs[k].data_ptr() for k in _OUTS], B)
-        return tuple(outs[k] for k in _OUTS)
+        outs = self._outputs(B, "cpu")
+        self._host_lib.dynamics_host(*[x.data_ptr() for x in ins],
+                                     *[x.data_ptr() for x in outs], B)
+        return tuple(outs)
 
     def __call__(self, q, dq, tau):
         """q, dq, tau: (B, n) float32 CUDA tensors.  Returns (dq_star, M,
         phi, R_w, p_w) as dynamics_reference does."""
         global DYNAMICS_LAUNCHES
-        B = q.shape[0]
+        B, dev = q.shape[0], q.device
+        want = (B, self.n)
         for name, x in (("q", q), ("dq", dq), ("tau", tau)):
-            if (not x.is_cuda or x.dtype != torch.float32
-                    or x.shape != (B, self.n) or x.device != q.device):
+            if (x.dtype != torch.float32 or x.shape != want
+                    or x.device != dev or not x.is_cuda):
                 raise ValueError(
                     f"dynamics kernel: {name} must be a float32 CUDA tensor "
-                    f"of shape {(B, self.n)}, got {x.dtype} "
-                    f"{tuple(x.shape)} on {x.device}")
-        lib = self.load()
-        ins = [x.contiguous() for x in (q, dq, tau)]
-        outs = {k: torch.empty(s, dtype=torch.float32, device=q.device)
-                for k, s in self.shapes(B).items()}
+                    f"of shape {want}, got {x.dtype} {tuple(x.shape)} on "
+                    f"{x.device}")
+        if dev.index != torch.cuda.current_device():
+            with torch.cuda.device(dev):
+                return self(q, dq, tau)
+        lib = self._lib or self.load()
+        outs = self._outputs(B, dev)
         if B == 0:
-            return tuple(outs[k] for k in _OUTS)
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            code = lib.dynamics_launch(
-                *[x.data_ptr() for x in ins],
-                *[outs[k].data_ptr() for k in _OUTS], B, stream)
+            return tuple(outs)
+        ins = [x if x.is_contiguous() else x.contiguous()
+               for x in (q, dq, tau)]
+        code = lib.dynamics_launch(
+            *[x.data_ptr() for x in ins], *[x.data_ptr() for x in outs], B,
+            torch.cuda.current_stream().cuda_stream)
         cuda_build.check_launch(code, "dynamics kernel")
         DYNAMICS_LAUNCHES += 1
-        return tuple(outs[k] for k in _OUTS)
+        return tuple(outs)
 
 
 _KERNELS: Dict[str, DynamicsKernel] = {}
