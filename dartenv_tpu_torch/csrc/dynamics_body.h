@@ -2,9 +2,10 @@
 // fused substep kernel (substep_body.h) and their host builds
 // (dynamics_host.cpp, substep_host.cpp): joint kinematics of all ten joint
 // types -> tree recursion -> world dof columns phi -> mass matrix -> bias
-// forces -> implicit spring/damping forward solve (Cholesky), on a group
-// of lanes (dyn_group).  This is the per-env body _trace_env of
-// dartenv_tpu/dynamics/pallas_dynamics.py.
+// forces -> implicit spring/damping forward solve (Cholesky), on one
+// thread (dyn_stage, the fused substep kernel's) or on a group of lanes
+// (dyn_group, the dynamics kernel's).  This is the per-env body _trace_env
+// of dartenv_tpu/dynamics/pallas_dynamics.py.
 //
 // The includer first includes a header generated from the model's static
 // digest (dartenv_tpu_torch/dynamics/hopper_dynamics.dynamics_header): the
@@ -197,17 +198,51 @@ DI void chol_n(const float* A, float* L) {
         }
     }
 }
+// Forward and back substitution with a Cholesky factor L (lower, of
+// chol_n or chol_group): x = L^-T L^-1 rhs, on one lane; the loops unroll and the
+// intermediates stay in registers.
 DI void chol_solve_n(const float* L, const float* rhs, float* x) {
-    float y[DY_N];
+    float y[DY_N], xl[DY_N];
+#pragma unroll
     for (int i = 0; i < DY_N; ++i) {
         float s = rhs[i];
+#pragma unroll
         for (int k = 0; k < i; ++k) s -= L[i * DY_N + k] * y[k];
         y[i] = s / L[i * DY_N + i];
     }
+#pragma unroll
     for (int i = DY_N - 1; i >= 0; --i) {
         float s = y[i];
-        for (int k = i + 1; k < DY_N; ++k) s -= L[k * DY_N + i] * x[k];
-        x[i] = s / L[i * DY_N + i];
+#pragma unroll
+        for (int k = i + 1; k < DY_N; ++k) s -= L[k * DY_N + i] * xl[k];
+        xl[i] = s / L[i * DY_N + i];
+    }
+#pragma unroll
+    for (int i = 0; i < DY_N; ++i) x[i] = xl[i];
+}
+
+// Cholesky factor L (lower) of A + 1e-10 I, guards as math/linalg.chol
+// (sqrt(max(s, 1e-30))): a column at a time, the column's rows over the
+// group's lanes, every entry's operations in the order of the row-by-row
+// recurrence  s = A_ij (+ 1e-10 on the diagonal) - sum_{k<j} L_ik L_jk
+// (k in order);  L_jj = sqrt(max(s, 1e-30)), L_ij = s / L_jj.  Every lane
+// computes the column's diagonal for itself (the same operations).
+DI void chol_group(int gl, const float* A, float* L) {
+    for (int j = 0; j < DY_N; ++j) {
+        float sd = A[j * DY_N + j] + 1e-10f;
+        for (int k = 0; k < j; ++k) sd -= L[j * DY_N + k] * L[j * DY_N + k];
+        const float ljj = sqrtf(fmaxf(sd, 1e-30f));
+        GL_FOR(i, j, DY_N) {
+            float s = ljj;
+            if (i > j) {
+                s = A[i * DY_N + j];
+                for (int k = 0; k < j; ++k)
+                    s -= L[i * DY_N + k] * L[j * DY_N + k];
+                s = s / ljj;
+            }
+            L[i * DY_N + j] = s;
+        }
+        GL_SYNC();
     }
 }
 
@@ -307,13 +342,155 @@ DI void joint_kin(int b, const float* q, const float* dq, float* Rj,
     }
 }
 
+// ---- the dynamics stage on one thread ------------------------------------
+// The dynamics stage of one env on ONE thread (the fused substep kernel
+// runs the envs of a block on the lanes of a warp, one env per lane):
+// (q, dq, tau) -> world poses R_w / p_w, world dof columns phi, mass
+// matrix M (full, symmetric), dq_star, and the Cholesky factor L of M +
+// diag(dt d + dt^2 k).
+DI void dyn_stage(const float* q, const float* dq, const float* tau,
+                  float (*R_w)[9], float (*p_w)[3], float (*phi)[6],
+                  float* M, float* dq_star, float* L) {
+    // ---- joint kinematics + tree recursion ------------------------------
+    float vel[DY_NB][6], ab[DY_NB][6];
+    float S[DY_N][6], Sd[DY_N][6];
+    const float a_base[6] = {0.0f, 0.0f, 0.0f, -c_gravity[0], -c_gravity[1],
+                             -c_gravity[2]};
+#pragma unroll 1
+    for (int b = 0; b < DY_NB; ++b) {
+        float Rj[9] = {1, 0, 0, 0, 1, 0, 0, 0, 1};
+        float pj[3] = {0, 0, 0};
+        float Sj[DY_MAXDOF][6], Sdj[DY_MAXDOF][6];
+        for (int k = 0; k < DY_MAXDOF; ++k)
+            for (int c = 0; c < 6; ++c) { Sj[k][c] = 0.0f; Sdj[k][c] = 0.0f; }
+        const int qs = c_qstart[b], nd = c_ndof[b];
+        joint_kin(b, q, dq, Rj, pj, Sj, Sdj);
+        // T_rel = T_pj o T_joint o inv(T_cj)
+        float R1[9], p1[3], R_rel[9], p_rel[3], t3[3];
+        m3m(&c_pj_rot[9 * b], Rj, R1);
+        m3v(&c_pj_rot[9 * b], pj, t3);
+        for (int k = 0; k < 3; ++k) p1[k] = c_pj_pos[3 * b + k] + t3[k];
+        m3m(R1, &c_cji_rot[9 * b], R_rel);
+        m3v(R1, &c_cji_pos[3 * b], t3);
+        for (int k = 0; k < 3; ++k) p_rel[k] = p1[k] + t3[k];
+
+        float vJ[6] = {0, 0, 0, 0, 0, 0}, cJ[6] = {0, 0, 0, 0, 0, 0};
+        for (int k = 0; k < nd; ++k) {
+            const int d = qs + k;
+            ad_cj(b, Sj[k], S[d]);
+            ad_cj(b, Sdj[k], Sd[d]);
+            for (int c = 0; c < 6; ++c) {
+                vJ[c] += S[d][c] * dq[d];
+                cJ[c] += Sd[d][c] * dq[d];
+            }
+        }
+        const int par = c_parent[b];
+        float xa[6], cr[6];
+        if (par < 0) {
+            for (int k = 0; k < 9; ++k) R_w[b][k] = R_rel[k];
+            for (int k = 0; k < 3; ++k) p_w[b][k] = p_rel[k];
+            for (int c = 0; c < 6; ++c) vel[b][c] = vJ[c];
+            xmotion_Rt(R_rel, p_rel, a_base, xa);
+        } else {
+            m3m(R_w[par], R_rel, R_w[b]);
+            m3v(R_w[par], p_rel, t3);
+            for (int k = 0; k < 3; ++k) p_w[b][k] = p_w[par][k] + t3[k];
+            float xv[6];
+            xmotion_Rt(R_rel, p_rel, vel[par], xv);
+            for (int c = 0; c < 6; ++c) vel[b][c] = xv[c] + vJ[c];
+            xmotion_Rt(R_rel, p_rel, ab[par], xa);
+        }
+        crm6(vel[b], vJ, cr);
+        for (int c = 0; c < 6; ++c) ab[b][c] = xa[c] + (cr[c] + cJ[c]);
+    }
+
+    // ---- world-frame dof columns at the world origin --------------------
+    for (int d = 0; d < DY_N; ++d) {
+        const int b = c_dof_body[d];
+        float t3[3];
+        m3v(R_w[b], S[d], phi[d]);
+        m3v(R_w[b], &S[d][3], &phi[d][3]);
+        cross3(p_w[b], phi[d], t3);
+        for (int k = 0; k < 3; ++k) phi[d][3 + k] += t3[k];
+    }
+
+    // ---- mass matrix: M[i][j] = sum_b phi_i . (I_w(b) phi_j) ------------
+    for (int i = 0; i < DY_N * DY_N; ++i) M[i] = 0.0f;
+#pragma unroll 1
+    for (int b = 0; b < DY_NB; ++b) {
+        const float m_b = c_mass[b];
+        float d_w[3], IcR[9], Ic_w[9], t3[3];
+        m3v(R_w[b], &c_com[3 * b], t3);
+        for (int k = 0; k < 3; ++k) d_w[k] = p_w[b][k] + t3[k];
+        m3m(R_w[b], &c_inertia[9 * b], IcR);
+        m3mt(IcR, R_w[b], Ic_w);
+        float F[DY_N][6];
+        for (int j = 0; j < DY_N; ++j) {
+            if (!c_anc[b * DY_N + j]) continue;
+            float u[3], a3[3], c3[3];
+            cross3(d_w, phi[j], t3);
+            for (int k = 0; k < 3; ++k) u[k] = phi[j][3 + k] - t3[k];
+            m3v(Ic_w, phi[j], a3);
+            cross3(d_w, u, c3);
+            for (int k = 0; k < 3; ++k) {
+                F[j][k] = a3[k] + c3[k] * m_b;
+                F[j][3 + k] = u[k] * m_b;
+            }
+            for (int i = 0; i <= j; ++i) {
+                if (!c_anc[b * DY_N + i]) continue;
+                float acc = 0.0f;
+                for (int c = 0; c < 6; ++c) acc += phi[i][c] * F[j][c];
+                M[i * DY_N + j] += acc;
+            }
+        }
+    }
+    for (int i = 0; i < DY_N; ++i)
+        for (int j = 0; j < i; ++j) M[i * DY_N + j] = M[j * DY_N + i];
+
+    // ---- bias forces ----------------------------------------------------
+    float f_sub[DY_NB][6];
+    for (int b = 0; b < DY_NB; ++b) {
+        float Ia[6], Iv[6], cf[6], fb[6], t3[3];
+        inertia_mul(b, ab[b], Ia);
+        inertia_mul(b, vel[b], Iv);
+        crf6(vel[b], Iv, cf);
+        for (int c = 0; c < 6; ++c) fb[c] = Ia[c] + cf[c];
+        // inverse force transform (E = R_w^T, r = p_w)
+        m3v(R_w[b], fb + 3, &f_sub[b][3]);
+        m3v(R_w[b], fb, f_sub[b]);
+        cross3(p_w[b], &f_sub[b][3], t3);
+        for (int k = 0; k < 3; ++k) f_sub[b][k] += t3[k];
+    }
+    for (int b = DY_NB - 1; b > 0; --b) {
+        const int par = c_parent[b];
+        if (par >= 0)
+            for (int c = 0; c < 6; ++c) f_sub[par][c] += f_sub[b][c];
+    }
+
+    // ---- implicit-scheme forward dynamics -------------------------------
+    float rhs[DY_N], Mi[DY_N * DY_N], ddq[DY_N];
+    for (int i = 0; i < DY_N * DY_N; ++i) Mi[i] = M[i];
+    for (int d = 0; d < DY_N; ++d) {
+        const int b = c_dof_body[d];
+        float Cd = 0.0f;
+        for (int c = 0; c < 6; ++c) Cd += phi[d][c] * f_sub[b][c];
+        float td = tau[d] - Cd;
+        td -= c_damping[d] * dq[d];
+        td -= c_spring[d] * ((q[d] - c_rest[d]) + DY_DT * dq[d]);
+        rhs[d] = td;
+        Mi[d * DY_N + d] += DY_DT * c_damping[d]
+                            + (DY_DT * DY_DT) * c_spring[d];
+    }
+    chol_n(Mi, L);
+    chol_solve_n(L, rhs, ddq);
+    for (int d = 0; d < DY_N; ++d) dq_star[d] = dq[d] + DY_DT * ddq[d];
+}
+
 // ---- the dynamics stage on a group of lanes ------------------------------
-// One env's (q, dq, tau) -> world poses R_w / p_w, world dof columns phi,
-// mass matrix M (full, symmetric), dq_star, and the Cholesky factor L of
-// M + diag(dt d + dt^2 k).  The arithmetic of the serial body it replaced
-// (one env per thread), entry by entry and in the same order (so the
-// outputs are the same to the bit), with the independent items over the
-// group's lanes: one body per lane
+// The dynamics stage of one env on a group of lanes (the dynamics kernel):
+// dyn_stage's outputs with dyn_stage's arithmetic, entry by entry and in
+// the same order (so the two agree to the bit), with the independent
+// items over the group's lanes: one body per lane
 // for the joint kinematics, T_rel, the S / S-dot rows and vJ / cJ; the
 // world composition (R_w, p_w, vel, ab) one tree level at a time (the
 // levels are a table of the generated header); one dof per lane for phi;
@@ -321,7 +498,8 @@ DI void joint_kin(int b, const float* q, const float* dq, float* Rj,
 // columns; the M entries (i <= j) over lanes, each summing over bodies
 // b = 0..nb-1 in order; one body per lane for the bias forces.  The
 // backward accumulation of f_sub (a parent with two children adds them in
-// index order), the Cholesky and its solves stay on lane 0.  The working
+// index order) and the triangular solves stay on lane 0; the Cholesky
+// takes a column at a time, its rows over the lanes (chol_group).  The working
 // set is `scr` (DY_SCRATCH floats, shared memory on the card).
 #define DY_O_S 0                             // S rows, 6 per dof
 #define DY_O_VEL (DY_O_S + 6 * DY_N)
@@ -533,9 +711,9 @@ DI void dyn_group(int gl, const float* q, const float* dq, const float* tau,
         rhs[d] = td;
     }
     GL_SYNC();
+    chol_group(gl, Mi, L);
     if (gl == 0) {
         float ddq[DY_N];
-        chol_n(Mi, L);
         chol_solve_n(L, rhs, ddq);
         for (int d = 0; d < DY_N; ++d) dq_star[d] = dq[d] + DY_DT * ddq[d];
     }

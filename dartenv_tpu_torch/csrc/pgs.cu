@@ -18,26 +18,22 @@
 // of that chain and by how many envs are in flight.
 //
 // Design: ONE WARP PER ENV, up to 8 envs (warps) per block, and the chain
-// in registers: the ROW form of pgs_row.h.  Lane l holds lam_j of its rows
-// (j = l, l + 32, ...: R = ceil(m / 32) slots, a template argument chosen
-// at launch) with the row's b, bounds, mu, act and inverse diagonal.  Row
-// i is each lane's partial of A_i . lam over its own lam, the xor
-// butterfly, and the owner lane's clip, which it keeps in its register:
-// the next row's partials read it there.  So a row costs the butterfly
-// and the clip, with no __syncwarp and no shared-memory round trip (the
-// earlier design passed lam_i through shared memory between two
-// __syncwarp per row, 700 cycles a row on perturbed walker2d).  A is staged
-// once into shared memory and read by rows.  The fused residual is lane-
-// parallel over rows, each lane replaying the butterfly's order on its
-// row (it walked the rows one by one).  The sums keep the order of the
+// in registers (the sweeps of pgs_row.h, shared with the fused substep
+// kernel).  Lane l holds lam_j of its rows (j = l, l + 32, ...: R =
+// ceil(m / 32) slots, a template argument chosen at launch) with the
+// row's b, bounds, mu, act and inverse diagonal.  Row i is each lane's
+// partial of A_i . lam over its own lam, the xor butterfly, and the owner
+// lane's clip, which it keeps in its register: the next row's partials
+// read it there.  So a row costs the butterfly and the clip, with no
+// __syncwarp and no shared-memory round trip (the earlier design passed
+// lam_i through shared memory between two __syncwarp per row).  A is
+// staged once into shared memory and read by rows.  The fused residual is
+// lane-parallel over rows, each lane replaying the butterfly's order on
+// its row (it walked the rows one by one).  The sums keep the order of the
 // plain version's row sums on the card, so the kernel follows it to the
-// bit there; the faster COLUMN form of pgs_row.h (no reduction on the
-// chain, the fused substep kernel's) moves the impulses by rounding and
-// its residuals beyond the JAX package's Pallas-vs-XLA bound of 1e-4 /
-// 1e-7 on some envs (scripts/pgs_forms_cpu.py).  m, findex, iters and
-// omega are run-time arguments, so one build serves every model
-// (m <= 32 * PG_MAX_R).
-//
+// bit there.  m, findex, iters and omega are run-time arguments, so one
+// build serves every model (m <= 32 * PG_MAX_R).
+
 // Built with -fmad=false: products and sums round separately, like the
 // plain PyTorch version (lcp/hopper_pgs.pgs_solve_reference).
 
@@ -117,7 +113,7 @@ __global__ void pgs_kernel(const float* __restrict__ A_g,
     }
     PG_STAMP(0);
 
-    // ---- sweeps, static row order (the row form of pgs_row.h) ----------
+    // ---- sweeps, static row order (pgs_row.h) ---------------------------
 #pragma unroll 1
     for (int it = 0; it < iters; ++it)
         pg_row_sweep(s, A, m, m, fidx, lane);

@@ -68,26 +68,21 @@ LN_FN float pgs_inv_diag(float d, float omega) {
 // ---- the sweeps with the impulses in registers ----------------------------
 // Rows go round the lanes: lane l holds rows j = l, l + PG_LANES, ... in
 // the R slots of a PgLane: lam_j and the row's b, bounds, mu, act and SOR
-// inverse diagonal (and w_j in the column form).  Only the owner of row i
-// (lane i % 32) updates lam_i, from values every lane has; lam_f of a
-// friction row comes from its owner by one shuffle.  Two forms:
-//
-// * the ROW form (pg_row_sweep; the PGS kernel): w_i = A_i . lam + b_i is
-//   summed afresh for every row in row_dot's order (lane l's partial over
-//   j = l, l + 32, ..., then the xor butterfly 16, 8, 4, 2, 1), the order
-//   of the plain version's row sums on the card, so its impulses and
-//   residuals follow it to the bit; A is read by rows (row-major);
-// * the COLUMN form (pg_sweep; the fused substep kernel): lane j keeps
-//   w_j = (A lam + b)_j, summed afresh at the start of every sweep (lane j
-//   sums row j in column order, then adds b_j); row i is the owner's clip
-//   of its own w_i, one shuffle of delta = new - lam_i and w_j += A[j][i]
-//   delta in every lane: no reduction on the chain.  A is read through At
-//   = A TRANSPOSED (At[i * ld + j] = A[j][i]; a symmetric A is its own),
-//   so both reads are of consecutive words.  Only w's rounding order
-//   differs from the plain version: its drift is that of one sweep.
-//
+// inverse diagonal.  Row i's w_i = A_i . lam + b_i is summed afresh in
+// row_dot's order (lane l's partial over its own lam_j, j = l, l + 32,
+// ..., then the xor butterfly 16, 8, 4, 2, 1), the order of the plain
+// version's row sums on the card, so the impulses and residuals follow it
+// to the bit there; only the owner of row i (lane i % 32) keeps its clip,
+// in its register, where the next row's partials read it; lam_f of a
+// friction row comes from its owner by one shuffle.  No __syncwarp and no
+// shared-memory round trip on the chain.  A is read by rows (row-major).
+// (A column form that keeps w = A lam + b per lane and updates it by A's
+// columns has no reduction on the chain, but its impulses drift from the
+// plain version's by rounding: the fused substep kernel's escalation then
+// failed its check against its plain version on the card, and the PGS
+// kernel's residuals left the JAX package's bound on some envs; PERF.md.)
 // The host build runs one lane that holds every row (PG_LANES = 1), in
-// the same order, with row_dot's host form for the butterfly.
+// the same order, with row_dot's host form.
 #ifdef __CUDACC__
 #define PG_LANES 32
 #else
@@ -96,7 +91,7 @@ LN_FN float pgs_inv_diag(float d, float omega) {
 
 template <int R>
 struct PgLane {
-    float lam[R], w[R];
+    float lam[R];
     float b[R], lo[R], hi[R], mu[R], act[R], invd[R];
 };
 
@@ -254,50 +249,4 @@ LN_FN float pg_row_residual(const PgLane<R>& s, const float* A, int lda,
         if (s.act[r] > 0.5f) res = fmaxf(res, rr);
     }
     return lanes_max(res) / scale;
-}
-
-// w_j = sum_k A[j][k] lam_k (k in order) + b_j for the lane's rows (the
-// column form).
-template <int R>
-LN_FN void pg_refresh(PgLane<R>& s, const float* At, int ld, int m,
-                      int lane) {
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-#pragma unroll
-    for (int kb = 0; kb < R; ++kb) {
-        for (int kk = 0; kk < PG_LANES; ++kk) {
-            const int k = kb * PG_LANES + kk;
-            if (k >= m) break;
-            const float lk = pg_bcast(s.lam[kb], kk);
-            const float* Ak = At + k * ld + lane;
-#pragma unroll
-            for (int r = 0; r < R; ++r)
-                if (lane + r * PG_LANES < m) acc[r] += Ak[r * PG_LANES] * lk;
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) s.w[r] = acc[r] + s.b[r];
-}
-
-// One sweep of the COLUMN form over rows 0..m-1 in order.
-template <int R>
-LN_FN void pg_sweep(PgLane<R>& s, const float* At, int ld, int m,
-                    const int* findex, int lane) {
-    pg_refresh(s, At, ld, m, lane);
-#pragma unroll
-    for (int rb = 0; rb < R; ++rb) {
-#pragma unroll 1
-        for (int ii = 0; ii < PG_LANES; ++ii) {
-            const int i = rb * PG_LANES + ii;
-            if (i >= m) break;
-            const float v = pg_update(s, rb, s.w[rb], findex[i]);
-            const float delta = pg_bcast(v - s.lam[rb], ii);
-            if (lane == ii) s.lam[rb] = v;
-            const float* Ai = At + i * ld + lane;
-#pragma unroll
-            for (int r = 0; r < R; ++r)
-                if (lane + r * PG_LANES < m) s.w[r] += Ai[r * PG_LANES] * delta;
-        }
-    }
 }

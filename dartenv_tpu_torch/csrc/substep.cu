@@ -23,26 +23,26 @@
 // Design: ONE WARP PER ENV, SS_WARPS = 16 envs per block, two blocks per
 // SM (64 registers), the per-env working set in dynamic shared memory
 // (substep_body.h's SS_SMEM floats: A, Jc, M^-1 Jc^T, M, L, phi, R_w, p_w,
-// the slot and row vectors, and the dynamics stage's scratch in the space
-// of the blocks written after it), so a 4096-env batch is one wave of 32
-// warps on each SM.  The lanes take the independent items: geoms in
-// collision, the slots' compaction ranks, the contact / limit / friction
-// rows, the M_C columns of M^-1 Jc^T, the rows of A, the residual rows,
-// the output entries (every output row is stored by the warp as one
-// coalesced run; `esc` is laid out in shared memory in its own order and
-// copied).  The dynamics stage is the dynamics kernel's lane-group body
-// (dynamics_body.h's dyn_group) on the env's own warp: bodies, tree
-// levels, dofs and mass-matrix entries over its first DY_G lanes, the
-// Cholesky of M on lane 0.  (Before, the stage ran one env per thread on
-// the block's first warp, a serial chain per env: 69k of 217k cycles per
-// env; and before that on lane 0 of each env's warp, 144k of 227k.)  The
-// PGS sweeps are the column form of pgs_row.h: lane j keeps lam_j and
-// w_j = (A lam + b)_j in registers, and a row is the owner's clip, one
-// shuffle and a column update (they were kernel 4's row update: a 5-step
-// shuffle butterfly and one lane's write through shared memory between
-// two __syncwarp, 94k cycles per env); bench/kernel_stages.py measures
-// the split.
-
+// the slot and row vectors; 6.6 KB for walker2d), so a 4096-env batch is
+// one wave of 32 warps on each SM.  The lanes take the independent items:
+// geoms in collision, the slots' compaction ranks, the contact / limit /
+// friction rows, the M_C columns of M^-1 Jc^T, the rows of A, the
+// residual rows, the output entries (every output row is stored by the
+// warp as one coalesced run; `esc` is laid out in shared memory in its own
+// order and copied).  The serial chains stay serial: the PGS sweeps are the
+// PGS kernel's (pgs_row.h: each lane's rows of lam in registers, a row
+// being the lanes' partials, the xor butterfly and the owner lane's clip
+// kept in its register; an earlier design passed lam_i through shared
+// memory between two __syncwarp per row, the same sums); the dynamics
+// stage and
+// the Cholesky of M run one env per THREAD (dynamics_body.h's dyn_stage),
+// the block's 16 envs on the lanes of its first warp (a first version ran
+// them on lane 0 of each env's warp: one warp-instruction per env instead
+// of per 16 envs, and the stage took 64 % of the launch's cycles; the
+// dynamics kernel's lane-group body on each env's warp took 92k cycles
+// per env against this stage's 69k; bench/kernel_stages.py measures the
+// split).
+//
 // The model is NOT passed at run time: sizes are compile-time constants
 // and the model tables are __constant__ arrays, both from a header
 // generated from the model's static digest (substep_model.h; one build per
@@ -61,13 +61,15 @@
 #include "substep_model.h"
 
 // Envs (warps) per block; __launch_bounds__ asks for two blocks per SM
-// (64 registers).
+// (64 registers).  The dynamics stage runs the block's SS_WARPS envs on
+// the first lanes of warp 0, so SS_WARPS must not exceed a warp.
 #define SS_WARPS 16
+static_assert(SS_WARPS <= 32, "the dynamics stage takes one lane per env");
 
 // With SS_STAMPS defined (bench/kernel_stages.py), lane 0 of every warp
 // adds the clock64() cycles of each stage of substep_body.h to
 // ss_cycles[stage]; substep_stage_cycles reads and clears them.  Stages:
-// 0 load + dynamics, 1 collision + compaction,
+// 0 load + dynamics (to the block's barrier), 1 collision + compaction,
 // 2 rows, 3 M^-1 Jc^T + A + warm start, 4 PGS, 5 residual + stores.
 #define SS_NSTAGES 6
 #ifdef SS_STAMPS
@@ -95,14 +97,18 @@ substep_kernel(const float* __restrict__ q_g, const float* __restrict__ dq_g,
                float* __restrict__ esc_g, int B) {
     extern __shared__ float smem[];
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int e = blockIdx.x * SS_WARPS + warp;
-    if (e >= B) return;               // ragged edge: whole warps, masked
-    float* sm = smem + warp * SS_SMEM;
+    const int e0 = blockIdx.x * SS_WARPS;
     SS_STAMP_DECL
-    substep_dyn(e, lane, sm, q_g, dq_g, tau_g);
+    // the dynamics stage: one thread per env, the block's envs on the
+    // first lanes of warp 0
+    if (warp == 0 && lane < SS_WARPS && e0 + lane < B)
+        substep_dyn(e0 + lane, smem + lane * SS_SMEM, q_g, dq_g, tau_g);
+    __syncthreads();
     SS_STAMP(0);
-    substep_warp(e, lane, sm, lam_g, dqp_g, lamf_g, res_g, ovf_g, cpos_g,
-                 cdep_g, cact_g, esc_g);
+    const int e = e0 + warp;
+    if (e >= B) return;               // ragged edge: whole warps, masked
+    substep_warp(e, lane, smem + warp * SS_SMEM, lam_g, dqp_g, lamf_g,
+                 res_g, ovf_g, cpos_g, cdep_g, cact_g, esc_g);
 }
 
 extern "C" int substep_dims(int* out) {

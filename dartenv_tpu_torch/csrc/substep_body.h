@@ -4,10 +4,10 @@
 // without a GPU hold this arithmetic against the plain PyTorch version.
 // See substep.cu for what is computed and why it is laid out this way.
 // The includer defines the model through substep_model.h (generated)
-// before including this file; the dynamics stage (dyn_group) and the
-// small vector helpers are dynamics_body.h, shared with the dynamics
-// kernel; the lane loops, the lane reductions and the PGS sweeps (their
-// column form) are pgs_row.h, shared with the PGS kernel.
+// before including this file; the dynamics stage (dyn_stage, one env per
+// thread) and the small vector helpers are dynamics_body.h, shared with
+// the dynamics kernel; the lane loops, the lane reductions and the PGS
+// sweeps are pgs_row.h, shared with the PGS kernel.
 #pragma once
 
 #include "dynamics_body.h"
@@ -40,13 +40,8 @@
 #define SM_SEL (SM_A + SS_MC_A * SS_LDA)     // int: compacted row -> slot
 #define SM_FLAG (SM_SEL + SS_CAP_A)         // int: slot among the top cap
 #define SM_SLOTR (SM_FLAG + SS_NS_A)        // int: slot -> compacted row
-#define SS_SMEM_ROWS (SM_SLOTR + SS_NS_A)
-// the dynamics stage's scratch (dynamics_body.h's dyn_group) shares the
-// blocks from M^-1 Jc^T on, which are written after it
-#define SM_DYS SM_MIJ
-#define SS_SMEM (SS_SMEM_ROWS > SM_DYS + DY_SCRATCH ? SS_SMEM_ROWS \
-                                                     : SM_DYS + DY_SCRATCH)
-// rows per lane of the PGS sweeps (the column form of pgs_row.h)
+#define SS_SMEM (SM_SLOTR + SS_NS_A)
+// rows per lane of the PGS sweeps (pgs_row.h)
 #define SS_PG_R ((SS_MC_A + PG_LANES - 1) / PG_LANES)
 
 // Stage stamps (see substep.cu); nothing in a normal or host build.
@@ -55,37 +50,36 @@
 #define SS_STAMP(k) ((void)0)
 #endif
 
-// The dynamics stage of env e on its warp (the host build: as one lane):
-// reads row e of q, dq, tau into the env's scratch `sm` and leaves there
-// R_w, p_w, phi, M (in the `esc` block), dq_star and the Cholesky factor L
-// of M (dynamics_body.h's dyn_group on the warp's first DY_G lanes).
-SS_FN void substep_dyn(int e, int lane, float* sm,
-                       const float* __restrict__ q_g,
+// The dynamics stage of env e, by ONE thread (the kernel runs it for the
+// envs of a block on the lanes of one warp, one env per lane, as the
+// dynamics kernel does): reads row e of q, dq, tau into the env's scratch
+// `sm` and leaves there R_w, p_w, phi, M (in the `esc` block), dq_star and
+// the Cholesky factor L of M (dynamics_body.h).
+SS_FN void substep_dyn(int e, float* sm, const float* __restrict__ q_g,
                        const float* __restrict__ dq_g,
                        const float* __restrict__ tau_g) {
     float* q = sm + SM_Q;
     float* dq = sm + SM_DQ;
     float* tau = sm + SM_TAU;
     float* M = sm + 6 * SS_MC + SS_CAP;
-    LANE_FOR(d, 0, SS_N) {
+    for (int d = 0; d < SS_N; ++d) {
         q[d] = q_g[(size_t)e * SS_N + d];
         dq[d] = dq_g[(size_t)e * SS_N + d];
         tau[d] = tau_g[(size_t)e * SS_N + d];
     }
-    LANE_SYNC();
-    dyn_group(lane, q, dq, tau, sm + SM_RW, sm + SM_PW, sm + SM_PHI, M,
-              sm + SM_DQS, sm + SM_L, sm + SM_DYS);
+    dyn_stage(q, dq, tau, (float (*)[9])(sm + SM_RW),
+              (float (*)[3])(sm + SM_PW), (float (*)[6])(sm + SM_PHI), M,
+              sm + SM_DQS, sm + SM_L);
 #if SS_IMPLICIT
-    if (lane == 0) chol_n(M, sm + SM_L);  // the A build factors M itself
-    LANE_SYNC();
+    chol_n(M, sm + SM_L);  // the A build factors M itself, not M + diag
 #endif
 }
 
 // The rest of env e's substep on one warp (lane = 0..31; the host build
 // runs it as lane 0 alone), after substep_dyn: writes row e of the eight
 // outputs.  Items that are independent (geoms, slots, rows, columns,
-// output entries) go over the lanes; the PGS sweeps are the column form of
-// pgs_row.h.
+// output entries) go over the lanes; the PGS sweeps are pgs_row.h's, each
+// lane's rows of lam in registers.
 SS_FN void substep_warp(int e, int lane, float* sm,
                         const float* __restrict__ lam_g,
                        float* __restrict__ dqp_g, float* __restrict__ lamf_g,
@@ -323,9 +317,8 @@ SS_FN void substep_warp(int e, int lane, float* sm,
     }
     LANE_SYNC();
 
-    // ---- PGS sweeps (static row order, SOR omega): the column form of ----
-    // pgs_row.h, lam and w = A lam + b in registers; A is symmetric to the
-    // bit, so it serves as its own transpose
+    // ---- PGS sweeps (static row order, SOR omega; pgs_row.h, the PGS ----
+    // kernel's): each lane's rows of lam in registers
     PgLane<SS_PG_R> pg;
 #pragma unroll
     for (int r = 0; r < SS_PG_R; ++r) {
@@ -342,7 +335,7 @@ SS_FN void substep_warp(int e, int lane, float* sm,
     SS_STAMP(3);
 #pragma unroll 1
     for (int it = 0; it < SS_PGS_ITERS; ++it)
-        pg_sweep(pg, A, SS_LDA, SS_MC, c_findex, lane);
+        pg_row_sweep(pg, A, SS_LDA, SS_MC, c_findex, lane);
 #pragma unroll
     for (int r = 0; r < SS_PG_R; ++r)
         if (lane + r * PG_LANES < SS_MC) lam[lane + r * PG_LANES] = pg.lam[r];

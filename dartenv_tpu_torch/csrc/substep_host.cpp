@@ -21,7 +21,7 @@ extern "C" int substep_host(const float* q, const float* dq,
                             float* esc, int B) {
     static float sm[SS_SMEM];
     for (int e = 0; e < B; ++e) {
-        substep_dyn(e, 0, sm, q, dq, tau);
+        substep_dyn(e, sm, q, dq, tau);
         substep_warp(e, 0, sm, lam_prev, dq_plus, lam_full, res, overflow,
                      con_pos, con_depth, con_active, esc);
     }

@@ -5,8 +5,8 @@ kernel's wrapper and its plain PyTorch version.
 csrc/pgs_row.h: each lane's rows of lam in registers, A in shared
 memory) on a float32 CUDA batch; on a CPU tensor it runs
 `pgs_solve_reference`; any other CUDA tensor raises.  `pgs_solve_host`
-runs the per-env arithmetic of either form of the sweeps built with the
-host compiler (csrc/pgs_host.cpp), for tests without a GPU.  `pgs_solve_batch` is
+runs the kernel's per-env arithmetic built with the host compiler
+(csrc/pgs_host.cpp), for tests without a GPU.  `pgs_solve_batch` is
 the dispatch the solvers of lcp/pgs.py and lcp/hybrid.py call: the kernel
 for a float32 CUDA batch, the plain version (counted in `PLAIN_CALLS`) for
 anything else.  `PGS_LAUNCHES` counts kernel launches and nothing else.
@@ -119,20 +119,18 @@ def pgs_solve_cuda(A, b, lo, hi, findex, mu, active, iters: int = 30,
 
 def pgs_solve_host(A, b, lo, hi, findex, mu, active, iters: int = 30,
                    omega: float = 1.0, lam0=None,
-                   return_residual: bool = False, form: str = "row"):
-    """The sweeps of csrc/pgs_row.h in `form` "row" (the PGS kernel's) or
-    "column" (the fused substep kernel's), then the PGS kernel's fused
-    residual, built with the host C++ compiler and run on float32 CPU
-    tensors, one env at a time.  For tests on machines without a GPU:
-    nothing on the main path calls it, and it is not a stand-in for the
-    kernel."""
+                   return_residual: bool = False):
+    """The PGS kernel's per-env arithmetic (the sweeps and the fused
+    residual of csrc/pgs_row.h) built with the host C++ compiler and run
+    on float32 CPU tensors, one env at a time.  For tests on machines
+    without a GPU: nothing on the main path calls it, and it is not a
+    stand-in for the kernel."""
     global _HOST_LIB
     if _HOST_LIB is None:
         lib = cuda_build.build_host("dartenv_pgs_host", "pgs_host.cpp",
                                     deps=("pgs_row.h",))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.pgs_host.argtypes = ([vp] * 10 + [ci] * 3
-                                 + [ctypes.c_float, ci])
+        lib.pgs_host.argtypes = [vp] * 10 + [ci] * 3 + [ctypes.c_float]
         lib.pgs_host.restype = ci
         _HOST_LIB = lib
     if A.is_cuda:
@@ -149,8 +147,7 @@ def pgs_solve_host(A, b, lo, hi, findex, mu, active, iters: int = 30,
                        *[v.data_ptr() for v in vecs], fidx.data_ptr(),
                        lam.data_ptr(),
                        res.data_ptr() if return_residual else None,
-                       B, m, int(iters), float(omega),
-                       {"row": 0, "column": 1}[form])
+                       B, m, int(iters), float(omega))
     return (lam, res) if return_residual else lam
 
 

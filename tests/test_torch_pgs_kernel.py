@@ -3,21 +3,17 @@ without a GPU: csrc/pgs_host.cpp runs the sweeps and the fused residual
 of one env as one lane that holds every row, in the order the card's
 lanes take them (lcp/hopper_pgs.pgs_solve_host).
 
-* the ROW form (the PGS kernel's) against the plain version
-  (pgs_solve_reference) in float32 at the JAX package's bound between its
+* the sweeps against the plain version (pgs_solve_reference) in float32 at the JAX package's bound between its
   Pallas kernel and XLA (tests/test_pallas_kernels.py): impulses rtol
   1e-5 / atol 1e-6; residuals rtol 1e-4 / atol 1e-7 against the plain
   residual formula (lcp/hybrid.comp_residual) with its row sums taken in
   the kernel's order (row_dot: lane-strided partials, then the xor
   butterfly), the order of the plain version's sums on the card.  The
   CPU's own torch.sum adds 8-wide partials instead, and that order alone
-  moves about one residual in 512 perturbed-walker2d envs beyond 1e-7
-  (scripts/pgs_forms_cpu.py);
+  moves one residual in 512 perturbed-walker2d envs beyond 1e-7;
   on the problems of tests/test_pallas_kernels.py, on perturbed
   walker2d's LCPs (m = 24, friction rows) and at m = 40 (rows beyond the
   32 lanes);
-* the COLUMN form (the fused substep kernel's PGS stage) against the plain
-  version at that kernel's bound (1e-4 of max(1, |ref|));
 * the wrapper's refusal of m beyond the kernel's 256 rows.
 """
 import shutil
@@ -107,7 +103,7 @@ def walker2d_lcps():
     return out
 
 
-def _check_row_form(A, b, lo, hi, findex, mu, act, lam0, iters, omega):
+def _check(A, b, lo, hi, findex, mu, act, lam0, iters, omega):
     kw = dict(iters=iters, omega=omega, lam0=lam0, return_residual=True)
     lam, res = hp.pgs_solve_host(A, b, lo, hi, findex, mu, act, **kw)
     lam_r, res_r = hp.pgs_solve_reference(A, b, lo, hi, findex, mu, act,
@@ -127,40 +123,23 @@ def _check_row_form(A, b, lo, hi, findex, mu, act, lam0, iters, omega):
 @pytest.mark.parametrize("seed,iters,omega,warm", [
     (1, 20, 1.0, False), (2, 20, 1.0, False), (3, 10, 1.0, False),
     (4, 10, 1.0, False), (6, 10, 1.0, False), (1, 4, 1.1, True)])
-def test_row_form_matches_plain_on_jax_problems(seed, iters, omega, warm):
+def test_sweeps_match_plain_on_jax_problems(seed, iters, omega, warm):
     """The generator and seeds of tests/test_pallas_kernels.py (m = 17)."""
     p = _f32_problems(8, 4, 5, seed, warm)
-    _check_row_form(*p, iters=iters, omega=omega)
+    _check(*p, iters=iters, omega=omega)
 
 
-def test_row_form_matches_plain_on_walker2d_lcps(walker2d_lcps):
+def test_sweeps_match_plain_on_walker2d_lcps(walker2d_lcps):
     """8 sweeps, warm-started, as the perturbed path runs them."""
-    _check_row_form(*walker2d_lcps, iters=8, omega=1.0)
+    _check(*walker2d_lcps, iters=8, omega=1.0)
 
 
 @pytest.mark.parametrize("seed", [7, 8])
-def test_row_form_matches_plain_beyond_32_rows(seed):
+def test_sweeps_match_plain_beyond_32_rows(seed):
     """m = 40: rows 32..39 sit in each lane's second slot."""
     p = _f32_problems(16, 10, 10, seed, warm=True)
     assert p[1].shape[1] == 40
-    _check_row_form(*p, iters=8, omega=1.0)
-
-
-@pytest.mark.parametrize("case", ["walker2d", "m17", "m40"])
-def test_column_form_within_the_substep_bound(case, walker2d_lcps):
-    """The fused substep kernel's PGS stage (the column form) against the
-    plain version at the substep kernel's bound, 1e-4 of max(1, |ref|)."""
-    if case == "walker2d":
-        A, b, lo, hi, findex, mu, act, lam0 = walker2d_lcps
-    else:
-        A, b, lo, hi, findex, mu, act, lam0 = _f32_problems(
-            16, *((4, 5) if case == "m17" else (10, 10)), seed=5,
-            warm=True)
-    kw = dict(iters=8, lam0=lam0)
-    lam = hp.pgs_solve_host(A, b, lo, hi, findex, mu, act, form="column",
-                            **kw)
-    lam_r = hp.pgs_solve_reference(A, b, lo, hi, findex, mu, act, **kw)
-    assert rel_err(lam, lam_r) <= 1e-4
+    _check(*p, iters=8, omega=1.0)
 
 
 def test_wrapper_refuses_more_rows_than_it_serves():
