@@ -8,9 +8,9 @@
 // `LANE_SYNC()` is __syncwarp().  A host build runs the same code as ONE
 // lane that takes every item in order, so the per-item arithmetic is the
 // same; the reductions across lanes have host forms that give the device's
-// result to the bit (a max is exact in any order; the butterfly sum of
-// `row_dot` is replayed in its tree order; a shuffle reads the one lane's
-// own register).
+// result to the bit (a max is exact in any order; a row sum's butterfly
+// is replayed in its tree order by `row_dot`; a shuffle reads the one
+// lane's own register).
 #pragma once
 
 #include <math.h>
@@ -35,19 +35,11 @@ LN_FN float lanes_max(float v) {
     return v;
 }
 
-// sum_j a[j] x[j] over j < m: lane l sums j = l, l + 32, ... in order, then
-// a __shfl_xor_sync butterfly adds the 32 partials (16, 8, 4, 2, 1), which
-// leaves the same sum in every lane.  The host form adds the same partials
-// in the same tree.
-LN_FN float row_dot(const float* a, const float* x, int m, int lane) {
-#ifdef __CUDACC__
-    float part = 0.0f;
-    for (int j = lane; j < m; j += 32) part += a[j] * x[j];
-    for (int o = 16; o > 0; o >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, o);
-    return part;
-#else
-    (void)lane;
+#ifndef __CUDACC__
+// The card's row sum sum_j a[j] x[j] over j < m (pg_row_dot) replayed by
+// one lane: lane l's partial over j = l, l + 32, ... in order, then the
+// 32 partials added in the tree of the xor butterfly (16, 8, 4, 2, 1).
+static inline float row_dot(const float* a, const float* x, int m) {
     float p[32];
     for (int l = 0; l < 32; ++l) {
         p[l] = 0.0f;
@@ -56,8 +48,8 @@ LN_FN float row_dot(const float* a, const float* x, int m, int lane) {
     for (int o = 16; o > 0; o >>= 1)
         for (int l = 0; l < o; ++l) p[l] += p[l + o];
     return p[0];
-#endif
 }
+#endif
 
 // SOR inverse diagonal of lcp/pgs.pgs_solve: (1 / max(d, 1e-12)) * omega
 // where d > 1e-12, else 0.
@@ -168,7 +160,8 @@ LN_FN float pg_row_dot(const PgLane<R>& s, const float* Ai, int m,
         p += __shfl_xor_sync(0xffffffffu, p, o);
     return p;
 #else
-    return row_dot(Ai, s.lam, m, lane);
+    (void)lane;
+    return row_dot(Ai, s.lam, m);
 #endif
 }
 
@@ -228,7 +221,7 @@ LN_FN float pg_row_residual(const PgLane<R>& s, const float* A, int lda,
             for (int l = 0; l < o; ++l) p[l] += p[l + o];
         const float w = p[0] + s.b[r];
 #else
-        const float w = row_dot(Aj, s.lam, m, lane) + s.b[r];
+        const float w = row_dot(Aj, s.lam, m) + s.b[r];
 #endif
         if (j >= m) continue;
         float l, h;

@@ -1,7 +1,7 @@
 """Batched projected Gauss-Seidel with the fused residual: the CUDA
 kernel's wrapper and its plain PyTorch version.
 
-`pgs_solve_cuda` launches csrc/pgs.cu (one warp per env, the row form of
+`pgs_solve_cuda` launches csrc/pgs.cu (one warp per env, the sweeps of
 csrc/pgs_row.h: each lane's rows of lam in registers, A in shared
 memory) on a float32 CUDA batch; on a CPU tensor it runs
 `pgs_solve_reference`; any other CUDA tensor raises.  `pgs_solve_host`
