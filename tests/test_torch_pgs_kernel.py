@@ -3,17 +3,17 @@ without a GPU: csrc/pgs_host.cpp runs the sweeps and the fused residual
 of one env as one lane that holds every row, in the order the card's
 lanes take them (lcp/hopper_pgs.pgs_solve_host).
 
-* the sweeps against the plain version (pgs_solve_reference) in float32 at the JAX package's bound between its
-  Pallas kernel and XLA (tests/test_pallas_kernels.py): impulses rtol
-  1e-5 / atol 1e-6; residuals rtol 1e-4 / atol 1e-7 against the plain
-  residual formula (lcp/hybrid.comp_residual) with its row sums taken in
-  the kernel's order (row_dot: lane-strided partials, then the xor
-  butterfly), the order of the plain version's sums on the card.  The
-  CPU's own torch.sum adds 8-wide partials instead, and that order alone
-  moves one residual in 512 perturbed-walker2d envs beyond 1e-7;
+* the sweeps against the plain version (pgs_solve_reference) in float32,
   on the problems of tests/test_pallas_kernels.py, on perturbed
   walker2d's LCPs (m = 24, friction rows) and at m = 40 (rows beyond the
-  32 lanes);
+  32 lanes), at the JAX package's bound between its Pallas kernel and XLA
+  (tests/test_pallas_kernels.py): impulses rtol 1e-5 / atol 1e-6;
+  residuals rtol 1e-4 / atol 1e-7 against the plain residual formula
+  (lcp/hybrid.comp_residual) with its row sums taken in the kernel's
+  order (row_dot: lane-strided partials, then the xor butterfly), the
+  order of the plain version's sums on the card.  The CPU's own
+  torch.sum adds 8-wide partials instead, and that order alone moves one
+  residual in 512 perturbed-walker2d envs beyond 1e-7 (PERF.md);
 * the wrapper's refusal of m beyond the kernel's 256 rows.
 """
 import shutil
