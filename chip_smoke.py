@@ -16,7 +16,8 @@ nvcc processes started together) and then, in float32:
   * the dynamics kernel against its plain version on cartpole and the
     double pendulum at B = 8192, on walker2d states at B = 4096 and on two
     ModelBuilder chains that hold the six joint types the substep kernel
-    lacks, at B = 1024;
+    lacks, at B = 1024; on cartpole at B = 8191 and walker2d states at
+    B = 4095, whose last block is partly filled;
   * the PGS kernel against its plain version on the LCPs of perturbed
     walker2d's phase-wise step and on random LCPs of 40 rows at B = 4096;
     the BPP kernel's core mode on the hybrid's top K and its hybrid mode
@@ -1003,6 +1004,16 @@ def main():
             Bd = 8192 if e in ("cartpole", "doublependulum") else 1024
             q, dq, tau = random_states(model, Bd, seed, dev)
         dyn[e] = check_dynamics(e, model, Bd, q, dq, tau)
+    # B not a multiple of the envs per block (128 threads per block in
+    # csrc/dynamics.cu over the lane group): the last block is partly
+    # filled
+    for seed, (e, Bd) in enumerate((("cartpole", 8191), ("walker2d", 4095))):
+        assert Bd % (128 // dkerns[e].group), (e, Bd)
+        if e == "walker2d":
+            q, dq, tau = (x[:Bd] for x in checks["walker2d"]["states"][:3])
+        else:
+            q, dq, tau = random_states(dyn_models[e], Bd, 100 + seed, dev)
+        check_dynamics(e, dyn_models[e], Bd, q, dq, tau)
 
     # ---- 7. PGS kernel (and BPP on the hybrid's top K) vs plain ---------
     pgs, bpp_pert = check_pgs(dev, checks["walker2d"]["states"])

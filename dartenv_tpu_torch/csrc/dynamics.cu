@@ -27,12 +27,10 @@
 // one env per thread in one-warp blocks: 2 warps per SM for cartpole at
 // B = 8192, each env's chain exposed, the working set in local memory,
 // every store 32 rows apart.  The model is compiled in: sizes as macros
-// and tables as arrays from a header generated from the model's static
-// digest (dynamics_model.h; one build per digest): __constant__ for up to
-// four bodies, global memory (through L1) from five on, since a warp's
-// lanes read one table row per body at once and the constant cache
-// serves one address at a time (hopper_dynamics.table_space).
-// Domain-randomized model leaves as per-env inputs
+// and tables as __constant__ arrays from a header generated from the
+// model's static digest (dynamics_model.h; one build per digest).  A
+// group's lanes read different bodies' rows at once, which the constant
+// cache serves one address at a time.  Domain-randomized model leaves as per-env inputs
 // (the JAX kernel's DR_FIELDS_DYN) are not ported yet: they wait for the
 // domain-randomization slice of the port.
 //

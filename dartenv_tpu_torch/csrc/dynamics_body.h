@@ -12,8 +12,8 @@
 // sizes DY_N, DY_NB, DY_MAXDOF, the step DY_DT, the mask DY_JMASK of joint
 // types present (bit t set for type t; branches of absent types are
 // removed at compile time), the lane group DY_G and the item counts of
-// its stages, and the model tables as DY_CONST arrays (__constant__ or
-// global memory under nvcc, static const in a host build).
+// its stages, and the model tables as DY_CONST arrays (__constant__ under
+// nvcc, static const in a host build).
 #pragma once
 
 #include <math.h>

@@ -39,9 +39,9 @@
 // the block's 16 envs on the lanes of its first warp (a first version ran
 // them on lane 0 of each env's warp: one warp-instruction per env instead
 // of per 16 envs, and the stage took 64 % of the launch's cycles; the
-// dynamics kernel's lane-group body on each env's warp took 92k cycles
-// per env against this stage's 69k; bench/kernel_stages.py measures the
-// split).
+// dynamics kernel's lane-group body on each env's warp took 92k-96k
+// cycles per env against this stage's 69k; bench/kernel_stages.py
+// measures the split).
 //
 // The model is NOT passed at run time: sizes are compile-time constants
 // and the model tables are __constant__ arrays, both from a header

@@ -83,23 +83,13 @@ def depth_levels(parent) -> list:
             for lv in range(max(depth) + 1)] if depth else []
 
 
-def table_space(model: SkelModel) -> str:
-    """Where the dynamics kernel keeps the model tables on the card.  Its
-    lanes read one table row per body at once: the constant cache serves
-    one address at a time, L1 a line.  __constant__ was faster for 2 to 4
-    bodies and global memory for walker2d's 7 (NVIDIA H100 80GB HBM3,
-    PERF.md), so global memory from 5 bodies on."""
-    return "__device__ const" if model.nb >= 5 else "__constant__"
-
-
-def dynamics_header(model: SkelModel, tables: str = "__constant__") -> str:
+def dynamics_header(model: SkelModel) -> str:
     """The C header that fixes csrc/dynamics_body.h to one model: sizes,
     dt, the mask of joint types and the lane group as macros, the tables
     (topology and its tree levels, the (body, dof) columns and the
     mass-matrix entries the lanes take, joint frames, axes, inertias,
-    gravity, springs and dampers) as DY_CONST arrays: `tables` under nvcc
-    (the memory space: "__constant__" or "__device__ const"), static const
-    in a host build."""
+    gravity, springs and dampers) as DY_CONST arrays (__constant__ under
+    nvcc, static const in a host build)."""
     h = model.host
     n, nb = model.n, model.nb
     mask = 0
@@ -111,7 +101,7 @@ def dynamics_header(model: SkelModel, tables: str = "__constant__") -> str:
     pairs = [(i, j) for j in range(n) for i in range(j + 1)]
     out = ["// generated from the model's static digest; do not edit\n",
            "#pragma once\n",
-           f"#ifndef DY_CONST\n#define DY_CONST {tables}\n#endif\n"]
+           "#ifndef DY_CONST\n#define DY_CONST __constant__\n#endif\n"]
     defs = dict(DY_N=n, DY_NB=nb, DY_MAXDOF=max(1, max(model.ndof)),
                 DY_JMASK=mask, DY_DT=c_float(model.dt),
                 DY_G=lane_group(model), DY_NLEVEL=len(levels),
@@ -164,7 +154,7 @@ class DynamicsKernel:
             raise ValueError("the dynamics kernel needs at least one body")
         self.n, self.nb = model.n, model.nb
         self.group = lane_group(model)
-        self._header = dynamics_header(model, table_space(model))
+        self._header = dynamics_header(model)
         self._build = None
         self._lib = None
         self._host_lib = None

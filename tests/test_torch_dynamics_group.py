@@ -10,7 +10,7 @@ dyn_group, csrc/dynamics.cu) without a GPU:
 * the packed output buffer keeps the wrapper's contract: five float32
   tensors of the shapes of dynamics_reference, each contiguous with the
   strides of a fresh tensor;
-* the generated header's lane group, tree levels and table memory.
+* the generated header's lane group and tree levels.
 """
 import os
 import shutil
@@ -79,12 +79,5 @@ def test_header_lane_group_and_levels(models):
         assert f"#define DY_NPAIR {n * (n + 1) // 2}\n" in head, name
     walker = models["walker2d"]
     assert hd.depth_levels(walker.parent) == [[0], [1, 4], [2, 5], [3, 6]]
-    # the dynamics kernel's tables: the constant cache up to four bodies,
-    # global memory from five; the fused substep kernel's stay __constant__
-    assert "#define DY_CONST __device__ const\n" in hd.get_dynamics_kernel(
-        walker)._header
-    assert "#define DY_CONST __constant__\n" in hd.get_dynamics_kernel(
-        models["chain_a"])._header
-    assert "#define DY_CONST __constant__\n" in hd.dynamics_header(walker)
     anc = walker.host("ancestor_mask") > 0.5
     assert f"#define DY_NF {int(anc.sum())}\n" in hd.dynamics_header(walker)

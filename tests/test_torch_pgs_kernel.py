@@ -14,14 +14,25 @@ lanes take them (lcp/hopper_pgs.pgs_solve_host).
   order of the plain version's sums on the card.  The CPU's own
   torch.sum adds 8-wide partials instead, and that order alone moves one
   residual in 512 perturbed-walker2d envs beyond 1e-7 (PERF.md);
+* the same build against the JAX package on the same inputs: its Pallas
+  PGS kernel in interpret mode (impulses rtol 1e-5 / atol 1e-6) and its
+  comp_residual on the host build's impulses (rtol 1e-4 / atol 1e-7), on
+  the problems of tests/test_pallas_kernels.py and at m = 40.  The metric
+  is evaluated in float64 on the float32 inputs: XLA's float32 row sums
+  round in another order than the kernel's, and on these residuals of
+  1e-5 to 1e-8 that alone can move the two float32 values 1.6e-7 apart;
 * the wrapper's refusal of m beyond the kernel's 256 rows.
 """
 import shutil
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dartenv_tpu.lcp.hybrid import comp_residual as jax_comp_residual
+from dartenv_tpu.lcp.pallas_pgs import pgs_solve_pallas
 from dartenv_tpu_torch.lcp import hopper_pgs as hp
 from dartenv_tpu_torch.lcp.pgs import findex_tensors
 from test_torch_bpp import _problems
@@ -140,6 +151,38 @@ def test_sweeps_match_plain_beyond_32_rows(seed):
     p = _f32_problems(16, 10, 10, seed, warm=True)
     assert p[1].shape[1] == 40
     _check(*p, iters=8, omega=1.0)
+
+
+@pytest.mark.parametrize("B,nc,nl,seed,iters,omega,warm", [
+    (8, 4, 5, 1, 20, 1.0, False), (8, 4, 5, 2, 20, 1.0, False),
+    (8, 4, 5, 3, 10, 1.0, False), (8, 4, 5, 4, 10, 1.0, False),
+    (8, 4, 5, 6, 10, 1.0, False), (8, 4, 5, 1, 4, 1.1, True),
+    (16, 10, 10, 7, 8, 1.0, True), (16, 10, 10, 8, 8, 1.0, True)])
+def test_sweeps_match_jax_pallas_interpret(B, nc, nl, seed, iters, omega,
+                                           warm):
+    """The host build against the JAX package's PGS kernel (Pallas,
+    interpret mode) on the same float32 inputs, and its residual against
+    the JAX package's comp_residual, in float64, on those inputs and the
+    host build's impulses."""
+    A, b, lo, hi, findex, mu, act, lam0 = _f32_problems(B, nc, nl, seed,
+                                                        warm)
+    lam, res = hp.pgs_solve_host(A, b, lo, hi, findex, mu, act, iters=iters,
+                                 omega=omega, lam0=lam0,
+                                 return_residual=True)
+    j = lambda x: jnp.asarray(x.numpy())
+    lam_j, res_j = pgs_solve_pallas(
+        j(A), j(b), j(lo), j(hi), findex, j(mu), j(act), iters=iters,
+        omega=omega, lam0=j(lam0), interpret=True, return_residual=True)
+    np.testing.assert_allclose(lam.numpy(), np.asarray(lam_j), rtol=1e-5,
+                               atol=1e-6)
+    j64 = lambda x: jnp.asarray(x.numpy().astype(np.float64))
+    res_m = jax.vmap(lambda *a: jax_comp_residual(
+        a[0], a[1], a[2], a[3], a[4], findex, a[5], a[6]))(
+            *(j64(x) for x in (A, b, lam, lo, hi, mu, act)))
+    assert res_m.dtype == jnp.float64
+    np.testing.assert_allclose(res.numpy(), np.asarray(res_m), rtol=1e-4,
+                               atol=1e-7)
+    assert float(res.max()) > 1e-7             # beyond atol: not vacuous
 
 
 def test_wrapper_refuses_more_rows_than_it_serves():
