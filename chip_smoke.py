@@ -7,12 +7,16 @@ toolkit:  python3 chip_smoke.py
 It builds the port's four CUDA kernels from dartenv_tpu_torch/csrc (all
 nvcc processes started together) and then, in float32:
 
-  * for DartWalker2d and DartHopper at B = 4096 (the fused-substep path):
-    the substep kernel and the BPP kernel's core mode against their plain
-    PyTorch versions at that path's shapes; the escalation stage (the BPP
-    kernel's fused mode, one launch) against its plain version on the same
-    substep outputs, and for walker2d once more with a cold tier 2; the
-    kernel path and a plain path composed here in lockstep;
+  * for DartWalker2d and DartHopper at B = 4096, DartWalker3d at B = 4096
+    and DartHumanWalker at B = 1024 (the fused-substep path): the substep
+    kernel and the BPP kernel's core mode against their plain PyTorch
+    versions at that path's shapes; the escalation stage (the BPP kernel's
+    fused mode, one launch; humanwalker's with its compensated refinement
+    tier) against its plain version on the same substep outputs, and for
+    walker2d once more with a cold tier 2; the kernel path and a plain
+    path composed here in lockstep (B = 1024); for DartReacher (limit rows,
+    no contact, no escalation) at B = 4096 the substep kernel and the
+    lockstep;
   * the dynamics kernel against its plain version on cartpole and the
     double pendulum at B = 8192, on walker2d states at B = 4096 and on two
     ModelBuilder chains that hold the six joint types the substep kernel
@@ -28,7 +32,12 @@ nvcc processes started together) and then, in float32:
   * each path (bench_env: batched rollout under a random policy) with
     every kernel's launch counter and plain-call counter set to 0 just
     before it and read just after: walker2d and hopper, cartpole at
-    B = 8192 for 1000 control steps, perturbed walker2d at B = 4096 for 100;
+    B = 8192 for 1000 control steps, perturbed walker2d at B = 4096 for 100,
+    reacher and walker3d at B = 4096 for 100, humanwalker at B = 1024 for
+    100 (the first rollout of each path is bench_env's warm-up);
+  * per contact model, the residual envelope after the escalation (median,
+    p95, max over the substeps of a kernel-path rollout) beside the JAX
+    harness's bounds (a finding; it does not gate);
   * the device launches of one eager walker2d control step at B = 4096,
     counted by torch.profiler as dartenv_tpu_torch/bench/profile_step.py
     counts them (line `launches`).
@@ -113,11 +122,15 @@ def escalate_work(K, m, budgets, rows_in, rows_out, rebuild_n=0):
     lam_full rows, or A, the vectors and lam) and writes (rows_out), the
     tiers' solves and residuals, and, in the fused mode, the operator
     rebuild from M (n x n) and Jc: n^3/3 + 2 m n^2 + 2 m^2 n per env."""
-    it1, rf1, po1, it2, rf2, po2 = budgets
+    it1, rf1, po1, it2, rf2, po2, passes = budgets
     n = rebuild_n
     flops = solve_flops(m, it1, rf1, po1) + 2 * m * m
     if it2 > 0:
         flops += solve_flops(m, it2, rf2, po2) + 2 * m * m
+    # a refinement pass: a compensated matvec (~20 m^2), the masked
+    # operator's inverse (m^3) and product (2 m^2), a compensated residual;
+    # then one plain residual
+    flops += passes * (m ** 3 + 44 * m * m) + 22 * m * m + 2 * m * m
     if n:
         flops += n ** 3 // 3 + 2 * m * n * n + 2 * m * m * n
     return 4 * (rows_in + rows_out) * K, flops * K
@@ -134,13 +147,48 @@ EXACT_BLOCKS = ("con_active", "overflow", "act", "sel_slots", "lo", "hi",
                 "mu")
 DISCRETE = ("con_active", "act", "sel_slots")
 BPP_MAY_DIVERGE = 4            # envs of K = 128 that may take another branch
+
+
+def may_diverge(m, K):
+    """Envs of K whose exact re-solve may take another branch than the
+    plain version's.  Up to 32 rows (walker2d, hopper) BPP_MAY_DIVERGE
+    of 128 part.  Above 32 rows (the lanes over rows, bpp_body.h) the
+    kernel's matvecs sum in column order and the plain version's
+    torch.sum on the card in another (on random rows of 41 it equals a
+    column-order sum on 1112 of 5248 entries, of 24 on 808 of 3072:
+    scripts/torch_sum_order.py), and
+    the 3D models' escalated LCPs part on it: 87 of 128 walker3d envs (8 +
+    2 pivots) and 111-115 of 128 humanwalker envs stayed the same, the
+    kernel solving 41 against 40 and 109 against 109 below 1e-4 (H100
+    runs, PR 5).  There half may part, and the kernel must solve about as
+    many envs as its plain version (solved_as_plain)."""
+    return BPP_MAY_DIVERGE if m <= 32 else K // 2
+
+
+def solved_as_plain(m, K, solved_k, solved_p, n_same):
+    """The kernel solves (< 1e-4) as many envs as its plain version, less
+    the ones that parted (up to 32 rows) or less one in 16 (above: the
+    humanwalker escalation solved 105 against 109, H100 run, PR 5)."""
+    slack = K - n_same if m <= 32 else K // 16
+    return solved_k >= solved_p - slack
 LOCK_MAY_DIVERGE = 2           # envs of 1024 beyond 1e-3 after one step
 CONTROL_STEPS_BEFORE = 25      # control steps before the states are taken
 # (env, perturb) -> (batch, horizon, rollouts); the first rollout of each
 # is bench_env's warm-up
 PATHS = {("walker2d", False): (4096, 100, 2), ("hopper", False): (4096, 100, 2),
          ("cartpole", False): (8192, 1000, 1),
-         ("walker2d", True): (4096, 100, 1)}
+         ("walker2d", True): (4096, 100, 1),
+         ("reacher", False): (4096, 100, 1),
+         ("walker3d", False): (4096, 100, 1),
+         ("humanwalker", False): (1024, 100, 1)}
+# fused-substep envs checked kernel by kernel: env -> batch
+FUSED_ENVS = {"walker2d": 4096, "hopper": 4096, "walker3d": 4096,
+              "humanwalker": 1024, "reacher": 4096}
+# the JAX harness's residual envelope bounds (median, p95, max) after the
+# escalation, measured on a TPU (tests/test_pgs_residuals.py)
+JAX_ENVELOPE = {"walker2d": (1e-6, 1e-5, 1e-4), "hopper": (1e-6, 1e-5, 1e-4),
+                "walker3d": (1e-5, 1e-4, 5e-3),
+                "humanwalker": (1e-5, 1e-4, 5e-3)}
 # the dynamics kernel's bounds, relative to max(1, |ref|_inf): the JAX
 # package's own (tests/test_pallas_dynamics.py::_check); dq_star goes
 # through the n x n solve, whose conditioning amplifies rounding
@@ -154,7 +202,7 @@ def cfg_budgets(cfg):
     from dartenv_tpu_torch.lcp.hopper_bpp import tier_budgets
 
     return tier_budgets(cfg.escalate_iters, cfg.escalate_refine,
-                        cfg.escalate_iters2)
+                        cfg.escalate_iters2, cfg.escalate_ref)
 
 
 def plain_tiers(findex, budgets):
@@ -170,24 +218,72 @@ def plain_tiers(findex, budgets):
                                        lam0=lam0, refine_iters=refine)
         return solve
     return (make(*budgets[:3]),
-            make(*budgets[3:]) if budgets[3] > 0 else None)
+            make(*budgets[3:6]) if budgets[3] > 0 else None)
 
 
-def plain_substep(model, st, tiers, q, dq, lam, tau):
+def plain_substep(model, st, tiers, q, dq, lam, tau, m64=None):
     """One substep through the plain versions only, composed here as the
     port's substep phase composes the kernels: substep_reference ->
-    escalate_batch with the plain BPP -> integrate_positions.  Returns
-    (q, dq, lam)."""
+    escalate_batch with the plain BPP (when the model escalates) ->
+    integrate_positions.  With m64 = (float64 model, its digest), the
+    substep's plain version runs in float64 on the float32 inputs and its
+    outputs are rounded to float32 (see plain64).  Returns (q, dq, lam,
+    the escalated envs or None)."""
     from dartenv_tpu_torch.dynamics.batched import integrate_positions
     from dartenv_tpu_torch.engine import hopper_substep as hs
 
-    outs = hs.substep_reference(model, st, q, dq, tau, lam)
-    dq, lam = hs.escalate_reference(st, model.solver, outs, outs["dq_plus"],
-                                    outs["lam_full"], *tiers)[:2]
-    return integrate_positions(model, q, dq, st.dt), dq, lam
+    if m64 is None:
+        outs = hs.substep_reference(model, st, q, dq, tau, lam)
+    else:
+        outs = hs.substep_reference(m64[0], m64[1], q.double(), dq.double(),
+                                    tau.double(), lam.double())
+        outs = {k: v.float() for k, v in outs.items()}
+    dq, lam, idx = outs["dq_plus"], outs["lam_full"], None
+    if model.solver.escalate_frac > 0:
+        dq, lam, idx = hs.escalate_reference(st, model.solver, outs, dq, lam,
+                                             *tiers)[:3]
+    return integrate_positions(model, q, dq, st.dt), dq, lam, idx
 
 
-def check_bpp(name, cfg, findex, A, b, lo, hi, mu, act, lam_c):
+# Models of more than 12 dofs (walker3d, humanwalker): the substep
+# kernel factors M by Cholesky, as the JAX package's kernel does, while
+# its float32 plain version inverts M through math/linalg.inv_psd, which
+# adds a relative 1e-6 diagonal jitter (the JAX package's XLA path does
+# the same; tests/test_pallas_substep.py bounds the gap at 2e-2 for
+# humanwalker).  Through the PGS sweeps the jitter moves walker3d's
+# impulses by 0.45 and dq_plus by 0.27 of their max on rollout states
+# (the host build against the float32 plain version, on the CPU), so for
+# these models the substep kernel is held against its plain version
+# evaluated in float64 on the same float32 inputs (no jitter there), at
+# 1e-4 for the blocks computed before the PGS sweeps (contacts, rows, M,
+# Jc: within 7.5e-6 on walker3d B = 4096) and the JAX package's n > 12
+# bound of 2e-2 for those after them (AFTER_SWEEPS): on these operators
+# the 20 sweeps amplify the float32 rounding of A and b, and at walker3d
+# B = 4096 the kernel's impulses are 5.8e-4, dq_plus 1.5e-3 and the
+# residual 2.5e-3 from the float64 plain version (H100 run, PR 5).  The
+# escalation
+# kernel's operator rebuild follows its float32 plain version (the jitter
+# included), so the lockstep's plain path runs the substep's plain
+# version in float64 and the escalation's in float32.
+AFTER_SWEEPS = ("dq_plus", "lam_full", "lam_c", "res")
+
+
+def plain64(model):
+    """(float64 copy of the model, its digest) when its plain substep
+    differs from the kernel's factorization (n > 12), else None."""
+    import torch
+
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+    from dartenv_tpu_torch.math.linalg import _UNROLL_MAX
+
+    if model.n <= _UNROLL_MAX:
+        return None
+    m64 = model.to(dtype=torch.float64)
+    return m64, hs._SubStatic(m64)
+
+
+def check_bpp(name, cfg, findex, A, b, lo, hi, mu, act, lam_c,
+              min_solved=0.5):
     """Phase bpp: the BPP kernel against its plain version on the K
     escalated problems of one env's path (warm start lam_c, the path's
     pivot budget).  Returns what the kernels line needs."""
@@ -231,7 +327,8 @@ def check_bpp(name, cfg, findex, A, b, lo, hi, mu, act, lam_c):
          res_kernel_on_others=r_k[~same].tolist(),
          res_plain_on_others=r_r[~same].tolist(),
          ms=bpp_ms, plain_ms=bpp_plain_ms,
-         tol_lam=1e-5, tol_res_diff=1e-5, tol_envs_same=K - BPP_MAY_DIVERGE)
+         tol_lam=1e-5, tol_res_diff=1e-5 if m_c <= 32 else 1e-4,
+         tol_envs_same=K - may_diverge(m_c, K))
     assert torch.isfinite(lam_k).all()
     # These are the WORST K envs of a live rollout under the shipped 4 + 2
     # pivot budget, which does not close every one of them in either
@@ -243,19 +340,24 @@ def check_bpp(name, cfg, findex, A, b, lo, hi, mu, act, lam_c):
     # stalling solve down another branch.  Those envs are counted and
     # bounded, and over all K the kernel must solve (< 1e-4) as many envs
     # as the plain version, less the ones that parted.
-    assert n_same >= K - BPP_MAY_DIVERGE, (n_same, K)
-    assert bpp_err <= 1e-5 and res_diff_same <= 1e-5
-    assert solved(r_k) >= solved(r_r) - (K - n_same)
-    assert solved(r_k) > K // 2
+    assert n_same >= K - may_diverge(m_c, K), (n_same, K)
+    # (above 32 rows the 3D models' operators are large enough that
+    # impulses within 1e-5 move the normalized residual by more: 1.03e-5
+    # at walker3d, H100 run, PR 5)
+    assert bpp_err <= 1e-5 and res_diff_same <= (1e-5 if m_c <= 32
+                                                 else 1e-4)
+    assert solved_as_plain(m_c, K, solved(r_k), solved(r_r), n_same)
+    assert solved(r_k) > K * min_solved
     assert float(r_k.median()) < float(r_pgs.median())
-    bb, bf = bpp_work(m_c, K, cfg.escalate_iters, cfg.escalate_refine, 3)
+    bb, bf = bpp_work(m_c, K, it1, rf1, po1)
     return dict(max_abs_err=bpp_err, ms=bpp_ms, plain_ms=bpp_plain_ms,
                 bound=bound(bb, bf),
-                shape=f"{name} K={K} m={m_c} iters={cfg.escalate_iters} "
-                      f"refine={cfg.escalate_refine} polish=3")
+                shape=f"{name} K={K} m={m_c} iters={it1} refine={rf1} "
+                      f"polish={po1}")
 
 
-def compare_escalation(phase, name, K, got, ref, others_equal):
+def compare_escalation(phase, name, K, got, ref, others_equal,
+                       loose=None, m_rows=0):
     """Hold one escalation launch against its plain version.  got / ref:
     (patched rows (K, w), take (K,), residual of the kept point (K,)) of
     the K escalated envs; others_equal: whether every env outside the top
@@ -263,14 +365,25 @@ def compare_escalation(phase, name, K, got, ref, others_equal):
     max(1, |plain|) and whose take flags agree count as the same; at most
     BPP_MAY_DIVERGE may part (the f32 re-open sensitivity of the bpp
     phase), and over all K the kernel must solve (< 1e-4) as many envs as
-    the plain version, less those that parted."""
+    the plain version, less those that parted.  loose = (c, tol): columns
+    c: (the impulses, after the compensated refinement tier) are held at
+    tol instead: the refined points of an operator with redundant contact
+    rows may part along its near-null directions, which leave the
+    velocity columns unmoved (tests/test_torch_kernels3d.py)."""
     import torch
 
     rows_k, take_k, res_k = got
     rows_r, take_r, res_r = ref
-    env_err = ((rows_k - rows_r).abs().max(1).values
-               / rows_r.abs().max(1).values.clamp(min=1.0))
-    same = (env_err <= 1e-5) & (take_k == take_r)
+    rel = lambda a, b: ((a - b).abs().max(1).values
+                        / b.abs().max(1).values.clamp(min=1.0))
+    if loose is None:
+        env_err = rel(rows_k, rows_r)
+        same = (env_err <= 1e-5) & (take_k == take_r)
+    else:
+        c, tol = loose
+        env_err = rel(rows_k[:, :c], rows_r[:, :c])
+        same = ((env_err <= 1e-5) & (take_k == take_r)
+                & (rel(rows_k[:, c:], rows_r[:, c:]) <= tol))
     n_same = int(same.sum())
     err = float((rows_k - rows_r)[same].abs().max()) if n_same else 0.0
     solved = lambda r: int((r < 1e-4).sum())
@@ -283,11 +396,13 @@ def compare_escalation(phase, name, K, got, ref, others_equal):
                solved_kernel=solved(res_k), solved_plain=solved(res_r),
                res_kernel_max=float(res_k.max()),
                res_plain_max=float(res_r.max()),
-               tol_rel=1e-5, tol_envs_same=K - BPP_MAY_DIVERGE)
+               tol_rel=1e-5, tol_envs_same=K - may_diverge(m_rows, K),
+               tol_loose=None if loose is None else loose[1])
     assert torch.isfinite(rows_k).all() and torch.isfinite(res_k).all()
     assert others_equal, f"{phase} {name}: envs outside the top K changed"
-    assert n_same >= K - BPP_MAY_DIVERGE, (phase, name, n_same, K)
-    assert solved(res_k) >= solved(res_r) - (K - n_same), (phase, name)
+    assert n_same >= K - may_diverge(m_rows, K), (phase, name, n_same, K)
+    assert solved_as_plain(m_rows, K, solved(res_k), solved(res_r),
+                           n_same), (phase, name)
     return out, err
 
 
@@ -321,27 +436,31 @@ def check_escalate(name, st, cfg, outs, tier2=False):
               and torch.equal(lamf_k[rest], lamf_r[rest])
               and torch.equal(dqp_k[rest], dqp0[rest]))
     rows = lambda d, l: torch.cat([d[idx], l[idx]], dim=1)
+    loose = (dqp0.shape[1], 1e-2) if cfg.escalate_ref > 0 else None
     line, err = compare_escalation(
         "escalate", name, K, (rows(dqp_k, lamf_k), take_k, res_k),
-        (rows(dqp_r, lamf_r), take_r, res_r), others)
+        (rows(dqp_r, lamf_r), take_r, res_r), others, loose, st.m_c)
     ms = time_ms(run_k)
     plain_ms = time_ms(run_r, runs=5, warmup=1)
-    n, m_c, m, width = st.escalation_dims
+    n, m_c, m, width, _ = st.escalation_dims
     eb, ef = escalate_work(K, m_c, budgets, width + n + m, n + m,
                            rebuild_n=n)
-    emit("escalate", **line, iters2=cfg.escalate_iters2, ms=ms,
-         plain_ms=plain_ms, bound_ms=bound(eb, ef)[0])
+    emit("escalate", **line, iters2=cfg.escalate_iters2,
+         refine_passes=cfg.escalate_ref, ms=ms, plain_ms=plain_ms,
+         bound_ms=bound(eb, ef)[0])
     assert torch.equal(dqp0, outs["dq_plus"])      # inputs not modified
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound=bound(eb, ef),
                 shape=f"{name} K={K} m={m_c} n={n} fused "
                       f"iters={budgets[0]}+{budgets[1]} "
-                      f"iters2={budgets[3]}+{budgets[4]}")
+                      f"iters2={budgets[3]}+{budgets[4]} "
+                      f"refine_passes={budgets[6]}")
 
 
 def check_env(name, B, dev):
-    """Phases substep, bpp and lockstep for one env at batch B.  Returns
-    what the kernels line needs."""
+    """Phases substep, bpp and lockstep for one env at batch B (bpp and
+    escalate only for a model that escalates).  Returns what the kernels
+    line needs."""
     import torch
 
     from dartenv_tpu_torch.bench.throughput import make_task
@@ -354,8 +473,10 @@ def check_env(name, B, dev):
     kern = hs.get_substep_kernel(model)
     st = kern.st
     n_act = task.action_size
+    escal = cfg.escalate_frac > 0
+    m64 = plain64(model)
     # the plain path composed below is tier 1 only, as the shipped settings
-    assert cfg.escalate_frac > 0 and cfg.escalate_iters2 == 0
+    assert cfg.escalate_iters2 == 0
 
     # ---- 3. fused substep kernel vs its plain version -------------------
     # states from control steps of the port's own rollout, so contacts,
@@ -371,7 +492,15 @@ def check_env(name, B, dev):
     for _ in range(CONTROL_STEPS_BEFORE):
         state, *_ = vec.step(state, rand_a(B))
     q, dq, lam_prev = state.sim.q, state.sim.dq, state.sim.lam
-    tau = task.action_to_tau(rand_a(B), ())
+    if not st.ns:
+        # no contact slots (reacher): the random policy seldom reaches a
+        # joint limit, so every second env has its limited dofs moved past
+        # their upper limit, and the limit rows are live
+        lim = torch.as_tensor(model.host("limited") > 0, device=dev)
+        past = model.q_upper + 0.05 - q
+        q = torch.where(lim & (torch.arange(B, device=dev) % 2 == 0)[:, None],
+                        q + past, q)
+    tau = task.action_to_tau(rand_a(B), state.aux)
     assert torch.isfinite(q).all() and torch.isfinite(dq).all()
 
     outs = kern(q, dq, tau, lam_prev)
@@ -383,42 +512,79 @@ def check_env(name, B, dev):
     for f in DISCRETE:
         agree &= (got_b[f] == ref_b[f]).all(1)
     frac = float(agree.float().mean())
-    errs, abs_errs, unequal = {}, {}, {}
+    ref_c = ref_b                 # the plain version the kernel is held to
+    if m64 is not None:           # n > 12: see plain64
+        ref64 = hs.substep_reference(m64[0], m64[1], q.double(),
+                                     dq.double(), tau.double(),
+                                     lam_prev.double())
+        ref_c = {k: v.float()
+                 for k, v in hs.output_blocks(st, ref64).items()}
+        for f in DISCRETE:
+            agree &= (ref_c[f] == ref_b[f]).all(1)
+    errs, abs_errs, unequal, errs32 = {}, {}, {}, {}
     for f in got_b:
-        a, r = got_b[f][agree], ref_b[f][agree]
+        a, r = got_b[f][agree], ref_c[f][agree]
         assert torch.isfinite(a).all(), f
         if f in EXACT_BLOCKS:
-            unequal[f] = int((a != r).sum())
-        else:
+            unequal[f] = int((a != ref_b[f][agree]).sum())
+        elif a.numel():
             abs_errs[f] = float((a - r).abs().max())
             errs[f] = abs_errs[f] / max(1.0, float(r.abs().max()))
+            r32 = ref_b[f][agree]
+            errs32[f] = (float((a - r32).abs().max())
+                         / max(1.0, float(r32.abs().max())))
     sub_ms = time_ms(lambda: kern(q, dq, tau, lam_prev))
     sub_plain_ms = time_ms(
         lambda: hs.substep_reference(model, st, q, dq, tau, lam_prev),
         runs=5, warmup=1)
-    emit("substep", env=name, B=B, agree_frac=frac, rel_err=errs,
+    emit("substep", env=name, B=B, agree_frac=frac,
+         agree_frac_all=float(agree.float().mean()), rel_err=errs,
          abs_err=abs_errs, unequal_entries=unequal,
+         plain_dtype="float32" if m64 is None else "float64",
+         rel_err_float32_plain=errs32,
+         envs_per_block=hs.launch_shape(st)[0],
          active_slots=float(ref["con_active"].sum()),
          active_rows=float(ref_b["act"].sum()), ms=sub_ms,
-         plain_ms=sub_plain_ms, tol_rel=1e-4, tol_agree=0.999)
-    # (hopper stands on one foot and is in the air for part of its stride)
-    assert float(ref["con_active"].sum()) > 0.05 * B, "contacts are not live"
-    assert float(ref_b["act"].sum()) > B, "constraint rows are not live"
+         plain_ms=sub_plain_ms, tol_rel=1e-4,
+         tol_rel_after_sweeps=1e-4 if m64 is None else 2e-2,
+         tol_agree=0.999)
+    if st.ns:
+        # (hopper stands on one foot and is in the air for part of its
+        # stride)
+        assert float(ref["con_active"].sum()) > 0.05 * B, \
+            "contacts are not live"
+    assert float(ref_b["act"].sum()) > B // 2, "constraint rows are not live"
     assert frac >= 0.999, f"discrete fields agree on {frac:.5f} of envs"
+    assert float(agree.float().mean()) >= 0.99
     assert not any(unequal.values()), f"copied blocks differ: {unequal}"
-    bad = {f: e for f, e in errs.items() if not e <= 1e-4}
+    tol = lambda f: 2e-2 if m64 is not None and f in AFTER_SWEEPS else 1e-4
+    bad = {f: e for f, e in errs.items() if not e <= tol(f)}
     assert not bad, f"substep kernel disagrees: {bad}"
+    sb, sf = substep_work(st, B)
+    lay = f"n={st.n} m={st.layout.m} m_c={st.m_c}"
+    out = {"substep": dict(
+        max_abs_err=max(abs_errs.values()), ms=sub_ms,
+        plain_ms=sub_plain_ms, bound=bound(sb, sf),
+        shape=f"{name} B={B} {lay} envs_per_block="
+              f"{hs.launch_shape(st)[0]}"),
+        "states": (q, dq, tau, lam_prev)}
 
     # ---- 4. BPP kernel vs its plain version -----------------------------
-    g = hs.gather_escalation(st, cfg, outs)
-    K, m_c = g["b"].shape
-    assert (K, m_c) == (hs.escalation_size(B, cfg.escalate_frac,
-                                           cfg.escalate_kmax), st.m_c)
-    bpp = check_bpp(name, cfg, st.findex_c, g["A"], g["b"], g["lo"],
-                    g["hi"], g["mu"], g["act"], g["lam_c"])
-    escalate = check_escalate(name, st, cfg, outs)
-    if name == "walker2d":
-        check_escalate(name, st, cfg, outs, tier2=True)
+    if escal:
+        g = hs.gather_escalation(st, cfg, outs)
+        K, m_c = g["b"].shape
+        assert (K, m_c) == (hs.escalation_size(B, cfg.escalate_frac,
+                                               cfg.escalate_kmax), st.m_c)
+        # the 3D models' shipped pivot budgets (walker3d 8 + 2) leave
+        # about half of their worst envs above 1e-4 in either version (the
+        # JAX harness's walker3d bound on the max residual is 5e-3)
+        out["bpp"] = check_bpp(name, cfg, st.findex_c, g["A"], g["b"],
+                               g["lo"], g["hi"], g["mu"], g["act"],
+                               g["lam_c"],
+                               min_solved=0.5 if m64 is None else 0.25)
+        out["escalate"] = check_escalate(name, st, cfg, outs)
+        if name == "walker2d":
+            check_escalate(name, st, cfg, outs, tier2=True)
 
     # ---- 5. lockstep: kernel path vs plain path, same start, same actions
     # One control step, substep by substep: the port's own substep (the
@@ -438,47 +604,126 @@ def check_env(name, B, dev):
     sk = SimState(q=sl(q), dq=sl(dq), time=sl(state.sim.time),
                   lam=sl(lam_prev))
     sp = (sk.q, sk.dq, sk.lam)
+    aux_l = ({k: sl(v) for k, v in state.aux.items()}
+             if isinstance(state.aux, dict) else state.aux)
+    Kl = hs.escalation_size(Bl, cfg.escalate_frac, cfg.escalate_kmax)
     drift, lock = [], None
     plain_before = hs.PLAIN_CALLS
-    for i in range(8):
-        tau_l = task.action_to_tau(rand_a(Bl), ())
+    # 32 substeps of drift (8 control steps at frame_skip 4; humanwalker's
+    # plain path, 0.3 s a substep, takes 2)
+    for i in range(max(2, 32 // task.frame_skip)):
+        tau_l = task.action_to_tau(rand_a(Bl), aux_l)
         same = torch.ones(Bl, dtype=torch.bool, device=dev)
+        touched = torch.zeros(Bl, dtype=torch.bool, device=dev)
         for _ in range(task.frame_skip):
+            if escal and m64 is not None:
+                # the envs the kernel path escalates in this substep (the
+                # kernel is deterministic: the same outputs as inside the
+                # sim step)
+                res_k = kern(sk.q, sk.dq, tau_l, sk.lam)["res"][:, 0]
+                touched[torch.topk(res_k, Kl).indices] = True
             sk, _ = sim_step(sk, tau_l)
-            sp = plain_substep(model, st, tiers, *sp, tau_l)
+            sp = plain_substep(model, st, tiers, *sp[:3], tau_l, m64)
+            if sp[3] is not None:
+                touched[sp[3]] = True
             same &= (sk.lam[:, rows] > 0).eq(sp[2][:, rows] > 0).all(1)
         dq_err, q_err = rel(sk.dq, sp[1]), rel(sk.q, sp[0])
+        # the envs held to the bound: equal contact sets, and for n > 12
+        # no escalation in either path during the step (see below)
+        held = same & ~touched if m64 is not None else same
         if i == 0:
             lock = dict(same_contact_frac=float(same.float().mean()),
-                        q_err=float(q_err[same].max()),
-                        dq_err=float(dq_err[same].max()),
+                        held_frac=float(held.float().mean()),
+                        q_err=float(q_err[held].max()),
+                        dq_err=float(dq_err[held].max()),
                         dq_err_all=float(dq_err.max()),
                         envs_beyond_tol=int(((dq_err > 1e-3)
-                                             | (q_err > 1e-3))[same].sum()),
-                        q_err_q99=float(q_err[same].quantile(0.99)),
-                        dq_err_q99=float(dq_err[same].quantile(0.99)))
+                                             | (q_err > 1e-3))[held].sum()),
+                        q_err_q99=float(q_err[held].quantile(0.99)),
+                        dq_err_q99=float(dq_err[held].quantile(0.99)),
+                        plain_substep_dtype="float32" if m64 is None
+                        else "float64")
+            if m64 is not None and escal:
+                esc_envs = same & touched
+                lock.update(
+                    escalated_frac=float(touched.float().mean()),
+                    escalated_dq_err_median=float(
+                        dq_err[esc_envs].median()),
+                    escalated_dq_err_q90=float(
+                        dq_err[esc_envs].quantile(0.9)),
+                    escalated_envs_beyond_tol=int(
+                        (dq_err[esc_envs] > 1e-3).sum()))
         drift.append(float(torch.nanmedian(dq_err)))
     emit("lockstep", env=name, B=Bl, **lock, median_dq_drift_per_step=drift,
          tol=1e-3, tol_envs_beyond=LOCK_MAY_DIVERGE)
     assert hs.PLAIN_CALLS == plain_before    # the phase took no plain call
     assert lock["same_contact_frac"] > 0.9
+    # Models of more than 12 dofs: the escalation's inputs differ between
+    # the paths by the float32 rounding of the substep (the plain path's
+    # substep runs in float64, see plain64), and its exact re-solve and
+    # refinement on these ill-conditioned operators part on such
+    # differences (the bpp phase's branch sensitivity, on every escalated
+    # env); so the bound holds on the envs that neither path escalated in
+    # the step, and the escalated envs' errors are printed beside it.
+    assert lock["held_frac"] > 0.25
     # within 1e-3 on the envs with equal contact sets; an env whose exact
     # re-solve took another branch in one version (see the bpp phase) is
     # beyond it, and at most LOCK_MAY_DIVERGE envs may be
     assert lock["envs_beyond_tol"] <= LOCK_MAY_DIVERGE
     assert lock["q_err_q99"] <= 1e-3 and lock["dq_err_q99"] <= 1e-3
+    return out
 
-    sb, sf = substep_work(st, B)
-    lay = f"n={st.n} m={st.layout.m} m_c={m_c}"
-    return {
-        "substep": dict(
-            max_abs_err=max(abs_errs.values()), ms=sub_ms,
-            plain_ms=sub_plain_ms, bound=bound(sb, sf),
-            shape=f"{name} B={B} {lay}"),
-        "bpp": bpp,
-        "escalate": escalate,
-        "states": (q, dq, tau, lam_prev),
-    }
+
+def residual_envelope(name, dev, states, control_steps=25):
+    """Phase envelope: the escalation's effect on the residuals along a
+    kernel-path rollout of one contact model, as the JAX harness measures
+    it (scripts/residual_envelope.py of the JAX package): per substep,
+    every env's substep-kernel residual with the escalated envs' replaced
+    by their kept point's.  From the check's states, random actions,
+    control_steps control steps.  Printed beside the JAX harness's bounds,
+    which were measured on a TPU: a finding, not a gate."""
+    import torch
+
+    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.dynamics.batched import integrate_positions
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+
+    task = make_task(name, device=dev)
+    model, cfg = task.model, task.model.solver
+    kern = hs.get_substep_kernel(model)
+    st = kern.st
+    budgets = cfg_budgets(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    hi_a = torch.as_tensor(task.control_bounds[0], device=dev,
+                           dtype=torch.float32)
+    q, dq, _, lam = (x.clone() for x in states)
+    B = q.shape[0]
+    env, pre = [], []
+    for _ in range(control_steps):
+        a = (torch.rand((B, task.action_size), generator=gen, device=dev)
+             * 2 - 1) * hi_a
+        tau = task.action_to_tau(a, ())
+        for _ in range(task.frame_skip):
+            outs = kern(q, dq, tau, lam)
+            dq, lam, idx, _, kept = hs.escalate_fused(
+                st, cfg, outs, outs["dq_plus"], outs["lam_full"], budgets)
+            res = outs["res"][:, 0]
+            pre.append(res)
+            env.append(res.index_copy(0, idx, kept))
+            q = integrate_positions(model, q, dq, st.dt)
+    env, pre = torch.cat(env), torch.cat(pre)
+    finite = bool(torch.isfinite(q).all() and torch.isfinite(dq).all())
+    pct = lambda x: [float(x.median()), float(x.quantile(0.95)),
+                     float(x.max())]
+    got = pct(env)
+    bounds = JAX_ENVELOPE[name]
+    emit("envelope", env=name, B=B, substeps=task.frame_skip * control_steps,
+         median_p95_max=got, before_escalation=pct(pre),
+         jax_bounds_tpu=list(bounds),
+         within_jax_bounds=[g <= b for g, b in zip(got, bounds)],
+         finite_state=finite)
+    assert finite
 
 
 def joint_chains(dev):
@@ -915,13 +1160,16 @@ def drive_main_path(dev, name, perturb=False):
          plain_calls=plain, finite_state=finite, seconds=seconds)
     assert finite
     assert obs.shape[0] == B and end.sim.q.shape == (B, task.model.n)
-    assert out["episodes_seen"] > 0
+    # (a reacher's episode ends only at the time limit, 1000 steps)
+    assert out["episodes_seen"] > 0 or name == "reacher"
     sub = task.frame_skip * steps_run
     want = dict.fromkeys(counts, 0)
     if perturb:                      # the external-force route
         want.update(bpp_hybrid=sub, pgs=sub)
     elif hs.in_fused_scope(task.model):
-        want.update(substep=sub, bpp_fused=sub)
+        want.update(substep=sub)
+        if task.model.solver.escalate_frac > 0:
+            want.update(bpp_fused=sub)
     else:                            # no constraint rows: kernel 3 only
         want.update(dynamics=sub)
     assert counts == want, (counts, want)
@@ -947,7 +1195,6 @@ def main():
 
     t_start = time.time()
     dev = torch.device("cuda")
-    envs = ("walker2d", "hopper")
     B = 4096
 
     # ---- 1. device ------------------------------------------------------
@@ -962,15 +1209,16 @@ def main():
     # ---- 2. build (all nvcc processes started together) -----------------
     t0 = time.time()
     kerns = {e: hs.get_substep_kernel(make_task(e, device=dev).model)
-             for e in envs}
+             for e in FUSED_ENVS}
     dyn_models = {e: make_task(e, device=dev).model
                   for e in ("cartpole", "doublependulum", "walker2d")}
     dyn_models.update(joint_chains(dev))
     dkerns = {e: hd.get_dynamics_kernel(m) for e, m in dyn_models.items()}
     # the BPP kernel: core and hybrid modes per row count, fused mode per
-    # substep digest
-    bpp_keys = [(k.st.m_c, None) for k in kerns.values()] + [
-        (k.st.m_c, k.st.escalation_header) for k in kerns.values()]
+    # substep digest (of the models that escalate)
+    esc = [k for k in kerns.values() if k.st.cfg.escalate_frac > 0]
+    bpp_keys = [(k.st.m_c, None) for k in esc] + [
+        (k.st.m_c, k.st.escalation_header) for k in esc]
     builds = ([hb.start_build(m, h) for m, h in bpp_keys]
               + [hp.start_build()]
               + [k.start_build() for k in kerns.values()]
@@ -987,12 +1235,21 @@ def main():
     emit("build", seconds=time.time() - t0, libraries=len(builds),
          ptxas=ptxas,
          substep_smem_bytes={e: k.load().substep_smem_bytes()
-                             for e, k in kerns.items()})
+                             for e, k in kerns.items()},
+         substep_envs_per_block={e: hs.launch_shape(k.st)
+                                 for e, k in kerns.items()},
+         fused_smem_bytes={m: hb.load(m, None, h).bpp_fused_smem_bytes()
+                           for m, h in bpp_keys if h})
     st = kerns["walker2d"].st
     assert (st.n, st.ns, st.cap, st.m_c, st.layout.m) == (9, 14, 6, 24, 48)
+    assert {e: (k.st.n, k.st.m_c) for e, k in kerns.items()} == {
+        "walker2d": (9, 24), "hopper": (6, 15), "walker3d": (18, 36),
+        "humanwalker": (29, 41), "reacher": (5, 5)}
 
     # ---- 3-5. substep and BPP kernels vs their plain versions, lockstep -
-    checks = {e: check_env(e, B, dev) for e in envs}
+    checks = {e: check_env(e, Be, dev) for e, Be in FUSED_ENVS.items()}
+    for e in JAX_ENVELOPE:
+        residual_envelope(e, dev, checks[e]["states"])
 
     # ---- 6. dynamics kernel vs its plain version ------------------------
     dyn = {}
@@ -1051,8 +1308,10 @@ def main():
                 "dartenv_tpu/lcp/pallas_pgs.py:131"),
     }
     entries = [(e, False, key, checks[e][phase])
-               for e in envs for key, phase in (("substep", "substep"),
-                                                ("bpp_fused", "escalate"))]
+               for e in FUSED_ENVS for key, phase in (("substep", "substep"),
+                                                      ("bpp_fused",
+                                                       "escalate"))
+               if phase in checks[e]]
     entries += [("cartpole", False, "dynamics", dyn["cartpole"]),
                 ("walker2d", True, "pgs", pgs),
                 ("walker2d", True, "bpp_hybrid", bpp_pert)]

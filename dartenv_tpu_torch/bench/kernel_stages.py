@@ -186,7 +186,7 @@ def substep_and_escalate(task, q, dq, tau, lam, batch):
     K = hs.escalation_size(batch, cfg.escalate_frac, cfg.escalate_kmax)
     worst, idx = torch.topk(res, K)
     budgets = hb.tier_budgets(cfg.escalate_iters, cfg.escalate_refine,
-                              cfg.escalate_iters2)
+                              cfg.escalate_iters2, cfg.escalate_ref)
     fused = lambda: hb.bpp_fused(es_header, st.escalation_dims, outs["esc"],
                                  outs["dq_plus"], outs["lam_full"], idx,
                                  worst, st.findex_c, cfg.escalate_tol,

@@ -1,6 +1,7 @@
 """Where one control step's time goes on the card.
 
     python -m dartenv_tpu_torch.bench.profile_step [--env walker2d]
+        (any name of bench/throughput._TASKS: walker3d, humanwalker, ...)
         [--batch 4096] [--steps 20] [--perturb] [--out out/profile.json]
 
 Steps a batched env under the random policy for `--steps` control steps
@@ -83,8 +84,10 @@ def profile(env="walker2d", batch=4096, steps=20, top=12, perturb=False):
 
 
 def main():
+    from dartenv_tpu_torch.bench.throughput import _TASKS
+
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--env", default="walker2d")
+    ap.add_argument("--env", default="walker2d", choices=sorted(_TASKS))
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--perturb", action="store_true")

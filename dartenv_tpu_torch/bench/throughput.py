@@ -16,6 +16,10 @@ _TASKS = {
     "walker2d": ("dartenv_tpu_torch.envs.walker2d", "make_walker2d_task"),
     "doublependulum": ("dartenv_tpu_torch.envs.double_pendulum",
                        "make_double_pendulum_task"),
+    "reacher": ("dartenv_tpu_torch.envs.reacher", "make_reacher_task"),
+    "walker3d": ("dartenv_tpu_torch.envs.walker3d", "make_walker3d_task"),
+    "humanwalker": ("dartenv_tpu_torch.envs.human_walker",
+                    "make_humanwalker_task"),
 }
 
 

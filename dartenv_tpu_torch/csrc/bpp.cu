@@ -18,8 +18,8 @@
 // the same launch.
 //
 // Design: ONE WARP PER ENV, one env per block (K blocks spread over the
-// SMs), one build per row count ES_M <= 32 (a generated header), so every
-// row loop is unrolled and ROW i LIVES IN LANE i:
+// SMs), one build per row count ES_M <= 64 (a generated header).  Up to
+// 32 rows every row loop is unrolled and ROW i LIVES IN LANE i:
 //   * the working matrix of a pivot is held in registers, one row per
 //     lane; the pivot row, and each x_i of the back substitution, reach the
 //     other lanes by __shfl_sync from the lane that holds them, so a pivot
@@ -31,13 +31,20 @@
 // Every entry's arithmetic, and its order, is the earlier shared-memory
 // kernel's: f = Am[i][k] / piv, Am[i][j] -= f Am[k][j], back substitution in
 // descending i, matvecs in column order, polish rows by the same butterfly.
+// Above 32 rows (walker3d's 36, humanwalker's 41) a lane owns rows i and
+// i + 32, and a register row of the working matrix per owned row would be
+// 2 m registers; there the working matrix lives in shared memory and the
+// lanes go over its rows (bpp_body.h, the same per-entry arithmetic,
+// also built for the host).
 //
 // Three modes share that solve (one kernel each, same build):
 //   core   (bpp_core_launch): (K, m, m) A and the vectors -> lam;
 //   fused  (bpp_fused_launch, when the header carries the substep digest):
 //          reads rows idx[k] of the substep kernel's packed `esc` itself,
 //          rebuilds the operator in shared memory (escalate_body.h), runs
-//          tier 1 warm and tier 2 cold, ranks by residual, keeps the best
+//          tier 1 warm and tier 2 cold, ranks by residual, keeps the best,
+//          runs ES_REFC passes of the compensated refinement tier on the
+//          kept point when the header asks (escalate_body.h es_refine_tier)
 //          and writes the delta patches of dq_plus / lam_full in place
 //          (the wrapper hands in copies);
 //   hybrid (bpp_hybrid_launch): reads rows idx[k] of a phase-wise batch's
@@ -46,15 +53,19 @@
 //
 // Built with -fmad=false: products and sums round separately, like the
 // plain PyTorch versions (lcp/hopper_bpp.bpp_solve_reference,
-// engine/hopper_substep.escalate_reference, lcp/hybrid).
+// engine/hopper_substep.escalate_reference, lcp/hybrid); the refinement
+// tier's exact two-sum and two-product identities need it too.
 
 #include <cuda_runtime.h>
 
 #include "bpp_model.h"
-#include "escalate_body.h"
+#ifndef ES_REFC
+#define ES_REFC 0
+#endif
+#include "bpp_body.h"
 
-#if ES_M > 32
-#error "the BPP kernel holds one row per lane: ES_M must be <= 32"
+#if ES_M > 64
+#error "the BPP kernel holds at most two rows per lane: ES_M must be <= 64"
 #endif
 #if defined(ES_N) && \
     (ES_O_LO != ES_O_B + ES_M || ES_O_ACT != ES_O_B + 4 * ES_M)
@@ -86,6 +97,8 @@ __device__ unsigned long long es_cycles[ES_NSTAGES];
 #define WARP 32
 #define FULL 0xffffffffu
 
+#if ES_M <= 32
+// ---- up to 32 rows: one row per lane, the working matrix in registers ---
 // One lane's row of the problem (lanes >= ES_M hold an empty row).
 struct Row {
     float b, lo, hi, mu, act;
@@ -269,6 +282,8 @@ __device__ __forceinline__ Row load_row(const float* b, const float* lo,
     return rw;
 }
 
+#endif  // ES_M <= 32
+
 __device__ __forceinline__ void load_matrix(const float* Ag, float* As,
                                             int lane) {
     for (int idx = lane; idx < ES_M * ES_M; idx += WARP) {
@@ -290,12 +305,31 @@ bpp_core_kernel(const float* __restrict__ A_g, const float* __restrict__ b_g,
     const int env = blockIdx.x, lane = threadIdx.x;
     const size_t off = (size_t)env * ES_M;
     load_matrix(A_g + off * ES_M, As, lane);
+#if ES_M <= 32
     const Row rw = load_row(b_g + off, lo_g + off, hi_g + off, mu_g + off,
                             act_g + off, findex, lane);
     const float x0 = lane < ES_M ? lam0_g[off + lane] : 0.0f;
     __syncwarp();
     const float x = bpp_warp(As, rw, x0, iters, refine, polish, lane);
     if (lane < ES_M) lam_g[off + lane] = x;
+#else
+    float* vec = As + ES_M * ES_LD;               // b lo hi mu act
+    float* x = vec + 5 * ES_M;
+    int* fs = reinterpret_cast<int*>(x + ES_M);
+    float* scr = reinterpret_cast<float*>(fs + ES_M);
+    LANE_FOR(i, 0, ES_M) {
+        vec[i] = b_g[off + i];
+        vec[ES_M + i] = lo_g[off + i];
+        vec[2 * ES_M + i] = hi_g[off + i];
+        vec[3 * ES_M + i] = mu_g[off + i];
+        vec[4 * ES_M + i] = act_g[off + i];
+        x[i] = lam0_g[off + i];
+        fs[i] = findex[i];
+    }
+    __syncwarp();
+    bp_solve(As, vec, fs, x, x, scr, iters, refine, polish, lane);
+    LANE_FOR(i, 0, ES_M) lam_g[off + i] = x[i];
+#endif
 }
 
 // ---- hybrid mode: rows idx[k] of a phase-wise batch ----------------------
@@ -321,31 +355,50 @@ bpp_hybrid_kernel(const float* __restrict__ A_g,
     const int k = blockIdx.x, lane = threadIdx.x;
     const size_t off = (size_t)idx_g[k] * ES_M;
     load_matrix(A_g + off * ES_M, As, lane);
-    if (lane < ES_M) {
-        vec[lane] = b_g[off + lane];
-        vec[ES_M + lane] = lo_g[off + lane];
-        vec[2 * ES_M + lane] = hi_g[off + lane];
-        vec[3 * ES_M + lane] = mu_g[off + lane];
-        vec[4 * ES_M + lane] = act_g[off + lane];
-        fs[lane] = findex[lane];
+    LANE_FOR(i, 0, ES_M) {
+        vec[i] = b_g[off + i];
+        vec[ES_M + i] = lo_g[off + i];
+        vec[2 * ES_M + i] = hi_g[off + i];
+        vec[3 * ES_M + i] = mu_g[off + i];
+        vec[4 * ES_M + i] = act_g[off + i];
+        fs[i] = findex[i];
     }
+    bool take;
+    float kept;
+#if ES_M <= 32
     const float lamc = lane < ES_M ? lam_g[off + lane] : 0.0f;
     __syncwarp();
     const Row rw = load_row(vec, vec + ES_M, vec + 2 * ES_M, vec + 3 * ES_M,
                             vec + 4 * ES_M, fs, lane);
-    bool take;
-    float kept;
     const float lam = tiers(As, rw, vec, fs, xs, lamc, worst_g[k], tol,
                             iters1, refine1, polish1, iters2, refine2,
                             polish2, lane, take, kept);
+    if (take && lane < ES_M) out_g[off + lane] = lam;
+#else
+    float* scr = reinterpret_cast<float*>(fs + ES_M);
+    LANE_FOR(i, 0, ES_M) xs[i] = lam_g[off + i];
+    __syncwarp();
+    bp_tiers(As, vec, fs, xs, scr, worst_g[k], tol, iters1, refine1,
+             polish1, iters2, refine2, polish2, take, kept, lane);
+    if (take) LANE_FOR(i, 0, ES_M) out_g[off + i] = xs[i];
+#endif
     if (lane == 0) {
         take_g[k] = take;
         res_g[k] = kept;
     }
-    if (take && lane < ES_M) out_g[off + lane] = lam;
 }
 
+// floats of scratch after the core and hybrid modes' fixed blocks
+constexpr int solve_work() { return ES_M <= 32 ? 0 : bp_tiers_scratch(); }
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
 #ifdef ES_N
+// the fused mode's scratch: the operator rebuild's, then the tiers' and
+// the refinement tier's (reused in turn)
+constexpr int FUSED_WORK = cmax(
+    es_rebuild_scratch(),
+    cmax(solve_work(), ES_REFC > 0 ? ES_M + es_refine_scratch() : 0));
+
 // ---- fused mode: rows idx[k] of the substep kernel's outputs -------------
 __global__ void __launch_bounds__(WARP)
 bpp_fused_kernel(const float* __restrict__ esc_g,
@@ -360,38 +413,54 @@ bpp_fused_kernel(const float* __restrict__ esc_g,
                  int iters2, int refine2, int polish2) {
     extern __shared__ float sm[];
     float* esc = sm;                               // the env's `esc` row
-    float* L = esc + ES_W;
+    float* L = esc + ES_W;                         // factor of M, or M^-1
     float* MiJ = L + ES_N * ES_N;
     float* As = MiJ + ES_M * ES_N;
-    float* xs = As + ES_M * ES_LD;
+    float* xs = As + ES_M * ES_LD;                 // the kept point
     int* fs = reinterpret_cast<int*>(xs + ES_M);
+    float* work = reinterpret_cast<float*>(fs + ES_M);   // FUSED_WORK
     const int k = blockIdx.x, lane = threadIdx.x;
 #ifdef ES_STAMPS
     long long es_t0 = clock64();
 #endif
     const size_t row = (size_t)idx_g[k];
     for (int t = lane; t < ES_W; t += WARP) esc[t] = esc_g[row * ES_W + t];
-    if (lane < ES_M) fs[lane] = findex[lane];
+    LANE_FOR(i, 0, ES_M) fs[i] = findex[i];
     __syncwarp();
     ES_STAMP(0);
-    es_rebuild(esc, L, MiJ, As, lane);
+    es_rebuild(esc, L, MiJ, As, work, lane);
     ES_STAMP(1);
     const float* vec = esc + ES_O_B;               // b lo hi mu act, lam_c
-    const Row rw = load_row(vec, esc + ES_O_LO, esc + ES_O_HI,
-                            esc + ES_O_MU, esc + ES_O_ACT, fs, lane);
-    const float lamc = lane < ES_M ? esc[ES_O_LAM + lane] : 0.0f;
+    const float* lamc = esc + ES_O_LAM;
     bool take;
     float kept;
-    const float lam = tiers(As, rw, vec, fs, xs, lamc, worst_g[k], tol,
-                            iters1, refine1, polish1, iters2, refine2,
-                            polish2, lane, take, kept);
+#if ES_M <= 32
+    {
+        const Row rw = load_row(vec, esc + ES_O_LO, esc + ES_O_HI,
+                                esc + ES_O_MU, esc + ES_O_ACT, fs, lane);
+        const float lam = tiers(As, rw, vec, fs, xs, lane < ES_M
+                                ? lamc[lane] : 0.0f, worst_g[k], tol,
+                                iters1, refine1, polish1, iters2, refine2,
+                                polish2, lane, take, kept);
+        if (lane < ES_M) xs[lane] = lam;
+        __syncwarp();
+    }
+#else
+    LANE_FOR(i, 0, ES_M) xs[i] = lamc[i];
+    __syncwarp();
+    bp_tiers(As, vec, fs, xs, work, worst_g[k], tol, iters1, refine1,
+             polish1, iters2, refine2, polish2, take, kept, lane);
+#endif
+#if ES_REFC > 0
+    es_refine_tier(As, vec, fs, xs, tol, ES_REFC, work, take, kept, lane);
+#endif
     if (lane == 0) {
         take_g[k] = take;
         res_g[k] = kept;
     }
     ES_STAMP(2);
     if (!take) return;                             // the same in every lane
-    if (lane < ES_M) xs[lane] = lam - lamc;        // dlam
+    LANE_FOR(i, 0, ES_M) xs[i] = xs[i] - lamc[i];  // dlam
     __syncwarp();
     es_patch(esc, MiJ, xs, dqp_g + row * ES_N, lamf_g + row * ES_MFULL,
              dqp_out + row * ES_N, lamf_out + row * ES_MFULL, lane);
@@ -429,7 +498,8 @@ extern "C" int bpp_core_launch(const float* A, const float* b,
                                const float* lam0, const int* findex,
                                float* lam, int K, int iters, int refine,
                                int polish, void* stream) {
-    const int bytes = ES_M * ES_LD * (int)sizeof(float);
+    const int bytes = (ES_M * ES_LD + (ES_M <= 32 ? 0 : 7 * ES_M)
+                       + solve_work()) * (int)sizeof(float);
     int e = set_smem((const void*)bpp_core_kernel, bytes);
     if (e) return e;
     bpp_core_kernel<<<K, WARP, bytes, (cudaStream_t)stream>>>(
@@ -446,7 +516,8 @@ extern "C" int bpp_hybrid_launch(const float* A, const float* b,
                                  float tol, int iters1, int refine1,
                                  int polish1, int iters2, int refine2,
                                  int polish2, void* stream) {
-    const int bytes = (ES_M * ES_LD + 7 * ES_M) * (int)sizeof(float);
+    const int bytes = (ES_M * ES_LD + 7 * ES_M + solve_work())
+                      * (int)sizeof(float);
     int e = set_smem((const void*)bpp_hybrid_kernel, bytes);
     if (e) return e;
     bpp_hybrid_kernel<<<K, WARP, bytes, (cudaStream_t)stream>>>(
@@ -458,7 +529,14 @@ extern "C" int bpp_hybrid_launch(const float* A, const float* b,
 #ifdef ES_N
 extern "C" int bpp_fused_dims(int* out) {
     out[0] = ES_N; out[1] = ES_M; out[2] = ES_MFULL; out[3] = ES_W;
-    return 4;
+    out[4] = ES_REFC;
+    return 5;
+}
+
+// Dynamic shared memory of one fused-mode block (one env), in bytes.
+extern "C" int bpp_fused_smem_bytes() {
+    return (ES_W + ES_N * ES_N + ES_M * ES_N + ES_M * ES_LD + 2 * ES_M
+            + FUSED_WORK) * (int)sizeof(float);
 }
 
 extern "C" int bpp_fused_launch(const float* esc, const float* dq_plus,
@@ -468,8 +546,7 @@ extern "C" int bpp_fused_launch(const float* esc, const float* dq_plus,
                                 float* res, int K, float tol, int iters1,
                                 int refine1, int polish1, int iters2,
                                 int refine2, int polish2, void* stream) {
-    const int bytes = (ES_W + ES_N * ES_N + ES_M * ES_N + ES_M * ES_LD
-                       + 2 * ES_M) * (int)sizeof(float);
+    const int bytes = bpp_fused_smem_bytes();
     int e = set_smem((const void*)bpp_fused_kernel, bytes);
     if (e) return e;
     bpp_fused_kernel<<<K, WARP, bytes, (cudaStream_t)stream>>>(

@@ -1,0 +1,65 @@
+// Host build of the escalation kernel's core mode above 32 rows
+// (bpp_body.h: the solve with the lanes over rows and the working matrix
+// in shared memory), as one lane in a loop over the problems.  Build with
+// a C++ compiler and -ffp-contract=off (like the kernel's -fmad=false).
+// For tests on machines without a GPU; nothing on the main path calls it.
+#include <string.h>
+
+#include "bpp_model.h"
+#include "bpp_body.h"
+
+// A (K, ES_M, ES_M); b, lo, hi, mu, act, lam0 (K, ES_M) -> lam (K, ES_M)
+extern "C" int bpp_core_host(const float* A_g, const float* b_g,
+                             const float* lo_g, const float* hi_g,
+                             const float* mu_g, const float* act_g,
+                             const float* lam0_g, const int* findex,
+                             float* lam_g, int K, int iters, int refine,
+                             int polish) {
+    static float A[ES_M * ES_LD], vec[5 * ES_M], x[ES_M],
+        scr[bp_solve_scratch()];
+    for (int k = 0; k < K; ++k) {
+        const size_t off = (size_t)k * ES_M;
+        for (int i = 0; i < ES_M; ++i)
+            for (int j = 0; j < ES_M; ++j)
+                A[i * ES_LD + j] = A_g[(off + i) * ES_M + j];
+        memcpy(vec, b_g + off, ES_M * sizeof(float));
+        memcpy(vec + ES_M, lo_g + off, ES_M * sizeof(float));
+        memcpy(vec + 2 * ES_M, hi_g + off, ES_M * sizeof(float));
+        memcpy(vec + 3 * ES_M, mu_g + off, ES_M * sizeof(float));
+        memcpy(vec + 4 * ES_M, act_g + off, ES_M * sizeof(float));
+        memcpy(x, lam0_g + off, ES_M * sizeof(float));
+        bp_solve(A, vec, findex, x, x, scr, iters, refine, polish, 0);
+        memcpy(lam_g + off, x, ES_M * sizeof(float));
+    }
+    return 0;
+}
+
+// The compensated refinement tier's arithmetic (escalate_body.h es_refine,
+// es_residual_ff) on K problems: x (K, ES_M) in, the refined points out
+// (K, ES_M); res_ff (K, 2): comp_residual_ff of the input point and of the
+// refined one.
+extern "C" int refine_host(const float* A_g, const float* b_g,
+                           const float* lo_g, const float* hi_g,
+                           const float* mu_g, const float* act_g,
+                           const float* x_g, const int* findex, int passes,
+                           float* x_out, float* res_ff, int K) {
+    static float A[ES_M * ES_LD], vec[5 * ES_M], x[ES_M],
+        scr[es_refine_scratch()];
+    for (int k = 0; k < K; ++k) {
+        const size_t off = (size_t)k * ES_M;
+        for (int i = 0; i < ES_M; ++i)
+            for (int j = 0; j < ES_M; ++j)
+                A[i * ES_LD + j] = A_g[(off + i) * ES_M + j];
+        memcpy(vec, b_g + off, ES_M * sizeof(float));
+        memcpy(vec + ES_M, lo_g + off, ES_M * sizeof(float));
+        memcpy(vec + 2 * ES_M, hi_g + off, ES_M * sizeof(float));
+        memcpy(vec + 3 * ES_M, mu_g + off, ES_M * sizeof(float));
+        memcpy(vec + 4 * ES_M, act_g + off, ES_M * sizeof(float));
+        memcpy(x, x_g + off, ES_M * sizeof(float));
+        res_ff[2 * k] = es_residual_ff(A, vec, findex, x, 0);
+        es_refine(A, vec, findex, x, passes, scr, 0);
+        res_ff[2 * k + 1] = es_residual_ff(A, vec, findex, x, 0);
+        memcpy(x_out + off, x, ES_M * sizeof(float));
+    }
+    return 0;
+}

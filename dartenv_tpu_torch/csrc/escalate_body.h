@@ -9,10 +9,13 @@
 // over the substep kernel's packed `esc` rows, ES_N (dofs), ES_CAP
 // (contact cap), ES_NS (contact slots), ES_MFULL (rows of lam_full), ES_CFM,
 // and the offsets ES_O_* of `esc`'s blocks (engine/hopper_substep.
-// _esc_layout), row width ES_W.  Matrices are row-major with the odd row
-// stride ES_LD, so lanes that walk down a column hit distinct banks.
+// _esc_layout), row width ES_W, and ES_REFC, the passes of the
+// compensated refinement tier (0: none).  Matrices are row-major with the
+// odd row stride ES_LD, so lanes that walk down a column hit distinct
+// banks.
 #pragma once
 
+#include "linalg_body.h"
 #include "pgs_row.h"
 
 #ifdef __CUDACC__
@@ -66,38 +69,204 @@ ES_FN bool es_take(float res_kept, float res_new, float tol) {
     return (res_kept > tol) && (res_new < res_kept);
 }
 
+// ---- the compensated (double-float) refinement tier ----------------------
+// lcp/dantzig.refine_compensated and comp_residual_ff.  The Dekker and
+// Knuth identities hold only if every product and sum rounds on its own:
+// the kernels are built with -fmad=false and the host builds with
+// -ffp-contract=off (cuda_build.py), which this code relies on.
+#define ES_SPLIT 4097.0f             // 2^12 + 1: Dekker split of a float
+
+ES_FN void es_two_sum(float a, float b, float& s, float& e) {
+    s = a + b;
+    const float bb = s - a;
+    e = (a - (s - bb)) + (b - bb);
+}
+
+ES_FN void es_two_prod(float a, float b, float& p, float& e) {
+    p = a * b;
+    const float ca = ES_SPLIT * a;
+    const float ah = ca - (ca - a);
+    const float al = a - ah;
+    const float cb = ES_SPLIT * b;
+    const float bh = cb - (cb - b);
+    const float bl = b - bh;
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl;
+}
+
+// _comp_matvec_add: b_i + A_i . x with compensated sums, columns in order
+ES_FN float es_comp_row(const float* Ai, const float* x, float bi) {
+    float s = bi, c = 0.0f;
+    for (int j = 0; j < ES_M; ++j) {
+        float p, pe, se;
+        es_two_prod(Ai[j], x[j], p, pe);
+        es_two_sum(s, p, s, se);
+        c = c + (se + pe);
+    }
+    return s + c;
+}
+
+// comp_residual_ff of x: es_residual with compensated row sums; every lane
+// returns it.
+ES_FN float es_residual_ff(const float* A, const float* vec, const int* fidx,
+                           const float* x, int lane) {
+    const float *b = vec, *lo = vec + ES_M, *hi = vec + 2 * ES_M,
+                *mu = vec + 3 * ES_M, *act = vec + 4 * ES_M;
+    float amax = 0.0f;
+    LANE_FOR(i, 0, ES_M) amax = fmaxf(amax, fabsf(x[i]));
+    const float scale = fmaxf(1.0f, lanes_max(amax));
+    const float eps = 1e-6f * scale + 1e-9f;
+    float res = 0.0f;
+    LANE_FOR(i, 0, ES_M) {
+        const float w = es_comp_row(A + i * ES_LD, x, b[i]);
+        const int f = fidx[i];
+        const float bd = f >= 0 ? mu[i] * fabsf(x[f]) : 1e20f;
+        const float l = fmaxf(lo[i], -bd), h = fminf(hi[i], bd);
+        const float xi = x[i];
+        const bool at_lo = xi <= l + eps;
+        const bool at_hi = xi >= h - eps;
+        float r = (at_lo && at_hi) ? 0.0f
+                  : (at_lo ? -w : (at_hi ? w : fabsf(w)));
+        r = fmaxf(r, fmaxf(l - xi, xi - h));
+        if (act[i] > 0.5f) res = fmaxf(res, r);
+    }
+    return lanes_max(res) / scale;
+}
+
+// scratch floats of es_refine: the point, the best point, lo_e, hi_e, the
+// free mask, x_a, the rhs and the correction (ES_M each), the masked
+// operator (ES_M x ES_LD) and la_solve_psd's scratch
+constexpr int es_refine_scratch() {
+    return 8 * ES_M + ES_M * ES_LD + la_solve_scratch(ES_M);
+}
+
+// refine_compensated of the point x (ES_M floats, overwritten by the best
+// point) for `passes` passes: per pass, the free set of the current point
+// at its own friction bounds, the compensated residual of the free-set
+// system, a correction solve on the masked operator (la_solve_psd, eps
+// 1e-12), a clip to the bounds, and keep-best by es_residual_ff.  A (ES_LD)
+// and vec (b lo hi mu act) as es_residual takes them.
+ES_FN void es_refine(const float* A, const float* vec, const int* fidx,
+                     float* x, int passes, float* scr, int lane) {
+    const float *b = vec, *lo = vec + ES_M, *hi = vec + 2 * ES_M,
+                *mu = vec + 3 * ES_M, *act = vec + 4 * ES_M;
+    float* xc = scr;                 // the current point
+    float* loe = xc + ES_M;
+    float* hie = loe + ES_M;
+    float* fm = hie + ES_M;
+    float* xa = fm + ES_M;
+    float* r = xa + ES_M;
+    float* d = r + ES_M;
+    float* best = d + ES_M;
+    float* Am = best + ES_M;
+    float* lscr = Am + ES_M * ES_LD;
+    LANE_FOR(i, 0, ES_M) {
+        xc[i] = x[i];
+        best[i] = x[i];
+    }
+    LANE_SYNC();
+    float best_r = es_residual_ff(A, vec, fidx, x, lane);
+    for (int p = 0; p < passes; ++p) {
+        float amax = 0.0f;
+        LANE_FOR(i, 0, ES_M) amax = fmaxf(amax, fabsf(xc[i]));
+        const float eps = 1e-6f * fmaxf(1.0f, lanes_max(amax));
+        LANE_FOR(i, 0, ES_M) {
+            const int f = fidx[i];
+            const float bd = f >= 0 ? mu[i] * fabsf(xc[f]) : 1e20f;
+            const float l = fmaxf(lo[i], -bd) * act[i];
+            const float h = fminf(hi[i], bd) * act[i];
+            const bool at_lo = xc[i] <= l + eps;
+            const bool at_hi = xc[i] >= h - eps;
+            const float f_i = (act[i] > 0.5f && !at_lo && !at_hi) ? 1.0f
+                                                                  : 0.0f;
+            const float xf = (at_hi ? h : (at_lo ? l : 0.0f)) * act[i]
+                             * (1.0f - f_i);
+            loe[i] = l;
+            hie[i] = h;
+            fm[i] = f_i;
+            xa[i] = xc[i] * f_i + xf;
+        }
+        LANE_SYNC();
+        LANE_FOR(i, 0, ES_M) {
+            r[i] = -es_comp_row(A + i * ES_LD, xa, b[i]) * fm[i];
+            for (int j = 0; j < ES_M; ++j) {
+                float v = A[i * ES_LD + j] * fm[i] * fm[j];
+                if (i == j) v = v + (1.0f - fm[j]);
+                Am[i * ES_LD + j] = v;
+            }
+        }
+        LANE_SYNC();
+        la_solve_psd<ES_M>(Am, ES_LD, r, d, lscr, 1e-12f, lane);
+        LANE_FOR(i, 0, ES_M)
+            xc[i] = fminf(fmaxf(xa[i] + d[i] * fm[i], loe[i]), hie[i]);
+        LANE_SYNC();
+        const float r_new = es_residual_ff(A, vec, fidx, xc, lane);
+        if (r_new < best_r) {            // the same in every lane
+            LANE_FOR(i, 0, ES_M) best[i] = xc[i];
+            best_r = r_new;
+        }
+        LANE_SYNC();
+    }
+    LANE_FOR(i, 0, ES_M) x[i] = best[i];
+    LANE_SYNC();
+}
+
+// The refinement tier of engine/pallas_substep.escalate_batch after the
+// exact tiers: lam (ES_M, in shared memory) is the kept point and `kept`
+// its residual (the PGS residual where no tier took); the refined point
+// replaces it where kept > tol and its residual (es_residual) is lower.
+// `take` and `kept` are updated; the same in every lane.
+ES_FN void es_refine_tier(const float* A, const float* vec, const int* fidx,
+                          float* lam, float tol, int passes, float* scr,
+                          bool& take, float& kept, int lane) {
+    float* xr = scr;                           // ES_M
+    LANE_FOR(i, 0, ES_M) xr[i] = lam[i];
+    LANE_SYNC();
+    es_refine(A, vec, fidx, xr, passes, scr + ES_M, lane);
+    const float *b = vec;
+    const float rr = es_residual(A, b, b + ES_M, b + 2 * ES_M, b + 3 * ES_M,
+                                 b + 4 * ES_M, xr, fidx, lane);
+    if (es_take(kept, rr, tol)) {
+        LANE_FOR(i, 0, ES_M) lam[i] = xr[i];
+        kept = rr;
+        take = true;
+    }
+    LANE_SYNC();
+}
+
 #ifdef ES_N
 
 // The operator of one escalated env from its `esc` row, as
 // engine/hopper_substep.gather_escalation rebuilds it:
-//   L = chol(M + 1e-10 I)        (math/linalg.chol's entry order; the
-//                                 columns in turn, rows below over lanes)
-//   MiJ[c] = chol_solve(L, Jc[c]) (M^-1 Jc^T by columns, lanes over c)
-//   A = Jc M^-1 Jc^T + cfm I, then act-masked (lanes over rows)
+//   ES_N <= 12: L = chol(M + 1e-10 I) (math/linalg.chol's entry order; the
+//               columns in turn, rows below over lanes), then
+//               MiJ[c] = chol_solve(L, Jc[c]) (lanes over c);
+//   ES_N > 12:  M^-1 = inv_psd(M, 1e-10) (linalg_body.h: the float32
+//               jitter and the recursive Schur-complement inverse), then
+//               MiJ = (M^-1 Jc^T)^T (lanes over entries);
+//   A = Jc M^-1 Jc^T + cfm I, then act-masked (lanes over rows).
 // MiJ is (ES_M, ES_N) row-major: MiJ[c * ES_N + d] = (M^-1 Jc^T)[d][c].
-// Ends with the warp synchronized.
+// L holds ES_N x ES_N floats (the factor, or M^-1); scr holds
+// es_rebuild_scratch() floats.  Ends with the warp synchronized.
+constexpr int es_rebuild_scratch() {
+    return ES_N > LA_UNROLL_MAX ? la_inv_scratch(ES_N) : 0;
+}
+
 ES_FN void es_rebuild(const float* esc, float* L, float* MiJ, float* A,
-                      int lane) {
+                      float* scr, int lane) {
     const float* M = esc + ES_O_M;
     const float* Jc = esc + ES_O_JC;
     const float* act = esc + ES_O_ACT;
-    for (int j = 0; j < ES_N; ++j) {
-        if (lane == 0) {
-            float s = M[j * ES_N + j];
-            s = s + 1e-10f;
-            for (int k = 0; k < j; ++k)
-                s = s - L[j * ES_N + k] * L[j * ES_N + k];
-            L[j * ES_N + j] = sqrtf(fmaxf(s, 1e-30f));
-        }
-        LANE_SYNC();
-        LANE_FOR(i, j + 1, ES_N) {
-            float s = M[i * ES_N + j];
-            for (int k = 0; k < j; ++k)
-                s = s - L[i * ES_N + k] * L[j * ES_N + k];
-            L[i * ES_N + j] = s / L[j * ES_N + j];
-        }
-        LANE_SYNC();
+#if ES_N > LA_UNROLL_MAX
+    la_inv_psd<ES_N>(M, ES_N, L, ES_N, scr, 1e-10f, lane);
+    LANE_FOR(t, 0, ES_M * ES_N) {
+        const int c = t / ES_N, d = t - c * ES_N;
+        float s = 0.0f;
+        for (int k = 0; k < ES_N; ++k) s += L[d * ES_N + k] * Jc[c * ES_N + k];
+        MiJ[t] = s;
     }
+#else
+    (void)scr;
+    la_chol<ES_N>(M, ES_N, L, ES_N, 1e-10f, lane);
     LANE_FOR(c, 0, ES_M) {
         const float* rhs = Jc + c * ES_N;
         float y[ES_N], x[ES_N];
@@ -113,6 +282,7 @@ ES_FN void es_rebuild(const float* esc, float* L, float* MiJ, float* A,
         }
         for (int i = 0; i < ES_N; ++i) MiJ[c * ES_N + i] = x[i];
     }
+#endif
     LANE_SYNC();
     LANE_FOR(i, 0, ES_M) {
         for (int j = 0; j < ES_M; ++j) {

@@ -20,11 +20,15 @@
 // 4096 envs as 128 one-warp blocks: one warp on an SM, nothing to hide its
 // local-memory latency, stores 447 floats apart.
 //
-// Design: ONE WARP PER ENV, SS_WARPS = 16 envs per block, two blocks per
-// SM (64 registers), the per-env working set in dynamic shared memory
-// (substep_body.h's SS_SMEM floats: A, Jc, M^-1 Jc^T, M, L, phi, R_w, p_w,
-// the slot and row vectors; 6.6 KB for walker2d), so a 4096-env batch is
-// one wave of 32 warps on each SM.  The lanes take the independent items:
+// Design: ONE WARP PER ENV, SS_WARPS envs per block, the per-env working
+// set in dynamic shared memory (substep_body.h's SS_SMEM floats: A, Jc,
+// M^-1 Jc^T, M, L, phi, R_w, p_w, the slot and row vectors; 6.5 KB for
+// walker2d).  SS_WARPS and SS_MIN_BLOCKS come from the generated header
+// (engine/hopper_substep.launch_shape): 16 envs per block and two blocks
+// per SM (64 registers) where 16 working sets fit in a block's 227 KB and
+// two blocks on an SM (walker2d, hopper: a 4096-env batch is one wave of
+// 32 warps on each SM), else fewer envs per block and one block per SM
+// (walker3d 14 x 15.5 KB, humanwalker 8 x 26 KB).  The lanes take the independent items:
 // geoms in collision, the slots' compaction ranks, the contact / limit /
 // friction rows, the M_C columns of M^-1 Jc^T, the rows of A, the
 // residual rows, the output entries (every output row is stored by the
@@ -48,8 +52,7 @@
 // generated from the model's static digest (substep_model.h; one build per
 // distinct digest).
 //
-// Joint types: WELD, REVOLUTE, PRISMATIC, PLANAR (the wrapper's gate; the
-// shared dynamics stage takes all ten).  Geoms: sphere, capsule, box.  The
+// Joint types: all ten (the shared dynamics stage computes each).  Geoms: sphere, capsule, box.  The
 // per-env arithmetic lives in substep_body.h, whose dynamics stage is
 // dynamics_body.h (shared with dynamics.cu); a host compiler can build both
 // (substep_host.cpp), running each env as one lane.  Built with
@@ -60,11 +63,12 @@
 
 #include "substep_model.h"
 
-// Envs (warps) per block; __launch_bounds__ asks for two blocks per SM
-// (64 registers).  The dynamics stage runs the block's SS_WARPS envs on
-// the first lanes of warp 0, so SS_WARPS must not exceed a warp.
-#define SS_WARPS 16
-static_assert(SS_WARPS <= 32, "the dynamics stage takes one lane per env");
+// Envs (warps) per block and the blocks per SM that __launch_bounds__
+// asks for, from the generated header.  The dynamics stage runs the
+// block's SS_WARPS envs on the first lanes of warp 0, so SS_WARPS must not
+// exceed a warp.
+static_assert(SS_WARPS >= 1 && SS_WARPS <= 32,
+              "the dynamics stage takes one lane per env");
 
 // With SS_STAMPS defined (bench/kernel_stages.py), lane 0 of every warp
 // adds the clock64() cycles of each stage of substep_body.h to
@@ -87,7 +91,7 @@ __device__ unsigned long long ss_cycles[SS_NSTAGES];
 
 #include "substep_body.h"
 
-__global__ void __launch_bounds__(SS_WARPS * 32, 2)
+__global__ void __launch_bounds__(SS_WARPS * 32, SS_MIN_BLOCKS)
 substep_kernel(const float* __restrict__ q_g, const float* __restrict__ dq_g,
                const float* __restrict__ tau_g,
                const float* __restrict__ lam_g, float* __restrict__ dqp_g,
@@ -113,7 +117,8 @@ substep_kernel(const float* __restrict__ q_g, const float* __restrict__ dq_g,
 
 extern "C" int substep_dims(int* out) {
     out[0] = SS_N; out[1] = SS_M; out[2] = SS_NS; out[3] = SS_ESC;
-    return 4;
+    out[4] = SS_WARPS;
+    return 5;
 }
 
 // Dynamic shared memory of one block (SS_WARPS envs), in bytes.

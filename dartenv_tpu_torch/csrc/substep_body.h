@@ -41,6 +41,10 @@
 #define SM_FLAG (SM_SEL + SS_CAP_A)         // int: slot among the top cap
 #define SM_SLOTR (SM_FLAG + SS_NS_A)        // int: slot -> compacted row
 #define SS_SMEM (SM_SLOTR + SS_NS_A)
+// the generated header's count (engine/hopper_substep.smem_floats), from
+// which it derived SS_WARPS
+static_assert(SS_SMEM == SS_SMEM_FLOATS,
+              "substep_model.h was generated for another working-set size");
 // rows per lane of the PGS sweeps (pgs_row.h)
 #define SS_PG_R ((SS_MC_A + PG_LANES - 1) / PG_LANES)
 

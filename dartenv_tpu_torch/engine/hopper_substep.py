@@ -17,10 +17,10 @@ One substep of a batch is
 
 Scope of the fused path (as in the JAX package): world pairs of sphere /
 capsule / box against a halfspace, no self pairs, no servo rows, at least
-one constraint row.  The CUDA kernel additionally takes only WELD,
-REVOLUTE, PRISMATIC and PLANAR joints; a CUDA batch of a model with
-another joint type raises NotImplementedError (it never runs the plain
-version instead).
+one constraint row.  The CUDA kernel takes all ten joint types.  The
+escalation runs the exact tiers and, with SolverConfig.escalate_ref > 0,
+the compensated refinement tier (lcp/dantzig.refine_compensated);
+escalate_ref64 (the mixed-precision tier) is not ported and raises.
 
 `SUBSTEP_LAUNCHES` counts kernel launches; `PLAIN_CALLS` counts runs of
 the plain version (so a run can show it took none).
@@ -45,6 +45,7 @@ from dartenv_tpu_torch.engine.constraints import (
     has_servo_rows, scatter_lam,
 )
 from dartenv_tpu_torch.lcp import hopper_bpp
+from dartenv_tpu_torch.lcp.dantzig import refine_compensated
 from dartenv_tpu_torch.lcp.hybrid import (
     comp_residual, escalation_size, keep_best,
 )
@@ -53,15 +54,14 @@ from dartenv_tpu_torch.math.linalg import (
     _UNROLL_MAX, _pmm, chol, chol_solve, inv_psd,
 )
 from dartenv_tpu_torch.model.skel_model import (
-    GEOM_BOX, GEOM_CAPSULE, GEOM_SPHERE, JOINT_NAMES, PLANAR, PRISMATIC,
-    REVOLUTE, SkelModel, WELD,
+    GEOM_BOX, GEOM_CAPSULE, GEOM_SPHERE, JOINT_NAMES, SkelModel,
 )
 
 SUBSTEP_LAUNCHES = 0      # launches of the fused substep kernel
 PLAIN_CALLS = 0           # calls of substep_reference through the phase
 
 
-KERNEL_JOINTS = (WELD, REVOLUTE, PRISMATIC, PLANAR)
+KERNEL_JOINTS = tuple(sorted(JOINT_NAMES))      # all ten joint types
 _NSLOTS = {GEOM_SPHERE: 1, GEOM_CAPSULE: 2, GEOM_BOX: 4}
 
 _OUT_FIELDS = ("dq_plus", "lam_full", "res", "overflow", "con_pos",
@@ -135,7 +135,8 @@ class _SubStatic:
         tab, width = _esc_layout(self)
         defs = dict(ES_M=self.m_c, ES_N=self.n, ES_CAP=self.cap,
                     ES_NS=self.ns, ES_MFULL=self.layout.m,
-                    ES_CFM=c_float(self.cfg.cfm), ES_W=width)
+                    ES_CFM=c_float(self.cfg.cfm), ES_W=width,
+                    ES_REFC=int(self.cfg.escalate_ref))
         names = dict(b="B", lo="LO", hi="HI", mu="MU", act="ACT",
                      lam_c="LAM", sel_slots="SEL", M="M", Jc="JC")
         defs.update({f"ES_O_{names[k]}": a for k, (a, _) in tab.items()})
@@ -143,8 +144,10 @@ class _SubStatic:
 
     @property
     def escalation_dims(self):
-        """(n, m_c, m, esc width), as lcp/hopper_bpp.bpp_fused takes them."""
-        return (self.n, self.m_c, self.layout.m, _esc_layout(self)[1])
+        """(n, m_c, m, esc width, refinement passes), as
+        lcp/hopper_bpp.bpp_fused takes them."""
+        return (self.n, self.m_c, self.layout.m, _esc_layout(self)[1],
+                int(self.cfg.escalate_ref))
 
 
 def _esc_layout(st: _SubStatic):
@@ -173,6 +176,40 @@ def output_blocks(st: _SubStatic, outs) -> Dict[str, torch.Tensor]:
     blocks = {f: outs[f] for f in _OUT_FIELDS if f != "esc"}
     blocks.update(unpack_esc(st, outs["esc"]))
     return blocks
+
+
+# shared memory of one Hopper block that a kernel may opt in to, and of
+# one SM (each resident block also reserves 1 KB of it)
+SMEM_BLOCK_OPTIN = 232448
+SMEM_PER_SM = 233472
+MAX_ENVS_PER_BLOCK = 16
+
+
+def smem_floats(st: _SubStatic) -> int:
+    """Floats of kernel 1's per-env working set in shared memory: SS_SMEM
+    of csrc/substep_body.h (its layout macros), which static_asserts that
+    the two agree."""
+    n, nb, cap = st.n, st.nb, max(1, st.cap)
+    ns, mc = max(1, st.ns), max(1, st.m_c)
+    return (_esc_layout(st)[1] + 10 * n + n * n + 12 * nb + 8 * ns
+            + mc * (n + (mc | 1)) + cap)
+
+
+def launch_shape(st: _SubStatic):
+    """(envs per block, min blocks per SM) of kernel 1 for this digest:
+    the most envs (one warp each, at most MAX_ENVS_PER_BLOCK, and at most
+    32 because the dynamics stage takes one lane of warp 0 per env) whose
+    working sets fit in the shared memory a block may opt in to; two
+    blocks per SM (the 64-register launch bound) where two such blocks fit
+    on an SM, else one.  Walker2d and hopper: (16, 2)."""
+    per_env = 4 * smem_floats(st)
+    warps = min(MAX_ENVS_PER_BLOCK, 32, SMEM_BLOCK_OPTIN // per_env)
+    if warps < 1:
+        raise NotImplementedError(
+            f"kernel 1's working set of one env ({per_env} bytes) exceeds "
+            f"a block's shared memory")
+    blocks = 2 if 2 * (warps * per_env + 1024) <= SMEM_PER_SM else 1
+    return warps, blocks
 
 
 def _out_sizes(st: _SubStatic) -> Dict[str, int]:
@@ -233,9 +270,10 @@ def substep_reference(model: SkelModel, st: _SubStatic, q, dq, tau,
 def model_header(model: SkelModel, st: _SubStatic) -> str:
     """The C header that fixes csrc/substep.cu to one model: the dynamics
     stage's sizes and tables (dynamics/hopper_dynamics.dynamics_header),
-    then the substep's sizes and solver constants as macros and its
-    contact, limit and friction tables as DY_CONST arrays (__constant__
-    under nvcc, static const in the host build)."""
+    then the launch shape (`launch_shape`), the substep's sizes and solver
+    constants as macros and its contact, limit and friction tables as
+    DY_CONST arrays (__constant__ under nvcc, static const in the host
+    build)."""
     bad = unsupported_joints(model)
     if bad:
         raise NotImplementedError(
@@ -246,7 +284,9 @@ def model_header(model: SkelModel, st: _SubStatic) -> str:
     lay = st.layout
     damping, spring = h("damping"), h("spring_stiff")
     f = c_float
+    warps, blocks = launch_shape(st)
     defs = dict(
+        SS_WARPS=warps, SS_MIN_BLOCKS=blocks, SS_SMEM_FLOATS=smem_floats(st),
         SS_N=n, SS_NB=nb, SS_NG=len(st.slots), SS_NS=st.ns,
         SS_NS_A=max(1, st.ns), SS_CAP=st.cap, SS_CAP_A=max(1, st.cap),
         SS_M=lay.m, SS_MC=st.m_c, SS_MC_A=max(1, st.m_c),
@@ -313,10 +353,10 @@ class SubstepKernel:
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.substep_launch.argtypes = [vp] * 12 + [ci, vp]
             lib.substep_launch.restype = ci
-            dims = (ctypes.c_int * 4)()
+            dims = (ctypes.c_int * 5)()
             lib.substep_dims(dims)
             want = [self.st.n, self.st.layout.m, self.st.ns,
-                    self.sizes["esc"]]
+                    self.sizes["esc"], launch_shape(self.st)[0]]
             if list(dims) != want:
                 raise RuntimeError(
                     f"substep kernel built for sizes {list(dims)}, the "
@@ -431,7 +471,8 @@ def escalate_reference(st: _SubStatic, cfg, outs, dq_plus, lam_full,
     """The plain version of the escalation kernel's fused mode, as torch
     ops: top-K by residual, one gather of `esc`, operator rebuild, warm
     tier-1 (+ optional cold tier-2) exact re-solve by `exact1` / `exact2`,
-    keep-best by residual, and DELTA-form `index_add` patches of dq_plus
+    keep-best by residual, the compensated refinement tier when
+    cfg.escalate_ref > 0, and DELTA-form `index_add` patches of dq_plus
     and lam_full (envs outside the top K, and escalated envs whose
     re-solve is no better, keep their values bit for bit).  Returns new
     (dq_plus, lam_full), the top-K idx, take (K,) bool and the residual
@@ -443,6 +484,19 @@ def escalate_reference(st: _SubStatic, cfg, outs, dq_plus, lam_full,
     prob = (g["A"], g["b"], g["lo"], g["hi"], g["mu"], g["act"])
     lam_new, take, res_kept = keep_best(prob, st.findex_c, worst, lamk,
                                         cfg.escalate_tol, exact1, exact2)
+    if cfg.escalate_ref > 0:
+        # the compensated refinement tier after the exact ones, in the JAX
+        # package's order: the kept point's residual (res_cur there: its
+        # comp_residual where a tier took, else the PGS residual), the
+        # refined point's, and keep-best between them
+        lam_ref = refine_compensated(*prob[:4], st.findex_c, *prob[4:],
+                                     lam_new, passes=cfg.escalate_ref)
+        res_ref = comp_residual(*prob[:2], lam_ref, *prob[2:4],
+                                st.findex_c, *prob[4:])
+        take_r = (res_kept > cfg.escalate_tol) & (res_ref < res_kept)
+        lam_new = torch.where(take_r[:, None], lam_ref, lam_new)
+        res_kept = torch.where(take_r, res_ref, res_kept)
+        take = take | take_r
     dlam = torch.where(take[:, None], lam_new - lamk,
                        torch.zeros_like(lamk))
     dqp_delta = torch.sum(g["MinvJt"] * dlam[:, None, :], dim=-1)
@@ -476,16 +530,18 @@ def escalate_batch(st: _SubStatic, cfg, outs, dq_plus, lam_full,
                    exact1, exact2=None):
     """The hybrid exact-escalation stage over the substep's outputs.  A
     float32 CUDA batch runs `escalate_fused` with the tiers that `exact1` /
-    `exact2` carry (solvers of hopper_bpp.tier_solvers; others raise); any
-    other batch runs `escalate_reference` with `exact1` / `exact2`.  The
-    inputs are not modified.  Returns new (dq_plus, lam_full)."""
-    if cfg.escalate_ref > 0 or cfg.escalate_ref64 > 0:
+    `exact2` carry (solvers of hopper_bpp.tier_solvers; others raise) and
+    cfg.escalate_ref refinement passes; any other batch runs
+    `escalate_reference` with `exact1` / `exact2`.  The inputs are not
+    modified.  Returns new (dq_plus, lam_full)."""
+    if cfg.escalate_ref64 > 0:
         raise NotImplementedError(
-            "escalate_ref / escalate_ref64 refinement tiers are not ported "
-            "yet")
+            "the escalate_ref64 (mixed-precision) refinement tier is not "
+            "ported yet")
     if cuda_build.use_kernel(dq_plus):
         return escalate_fused(st, cfg, outs, dq_plus, lam_full,
-                              hopper_bpp.solver_budgets(exact1, exact2))[:2]
+                              hopper_bpp.solver_budgets(
+                                  exact1, exact2, cfg.escalate_ref))[:2]
     return escalate_reference(st, cfg, outs, dq_plus, lam_full, exact1,
                               exact2)[:2]
 
@@ -520,7 +576,7 @@ def make_substep_phase(model: SkelModel):
         exact1, exact2 = hopper_bpp.tier_solvers(
             st.findex_c, hopper_bpp.tier_budgets(
                 cfg.escalate_iters, cfg.escalate_refine,
-                cfg.escalate_iters2))
+                cfg.escalate_iters2, cfg.escalate_ref))
     kernel: List[Optional[SubstepKernel]] = [None]
     slot_consts = {}      # (device, dtype) -> static per-slot contact data
 

@@ -107,6 +107,11 @@ class Task:
                                                device=m.device)}
         return ()
 
+    def aux_reset(self, aux, generator=None):
+        """Task state drawn anew on reset, from `generator` (the reacher's
+        target); the default keeps `aux_init`'s."""
+        return aux
+
     def perturb_noise_sample(self, batch: int, generator=None):
         """The perturbation dice of one control step, per substep and env:
         (u (S, B) uniform in [0, 1), axis (S, B) int64 in {0, 1}, sign
@@ -233,7 +238,7 @@ def make_env_reset(task: Task):
     """Batched reset: (batch, generator=None, noise=None) ->
     (EnvState, obs)."""
     def env_reset(batch: int, generator=None, noise=None):
-        aux = task.aux_init(batch)
+        aux = task.aux_reset(task.aux_init(batch), generator)
         sim = task.reset_sim(batch, generator, noise)
         state = EnvState(
             sim=sim, aux=aux,

@@ -13,8 +13,10 @@ batch-first.
 math/linalg.solve_psd).  `make_exact_solver` is what the escalation stage
 calls: a float32 CUDA batch goes to the hand-written block-pivoting kernel
 (lcp/hopper_bpp.py), anything else to that kernel's plain version.
-The double-float and mixed-precision refinement tiers (`refine_compensated`,
-`refine_mixed`) are not ported yet.
+`refine_compensated` is the escalation's double-float refinement tier
+(the plain version of that tier in the escalation kernel's fused mode,
+csrc/escalate_body.h); the mixed-precision tier `refine_mixed` is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -134,3 +136,121 @@ def make_exact_solver(findex, iters: int = 24, polish_iters: int = 10,
                   refine_iters=refine_iters)
 
     return solve
+
+
+# ---------------------------------------------------------------------------
+# double-float (compensated f32) residual refinement
+# ---------------------------------------------------------------------------
+
+_SPLIT_F32 = 4097.0        # 2^12 + 1: Dekker split, 24-bit mantissa
+_SPLIT_F64 = 134217729.0   # 2^27 + 1: Dekker split, 53-bit mantissa
+
+
+def _two_sum(a, b):
+    """Knuth two-sum: s + e == a + b exactly (s = fl(a + b))."""
+    s = a + b
+    bb = s - a
+    e = (a - (s - bb)) + (b - bb)
+    return s, e
+
+
+def _two_prod(a, b):
+    """Dekker two-prod: p + e == a * b exactly (p = fl(a * b)), from
+    mantissa splitting; the identity needs every operation rounded on its
+    own (no fused multiply-add), which separate tensor ops are."""
+    split = _SPLIT_F64 if a.dtype == torch.float64 else _SPLIT_F32
+    p = a * b
+    ca = split * a
+    ah = ca - (ca - a)
+    al = a - ah
+    cb = split * b
+    bh = cb - (cb - b)
+    bl = b - bh
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    return p, e
+
+
+def _comp_matvec_add(A, x, b):
+    """fl2(b + A @ x) with compensated row sums: each product enters as an
+    exact (p, e) pair and the running sum carries a Neumaier correction, so
+    the result is the real-arithmetic value of the inputs rounded about
+    once.  A: (..., m, m); x, b: (..., m).  Columns in order."""
+    m = A.shape[-1]
+    s = torch.broadcast_to(b, A.shape[:-1]).to(A.dtype)
+    c = torch.zeros_like(s)
+    for j in range(m):
+        p, pe = _two_prod(A[..., :, j], x[..., j][..., None])
+        s, se = _two_sum(s, p)
+        c = c + (se + pe)
+    return s + c
+
+
+def comp_residual_ff(A, b, x, lo, hi, findex, mu, active):
+    """lcp/hybrid.comp_residual with w = A x + b from `_comp_matvec_add`:
+    the residual is a cancellation, and the plain float32 sum floors at
+    ~eps32 ||A|| ||x||, so it misjudges refined points below ~1e-6."""
+    fidx, has_f = findex_tensors(findex, x.device)
+    has_f = has_f.to(x.dtype)
+    bd = mu * torch.abs(x[..., fidx]) * has_f + 1e20 * (1 - has_f)
+    lo_e = torch.maximum(lo, -bd)
+    hi_e = torch.minimum(hi, bd)
+    w = _comp_matvec_add(A, x, b)
+    scale = torch.clamp(torch.amax(torch.abs(x), dim=-1, keepdim=True),
+                        min=1.0)
+    eps = 1e-6 * scale + 1e-9
+    at_lo = x <= lo_e + eps
+    at_hi = x >= hi_e - eps
+    zero = torch.zeros_like(w)
+    res = torch.where(at_lo & at_hi, zero,
+                      torch.where(at_lo, -w,
+                                  torch.where(at_hi, w, torch.abs(w))))
+    res = torch.maximum(res, torch.maximum(lo_e - x, x - hi_e))
+    res = torch.where(active > 0.5, res, zero)
+    return torch.amax(res / scale, dim=-1)
+
+
+def refine_compensated(A, b, lo, hi, findex, mu, active, x,
+                       passes: int = 2):
+    """Refinement of a boxed-LCP point at its own friction-bound fixed
+    sets with a double-float residual, in the working precision: per pass,
+    the free set of x, the compensated residual of the free-set system, a
+    correction solve on the masked operator (math/linalg.solve_psd), a
+    clip to the bounds; a pass's point is kept only where its compensated
+    residual (`comp_residual_ff`) is lower than the best so far (a wrong
+    partition diverges; it never worsens the point).  A: (K, m, m),
+    vectors (K, m).  Returns the best point (K, m)."""
+    fidx, has_f = findex_tensors(findex, x.device)
+    dtype = A.dtype
+    has_f = has_f.to(dtype)
+    eye = torch.eye(A.shape[-1], dtype=dtype, device=A.device)
+    actb = active > 0.5
+    zero = torch.zeros_like(x)
+
+    def resid(xx):
+        return comp_residual_ff(A, b, xx, lo, hi, findex, mu, active)
+
+    best_x = x
+    best_r = resid(x)
+    for _ in range(passes):
+        bd = mu * torch.abs(x[..., fidx]) * has_f + 1e20 * (1.0 - has_f)
+        lo_e = torch.maximum(lo, -bd) * active
+        hi_e = torch.minimum(hi, bd) * active
+        scale = torch.clamp(torch.amax(torch.abs(x), dim=-1, keepdim=True),
+                            min=1.0)
+        eps = 1e-6 * scale
+        at_lo = x <= lo_e + eps
+        at_hi = x >= hi_e - eps
+        fm = (actb & ~at_lo & ~at_hi).to(dtype)
+        x_fix = torch.where(at_hi, hi_e, torch.where(at_lo, lo_e, zero)) \
+            * active * (1 - fm)
+        xa = x * fm + x_fix
+        r = -_comp_matvec_add(A, xa, b) * fm
+        Am = (A * fm[..., :, None] * fm[..., None, :]
+              + eye * (1.0 - fm)[..., None, :])
+        d = solve_psd(Am, r, eps=1e-12) * fm
+        x = torch.minimum(torch.maximum(xa + d, lo_e), hi_e)
+        r_new = resid(x)
+        better = r_new < best_r
+        best_x = torch.where(better[..., None], x, best_x)
+        best_r = torch.minimum(r_new, best_r)
+    return best_x

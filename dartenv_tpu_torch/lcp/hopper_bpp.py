@@ -2,10 +2,11 @@
 escalation stage around it: the CUDA kernel's wrappers and the solve's
 plain PyTorch version.
 
-csrc/bpp.cu runs one warp per env with row i of the problem in lane i, so
-it is built once per row count m <= 32 (a generated header, `header`); a
-CUDA batch with m > 32 raises NotImplementedError naming m.  Its three
-modes, each a wrapper here:
+csrc/bpp.cu runs one warp per env and is built once per row count m <= 64
+(a generated header, `header`): up to 32 rows with row i of the problem in
+lane i, above that with the lanes over the rows of a working matrix in
+shared memory (csrc/bpp_body.h); a CUDA batch with m > 64 raises
+NotImplementedError naming m.  Its three modes, each a wrapper here:
 
   * `bpp_solve` (core mode): (B, m, m) A and the vectors -> lam.  On a CPU
     tensor it runs `bpp_solve_reference`, the same algorithm as plain
@@ -13,7 +14,8 @@ modes, each a wrapper here:
   * `bpp_fused`: the substep path's escalation stage
     (engine/hopper_substep.escalate_batch) in one launch: it reads its
     envs' rows of the substep kernel's packed `esc`, rebuilds the
-    operator, solves warm (and cold), keeps the best by residual and
+    operator, solves warm (and cold), runs the compensated refinement
+    tier when the digest asks for it, keeps the best by residual and
     patches copies of dq_plus and lam_full.  Its build carries the substep
     digest (engine/hopper_substep.escalation_header).
   * `bpp_hybrid`: the phase-wise hybrid solver's escalation
@@ -28,8 +30,10 @@ launches the kernel or raises — none falls back.  `CORE_LAUNCHES`,
 nothing else.
 
 The escalation's tier policy has one source, `tier_budgets`: the fused and
-hybrid modes take its tuple as their launch arguments, and `tier_solvers`
-builds the plain compositions' exact solvers from the same tuple.
+hybrid modes take its tuple as their launch arguments (its last entry, the
+compensated refinement passes, is also in the fused build's header and
+must agree with it), and `tier_solvers` builds the plain compositions'
+exact solvers from the same tuple.
 
 Iteration structure (shared with lcp/dantzig.dantzig_solve): warm
 partition from lam0, `iters` damped pivots, `refine_iters` undamped pivots
@@ -54,18 +58,20 @@ CORE_LAUNCHES = 0     # launches of the core mode (bpp_solve)
 FUSED_LAUNCHES = 0    # launches of the fused mode (bpp_fused)
 HYBRID_LAUNCHES = 0   # launches of the hybrid mode (bpp_hybrid)
 PLAIN_CALLS = 0       # plain-version runs through lcp/dantzig.make_exact_solver
-MAX_ROWS = 32         # one row per lane of a warp
+MAX_ROWS = 64         # one warp per env: one or two rows per lane
 TIER_POLISH = (3, 6)  # PGS polish sweeps after tier 1 (warm), tier 2 (cold)
+_DEPS = ("bpp_body.h", "escalate_body.h", "linalg_body.h", "pgs_row.h")
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_FUSED_DIMS: Dict[str, tuple] = {}    # fused header -> (n, m_c, m, width)
+# fused header -> (n, m_c, m, width, refinement passes)
+_FUSED_DIMS: Dict[str, tuple] = {}
 
 
 def check_rows(m: int):
     """Refuse a problem the kernel cannot hold (before any CUDA call)."""
     if m > MAX_ROWS:
         raise NotImplementedError(
-            f"the BPP kernel holds one LCP row per lane of a warp and takes "
-            f"m <= {MAX_ROWS} rows; this problem has m = {m}")
+            f"the BPP kernel holds at most two LCP rows per lane of a warp "
+            f"and takes m <= {MAX_ROWS} rows; this problem has m = {m}")
 
 
 def header(m: int) -> str:
@@ -79,7 +85,7 @@ def start_build(m: int = 24, header_text=None):
     check_rows(m)
     return cuda_build.start_build(
         "dartenv_bpp", "bpp.cu", header_text=header_text or header(m),
-        header_name="bpp_model.h", deps=("escalate_body.h", "pgs_row.h"))
+        header_name="bpp_model.h", deps=_DEPS)
 
 
 def load(m: int = 24, build=None, header_text=None):
@@ -96,6 +102,7 @@ def load(m: int = 24, build=None, header_text=None):
         if "ES_N" in text:
             lib.bpp_fused_launch.argtypes = ([vp] * 10 + [ci, cf] + [ci] * 6
                                              + [vp])
+            lib.bpp_fused_smem_bytes.restype = ci
             fns.append(lib.bpp_fused_launch)
         for fn in fns:
             fn.restype = ci
@@ -104,28 +111,30 @@ def load(m: int = 24, build=None, header_text=None):
                                f"rows, asked for {m}")
         if "ES_N" in text:
             lib.bpp_fused_dims.argtypes = [vp]
-            dims = (ctypes.c_int * 4)()
+            dims = (ctypes.c_int * 5)()
             lib.bpp_fused_dims(dims)
             _FUSED_DIMS[text] = tuple(dims)
         _LIBS[text] = lib
     return _LIBS[text]
 
 
-def tier_budgets(iters: int, refine: int, iters2: int):
-    """(iters1, refine1, polish1, iters2, refine2, polish2) of the
-    escalation's two tiers (refine < 0: the default count; iters2 = 0: no
-    tier 2, and its refine and polish are 0)."""
+def tier_budgets(iters: int, refine: int, iters2: int, ref_passes: int = 0):
+    """(iters1, refine1, polish1, iters2, refine2, polish2, ref_passes) of
+    the escalation's tiers (refine < 0: the default count; iters2 = 0: no
+    tier 2, and its refine and polish are 0; ref_passes: passes of the
+    compensated refinement tier after them, SolverConfig.escalate_ref)."""
     tier2 = ((int(iters2), _refine_count(iters2, None), TIER_POLISH[1])
              if iters2 > 0 else (0, 0, 0))
     return (int(iters), _refine_count(iters, None if refine < 0 else refine),
-            TIER_POLISH[0]) + tier2
+            TIER_POLISH[0]) + tier2 + (int(ref_passes),)
 
 
 def tier_solvers(findex, budgets):
     """(exact1, exact2) of `budgets` (exact2 None without tier 2): the
     exact solvers of the plain compositions, lcp/dantzig.make_exact_solver.
     Each carries its (iters, refine, polish) as `.budget`, from which
-    `solver_budgets` reads the tuple back."""
+    `solver_budgets` reads the tuple back (the refinement passes are the
+    caller's: SolverConfig.escalate_ref)."""
     from dartenv_tpu_torch.lcp.dantzig import make_exact_solver
 
     def make(iters, refine, polish):
@@ -134,20 +143,22 @@ def tier_solvers(findex, budgets):
         solve.budget = (iters, refine, polish)
         return solve
 
-    exact2 = make(*budgets[3:]) if budgets[3] > 0 else None
+    exact2 = make(*budgets[3:6]) if budgets[3] > 0 else None
     return make(*budgets[:3]), exact2
 
 
-def solver_budgets(exact1, exact2=None):
-    """The `tier_budgets` tuple of solvers made by `tier_solvers`; a solver
-    made otherwise has no budget the kernel could run and is refused."""
+def solver_budgets(exact1, exact2=None, ref_passes: int = 0):
+    """The `tier_budgets` tuple of solvers made by `tier_solvers` and
+    `ref_passes` refinement passes; a solver made otherwise has no budget
+    the kernel could run and is refused."""
     for s in (exact1, exact2):
         if s is not None and not hasattr(s, "budget"):
             raise TypeError(
                 "the escalation kernel runs the tiers of solvers made by "
                 f"hopper_bpp.tier_solvers; {s!r} carries no budget")
     return tuple(exact1.budget) + (
-        (0, 0, 0) if exact2 is None else tuple(exact2.budget))
+        (0, 0, 0) if exact2 is None else tuple(exact2.budget)) + (
+        int(ref_passes),)
 
 
 def _refine_count(iters, refine_iters):
@@ -325,9 +336,11 @@ def bpp_hybrid(A, b, lo, hi, mu, active, lam, idx, worst, findex,
 
     A: (B, m, m); b, lo, hi, mu, active, lam (the PGS impulses): (B, m);
     idx (K,) int64 and worst (K,): the top K of the PGS residuals;
-    budgets: `tier_budgets(...)`.  Tier 1 re-solves rows idx warm from
-    lam[idx], tier 2 cold, keep-best against worst and tol.  Returns (lam with rows idx patched, a copy; take (K,) bool;
-    residual of the kept point (K,))."""
+    budgets: `tier_budgets(...)` without refinement passes (the hybrid
+    mode has no refinement tier).  Tier 1 re-solves rows idx warm from
+    lam[idx], tier 2 cold, keep-best against worst and tol.  Returns (lam
+    with rows idx patched, a copy; take (K,) bool; residual of the kept
+    point (K,))."""
     global HYBRID_LAUNCHES
     B, m = b.shape
     K = idx.shape[0]
@@ -337,6 +350,10 @@ def bpp_hybrid(A, b, lo, hi, mu, active, lam, idx, worst, findex,
                  ("active", active), ("lam", lam), ("worst", worst)],
                 [(B, m, m)] + [(B, m)] * 6 + [(K,)])
     _check_cuda("bpp_hybrid", [("idx", idx)], [(K,)], dtype=torch.int64)
+    if budgets[6] > 0:
+        raise NotImplementedError(
+            "the BPP kernel's hybrid mode has no compensated refinement "
+            "tier (escalate_ref)")
     out = lam.clone()
     take = torch.zeros((K,), dtype=torch.int32, device=lam.device)
     res = torch.empty((K,), dtype=lam.dtype, device=lam.device)
@@ -349,7 +366,7 @@ def bpp_hybrid(A, b, lo, hi, mu, active, lam, idx, worst, findex,
     with torch.cuda.device(A.device):
         code = lib.bpp_hybrid_launch(
             *[x.data_ptr() for x in ins], fidx.data_ptr(), out.data_ptr(),
-            take.data_ptr(), res.data_ptr(), K, float(tol), *budgets,
+            take.data_ptr(), res.data_ptr(), K, float(tol), *budgets[:6],
             _stream())
     cuda_build.check_launch(code, "bpp_hybrid")
     HYBRID_LAUNCHES += 1
@@ -362,14 +379,18 @@ def bpp_fused(header_text: str, dims, esc, dq_plus, lam_full, idx, worst,
     only).
 
     header_text: engine/hopper_substep.escalation_header of the digest;
-    dims: (n, m_c, m, esc width); esc (B, width), dq_plus (B, n), lam_full
+    dims: (n, m_c, m, esc width, refinement passes); esc (B, width),
+    dq_plus (B, n), lam_full
     (B, m): the substep's outputs; idx (K,) int64 and worst (K,): the top K
     of its residuals.  Returns (dq_plus and lam_full with the taken rows
     patched, copies; take (K,) bool; residual of the kept point (K,))."""
     global FUSED_LAUNCHES
-    n, m_c, m, width = dims
+    n, m_c, m, width, passes = dims
     B, K = esc.shape[0], idx.shape[0]
     check_rows(m_c)
+    if budgets[6] != passes:
+        raise ValueError(f"bpp_fused: {budgets[6]} refinement passes asked, "
+                         f"the digest's build runs {passes}")
     _check_cuda("bpp_fused",
                 [("esc", esc), ("dq_plus", dq_plus), ("lam_full", lam_full),
                  ("worst", worst)],
@@ -390,7 +411,7 @@ def bpp_fused(header_text: str, dims, esc, dq_plus, lam_full, idx, worst,
         code = lib.bpp_fused_launch(
             *[x.data_ptr() for x in ins], fidx.data_ptr(), dqp.data_ptr(),
             lamf.data_ptr(), take.data_ptr(), res.data_ptr(), K, float(tol),
-            *budgets, _stream())
+            *budgets[:6], _stream())
     cuda_build.check_launch(code, "bpp_fused")
     FUSED_LAUNCHES += 1
     return dqp, lamf, take.bool(), res
@@ -398,18 +419,19 @@ def bpp_fused(header_text: str, dims, esc, dq_plus, lam_full, idx, worst,
 
 def fused_host(header_text: str, dims, findex, esc_rows, dq_rows, lamf_rows,
                worst, lam1, lam2, tol: float):
-    """The fused mode's per-env arithmetic outside the warp collectives
-    (csrc/escalate_body.h: operator rebuild, residuals, keep-best, delta
+    """The fused mode's per-env arithmetic outside the solves
+    (csrc/escalate_body.h: operator rebuild, residuals, keep-best, the
+    compensated refinement tier when the digest asks for it, delta
     patches) built with the host C++ compiler and run on float32 CPU rows
     of the K escalated envs, with the tiers' impulses lam1, lam2 (None: no
     tier 2) handed in.  For tests on machines without a GPU.  Returns a
-    dict: A (K, m_c, m_c), MinvJt (K, n, m_c), res (K, 2), take (K,) bool,
-    dq_plus, lam_full (the rows, patched)."""
-    n, m_c, m, _ = dims
+    dict: A (K, m_c, m_c), MinvJt (K, n, m_c), res (K, 3: tier 1, tier 2,
+    the kept point), take (K,) bool, dq_plus, lam_full (the rows,
+    patched)."""
+    n, m_c, m = dims[:3]
     lib = cuda_build.build_host(
         "dartenv_escalate_host", "escalate_host.cpp",
-        header_text=header_text, header_name="bpp_model.h",
-        deps=("escalate_body.h", "pgs_row.h"))
+        header_text=header_text, header_name="bpp_model.h", deps=_DEPS)
     vp = ctypes.c_void_p
     lib.escalate_host.argtypes = [vp] * 7 + [ctypes.c_float] + [vp] * 6 + [
         ctypes.c_int]
@@ -419,7 +441,7 @@ def fused_host(header_text: str, dims, findex, esc_rows, dq_rows, lamf_rows,
     K = ins[0].shape[0]
     fidx = torch.as_tensor(np.asarray(findex, dtype=np.int32))
     out = dict(A=torch.zeros((K, m_c, m_c)), MiJ=torch.zeros((K, m_c, n)),
-               res=torch.zeros((K, 2)),
+               res=torch.zeros((K, 3)),
                take=torch.zeros((K,), dtype=torch.int32),
                dq_plus=torch.zeros((K, n)), lam_full=torch.zeros((K, m)))
     lib.escalate_host(*[x.data_ptr() for x in ins],
@@ -431,3 +453,49 @@ def fused_host(header_text: str, dims, findex, esc_rows, dq_rows, lamf_rows,
     out["MinvJt"] = out.pop("MiJ").transpose(1, 2)
     out["take"] = out["take"].bool()
     return out
+
+
+def core_host(A, b, lo, hi, findex, mu, active, iters: int = 24,
+              polish_iters: int = 10, lam0=None, refine_iters=None):
+    """The core mode's solve above 32 rows (csrc/bpp_body.h, the lanes over
+    rows) built with the host C++ compiler and run as one lane on float32
+    CPU tensors; same contract as bpp_solve_reference.  For tests on
+    machines without a GPU."""
+    B, m = b.shape
+    lib = cuda_build.build_host(
+        "dartenv_bpp_host", "bpp_host.cpp", header_text=header(m),
+        header_name="bpp_model.h", deps=_DEPS)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.bpp_core_host.argtypes = [vp] * 9 + [ci] * 4
+    f32 = lambda x: x.to(torch.float32).contiguous()
+    if lam0 is None:
+        lam0 = torch.zeros_like(b)
+    ins = [f32(x) for x in (A, b, lo, hi, mu, active, lam0)]
+    fidx = torch.as_tensor(np.asarray(findex, dtype=np.int32))
+    lam = torch.zeros((B, m), dtype=torch.float32)
+    lib.bpp_core_host(*[x.data_ptr() for x in ins], fidx.data_ptr(),
+                      lam.data_ptr(), B, int(iters),
+                      _refine_count(iters, refine_iters), int(polish_iters))
+    return lam
+
+
+def refine_host(A, b, lo, hi, findex, mu, active, x, passes: int):
+    """The compensated refinement tier's arithmetic (csrc/escalate_body.h
+    es_refine, es_residual_ff) built with the host C++ compiler and run as
+    one lane on float32 CPU tensors: (the refined points (K, m), the
+    compensated residual of the input points (K,), of the refined ones
+    (K,)).  For tests on machines without a GPU."""
+    B, m = b.shape
+    lib = cuda_build.build_host(
+        "dartenv_bpp_host", "bpp_host.cpp", header_text=header(m),
+        header_name="bpp_model.h", deps=_DEPS)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.refine_host.argtypes = [vp] * 8 + [ci] + [vp] * 2 + [ci]
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    ins = [f32(t) for t in (A, b, lo, hi, mu, active, x)]
+    fidx = torch.as_tensor(np.asarray(findex, dtype=np.int32))
+    out = torch.zeros((B, m), dtype=torch.float32)
+    res = torch.zeros((B, 2), dtype=torch.float32)
+    lib.refine_host(*[t.data_ptr() for t in ins], fidx.data_ptr(),
+                    int(passes), out.data_ptr(), res.data_ptr(), B)
+    return out, res[:, 0], res[:, 1]

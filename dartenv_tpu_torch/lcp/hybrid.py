@@ -126,8 +126,9 @@ def make_hybrid_solver(findex, iters: int, omega: float = 1.0,
 
     if escalate_ref64 > 0 or escalate_ref > 0:
         raise NotImplementedError(
-            "escalate_ref / escalate_ref64 refinement tiers are not ported "
-            "yet")
+            "the phase-wise hybrid solver has no escalate_ref / "
+            "escalate_ref64 refinement tier yet (the fused substep path's "
+            "escalation runs escalate_ref)")
     findex = np.asarray(findex)
     budgets = hopper_bpp.tier_budgets(escalate_iters, escalate_refine,
                                       escalate_iters2)

@@ -72,7 +72,8 @@ class SolverConfig:
     escalate_refine: int = -1      # -1 = max(iters // 3, 6)
     escalate_iters2: int = 0       # > 0: cold tier-2 re-solve budget
     escalate_ref64: int = 0        # mixed-precision refinement (not ported)
-    escalate_ref: int = 0          # compensated refinement (not ported)
+    escalate_ref: int = 0          # > 0: passes of the compensated
+                                   # (double-float) refinement tier
 
 
 # numeric leaves (float tensors) in declaration order

@@ -6,7 +6,7 @@
       and hopper at K = 8, float32, the plain BPP's impulses handed in,
       within 1e-5 of max(1, |ref|);
   (b) the dispatch rule: a CPU batch runs the plain composition;
-  (c) the refusal of m > 32 rows, before any CUDA call;
+  (c) the refusal of m > 64 rows, before any CUDA call;
   (d) the tier policy's one source: the solvers of the plain composition
       carry the tuple the kernel is launched with."""
 import shutil
@@ -135,18 +135,18 @@ def test_cpu_batch_runs_the_plain_composition():
 
 
 def test_more_than_32_rows_are_refused_before_any_cuda_call():
-    K, m = 4, 33
+    K, m = 4, 65
     z = torch.zeros((K, m))
     idx = torch.zeros((K,), dtype=torch.int64)
     findex = -np.ones(m, dtype=np.int64)
     budgets = hopper_bpp.tier_budgets(4, 2, 0)
-    with pytest.raises(NotImplementedError, match="m = 33"):
+    with pytest.raises(NotImplementedError, match="m = 65"):
         hopper_bpp.bpp_hybrid(torch.zeros((K, m, m)), z, z, z, z, z, z, idx,
                               z[:, 0], findex, 1e-5, budgets)
-    with pytest.raises(NotImplementedError, match="m = 33"):
-        hopper_bpp.bpp_fused("", (9, m, 66, 500), z, z, z, idx, z[:, 0],
+    with pytest.raises(NotImplementedError, match="m = 65"):
+        hopper_bpp.bpp_fused("", (9, m, 66, 500, 0), z, z, z, idx, z[:, 0],
                              findex, 1e-5, budgets)
-    with pytest.raises(NotImplementedError, match="m = 33"):
+    with pytest.raises(NotImplementedError, match="m = 65"):
         hopper_bpp.start_build(m)
     # within the limit, a CPU tensor is refused by the CUDA-only modes
     with pytest.raises(ValueError, match="CUDA"):
@@ -160,14 +160,16 @@ def test_tier_solvers_carry_the_kernels_budgets():
     hybrid modes are launched with), and a solver built otherwise is
     refused rather than ignored."""
     for iters2 in (0, 4):
-        budgets = hopper_bpp.tier_budgets(4, 2, iters2)
+        budgets = hopper_bpp.tier_budgets(4, 2, iters2, iters2 // 2)
         assert budgets[:3] == (4, 2, hopper_bpp.TIER_POLISH[0])
-        assert budgets[3:] == ((iters2, 6, hopper_bpp.TIER_POLISH[1])
-                               if iters2 else (0, 0, 0))
+        assert budgets[3:6] == ((iters2, 6, hopper_bpp.TIER_POLISH[1])
+                                if iters2 else (0, 0, 0))
+        assert budgets[6] == iters2 // 2        # refinement passes
         exact1, exact2 = hopper_bpp.tier_solvers(np.array([-1, 0, 0]),
                                                  budgets)
         assert (exact2 is None) == (iters2 == 0)
-        assert hopper_bpp.solver_budgets(exact1, exact2) == budgets
+        assert hopper_bpp.solver_budgets(exact1, exact2,
+                                         iters2 // 2) == budgets
     assert hopper_bpp.tier_budgets(6, -1, 0)[1] == 6     # default refine
     with pytest.raises(TypeError, match="tier_solvers"):
         hopper_bpp.solver_budgets(lambda *a: None)

@@ -79,6 +79,8 @@ def test_escalate_batch_refuses_unported_tiers():
 
     jm = jax_make_task("hopper", dtype=jnp.float64).model
     tm = port_model(jm)
-    cfg = dataclasses.replace(tm.solver, escalate_ref=2)
-    with pytest.raises(NotImplementedError, match="escalate_ref"):
+    # the compensated tier (escalate_ref) is ported; the mixed-precision
+    # one still raises, before it touches any input
+    cfg = dataclasses.replace(tm.solver, escalate_ref64=2)
+    with pytest.raises(NotImplementedError, match="escalate_ref64"):
         ths.escalate_batch(ths._SubStatic(tm), cfg, {}, None, None, None)

@@ -3,6 +3,8 @@
 per-env scalar trace (_trace_substep, float64, every output field
 including the packed `esc`) and against the Pallas kernel in interpret
 mode (float32, tiny model)."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,20 +107,25 @@ def test_reference_matches_pallas_interpret_f32():
 
 
 def test_kernel_scope_and_cuda_only_paths():
-    """Joint types outside the kernel's four are refused for the CUDA
-    kernel by name, and nothing here launches on a CPU tensor."""
+    """The CUDA kernel takes every joint type (a BALL root with a ground
+    contact gets a header), a model outside the fused scope gets no
+    substep phase, and nothing here launches on a CPU tensor."""
     from dartenv_tpu_torch.model import skel_model as sm
     from dartenv_tpu_torch.model.builder import ModelBuilder
 
+    tm = port_model(_tiny_model(), dtype=torch.float32)
+    for jt in sm.JOINT_NAMES:
+        one = dataclasses.replace(tm, joint_type=(jt,) * tm.nb)
+        assert ths.unsupported_joints(one) == [], sm.JOINT_NAMES[jt]
     b = ModelBuilder(dt=0.002)
     b.add_body("ball", None, sm.BALL, mass=1.0, q_lower=-1.0, q_upper=1.0)
     b.add_geom("ball", sm.GEOM_SPHERE, (0.1,))
     b.add_ground()
     model = b.finalize(dtype=torch.float32, device="cpu")
-    assert ths.in_fused_scope(model) and not ths.substep_supported(model)
-    assert ths.unsupported_joints(model) == ["BALL"]
-    with pytest.raises(NotImplementedError, match="BALL"):
-        ths.model_header(model, ths._SubStatic(model))
+    assert ths.in_fused_scope(model) and ths.substep_supported(model)
+    assert ths.unsupported_joints(model) == []
+    assert "#define SS_N 3\n" in ths.model_header(model,
+                                                  ths._SubStatic(model))
     # a model without constraint rows is outside the fused path
     b2 = ModelBuilder(dt=0.002)
     b2.add_body("b", None, sm.REVOLUTE, mass=1.0)
