@@ -26,7 +26,8 @@ nvcc processes started together) and then, in float32:
     walker2d's phase-wise step and on random LCPs of 40 rows at B = 4096;
     the BPP kernel's core mode on the hybrid's top K and its hybrid mode
     (the whole escalation, one launch) against their plain versions on
-    the first;
+    the first, and the hybrid mode above 32 rows on walker3d's escalated
+    LCPs;
   * lockstep control steps of cartpole and of perturbed walker2d at
     B = 1024 beside plain paths composed here;
   * each path (bench_env: batched rollout under a random policy) with
@@ -457,6 +458,40 @@ def check_escalate(name, st, cfg, outs, tier2=False):
                       f"refine_passes={budgets[6]}")
 
 
+def check_hybrid_rows(name, cfg, findex, g, K=16):
+    """Phase hybrid above 32 rows: the BPP kernel's hybrid mode on a batch
+    of the K worst of the escalated LCPs of a model with more than 32 rows
+    (no path runs this mode there yet) against its plain version
+    (lcp/hybrid.escalate_rows), as check_pgs holds it at 24 rows."""
+    import torch
+
+    from dartenv_tpu_torch.lcp import hopper_bpp as hb
+    from dartenv_tpu_torch.lcp.hybrid import comp_residual, escalate_rows
+
+    A, b, lo, hi, mu, act, lam = (g[k] for k in ("A", "b", "lo", "hi", "mu",
+                                                  "act", "lam_c"))
+    B, m = b.shape
+    budgets = cfg_budgets(cfg)
+    assert m > 32 and budgets[6] == 0
+    res = comp_residual(A, b, lam, lo, hi, findex, mu, act)
+    worst, idx = torch.topk(res, K)
+    out_k, take_k, kept_k = hb.bpp_hybrid(A, b, lo, hi, mu, act, lam, idx,
+                                          worst, findex, cfg.escalate_tol,
+                                          budgets)
+    torch.cuda.synchronize()
+    out_r, take_r, kept_r = escalate_rows(A, b, lo, hi, mu, act, lam, idx,
+                                          worst, findex, cfg.escalate_tol,
+                                          *plain_tiers(findex, budgets))
+    rest = torch.ones(B, dtype=torch.bool, device=A.device)
+    rest[idx] = False
+    others = (torch.equal(out_k[rest], out_r[rest])
+              and torch.equal(out_k[rest], lam[rest]))
+    line, _ = compare_escalation(
+        "hybrid", name, K, (out_k[idx], take_k, kept_k),
+        (out_r[idx], take_r, kept_r), others, m_rows=m)
+    emit("hybrid", **line, m=m)
+
+
 def check_env(name, B, dev):
     """Phases substep, bpp and lockstep for one env at batch B (bpp and
     escalate only for a model that escalates).  Returns what the kernels
@@ -585,6 +620,8 @@ def check_env(name, B, dev):
         out["escalate"] = check_escalate(name, st, cfg, outs)
         if name == "walker2d":
             check_escalate(name, st, cfg, outs, tier2=True)
+        if st.m_c > 32 and cfg.escalate_ref == 0:
+            check_hybrid_rows(name, cfg, st.findex_c, g)
 
     # ---- 5. lockstep: kernel path vs plain path, same start, same actions
     # One control step, substep by substep: the port's own substep (the
