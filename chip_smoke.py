@@ -157,11 +157,11 @@ def may_diverge(m, K):
     kernel's matvecs sum in column order and the plain version's
     torch.sum on the card in another (on random rows of 41 it equals a
     column-order sum on 1112 of 5248 entries, of 24 on 808 of 3072:
-    scripts/torch_sum_order.py), and
-    the 3D models' escalated LCPs part on it: 87 of 128 walker3d envs (8 +
-    2 pivots) and 111-115 of 128 humanwalker envs stayed the same, the
-    kernel solving 41 against 40 and 109 against 109 below 1e-4 (H100
-    runs, PR 5).  There half may part, and the kernel must solve about as
+    scripts/torch_sum_order.py), and the 3D models' escalated LCPs part
+    on it: 87 of 128 walker3d envs (8 + 2 pivots) and 111-115 of 128
+    humanwalker envs stayed the same, the kernel solving 41 against 40
+    and 109 against 109 below 1e-4 (NVIDIA H100 80GB HBM3 at 700 W,
+    PERF.md).  There half may part, and the kernel must solve about as
     many envs as its plain version (solved_as_plain)."""
     return BPP_MAY_DIVERGE if m <= 32 else K // 2
 
@@ -169,7 +169,7 @@ def may_diverge(m, K):
 def solved_as_plain(m, K, solved_k, solved_p, n_same):
     """The kernel solves (< 1e-4) as many envs as its plain version, less
     the ones that parted (up to 32 rows) or less one in 16 (above: the
-    humanwalker escalation solved 105 against 109, H100 run, PR 5)."""
+    humanwalker escalation solved 105 against 109, PERF.md)."""
     slack = K - n_same if m <= 32 else K // 16
     return solved_k >= solved_p - slack
 LOCK_MAY_DIVERGE = 2           # envs of 1024 beyond 1e-3 after one step
@@ -261,11 +261,10 @@ def plain_substep(model, st, tiers, q, dq, lam, tau, m64=None):
 # bound of 2e-2 for those after them (AFTER_SWEEPS): on these operators
 # the 20 sweeps amplify the float32 rounding of A and b, and at walker3d
 # B = 4096 the kernel's impulses are 5.8e-4, dq_plus 1.5e-3 and the
-# residual 2.5e-3 from the float64 plain version (H100 run, PR 5).  The
-# escalation
-# kernel's operator rebuild follows its float32 plain version (the jitter
-# included), so the lockstep's plain path runs the substep's plain
-# version in float64 and the escalation's in float32.
+# residual 2.5e-3 from the float64 plain version (PERF.md).  The
+# escalation kernel's operator rebuild follows its float32 plain version
+# (the jitter included), so the lockstep's plain path runs the substep's
+# plain version in float64 and the escalation's in float32.
 AFTER_SWEEPS = ("dq_plus", "lam_full", "lam_c", "res")
 
 
@@ -344,7 +343,7 @@ def check_bpp(name, cfg, findex, A, b, lo, hi, mu, act, lam_c,
     assert n_same >= K - may_diverge(m_c, K), (n_same, K)
     # (above 32 rows the 3D models' operators are large enough that
     # impulses within 1e-5 move the normalized residual by more: 1.03e-5
-    # at walker3d, H100 run, PR 5)
+    # at walker3d, PERF.md)
     assert bpp_err <= 1e-5 and res_diff_same <= (1e-5 if m_c <= 32
                                                  else 1e-4)
     assert solved_as_plain(m_c, K, solved(r_k), solved(r_r), n_same)
