@@ -39,6 +39,21 @@ nvcc processes started together) and then, in float32:
   * per contact model, the residual envelope after the escalation (median,
     p95, max over the substeps of a kernel-path rollout) beside the JAX
     harness's bounds (a finding; it does not gate);
+  * domain randomization (phase dr): the substep kernel built with per-env
+    DR leaves (walker2d with the throughput bench's spec and with all
+    twelve leaves, walker3d and humanwalker with the spec) and the
+    dynamics kernel built with them (cartpole with all seven dynamics
+    leaves and with the spec's, walker2d states with mass and damping),
+    each against its plain version on the model with the per-env leaves,
+    at the bounds of phases substep and dynamics; env identity under a
+    permutation of the envs (to the bit) and the base model's values
+    against the build without DR inputs; a partly filled last block
+    (walker2d B = 4095, cartpole B = 8191); the escalation kernel's fused
+    mode on the walker2d DR substep's outputs; one walker2d DR control
+    step in lockstep with a plain path; then bench_dr for walker2d
+    (B = 4096, the DR substep kernel and the fused escalation on every
+    substep) and cartpole (B = 8192, the DR dynamics kernel), counters
+    zeroed just before each (phase dr_path);
   * the device launches of one eager walker2d control step at B = 4096,
     counted by torch.profiler as dartenv_tpu_torch/bench/profile_step.py
     counts them (line `launches`).
@@ -82,14 +97,15 @@ def time_ms(fn, runs=20, warmup=3):
     return statistics.median(out)
 
 
-def substep_work(st, B):
+def substep_work(st, B, dr_width=0):
     """(bytes, flops) one fused-substep launch must move / do for B envs:
-    each input read once, each output written once; flops from the
-    digest's sizes (dense counts of the stages that dominate)."""
+    each input read once (dr_width: the floats of an env's DR leaves),
+    each output written once; flops from the digest's sizes (dense counts
+    of the stages that dominate)."""
     from dartenv_tpu_torch.engine.hopper_substep import _out_sizes
 
     n, nb, m, m_c = st.n, st.nb, st.layout.m, st.m_c
-    words = 3 * n + m + sum(_out_sizes(st).values())
+    words = 3 * n + m + dr_width + sum(_out_sizes(st).values())
     flops = (
         2 * (st.cfg.pgs_iters + 1) * m_c * m_c      # PGS sweeps + residual
         + n * m_c * (m_c + 1)                       # A = Jc (M^-1 Jc^T), half
@@ -147,31 +163,27 @@ def bound(bytes_, flops):
 EXACT_BLOCKS = ("con_active", "overflow", "act", "sel_slots", "lo", "hi",
                 "mu")
 DISCRETE = ("con_active", "act", "sel_slots")
-BPP_MAY_DIVERGE = 4            # envs of K = 128 that may take another branch
+# Envs of an escalation batch (K = 128, or 16 for the hybrid mode above
+# 32 rows) whose exact re-solve may take another branch than the plain
+# version's, at every row count.  The plain versions sum in the kernel's
+# order (every matvec and product entry over its index in ascending order,
+# a polish row as the kernel's lane butterfly: math/linalg.seq_mv, seq_mm,
+# lcp/hopper_bpp.lane_sum), and on the card the kernel equals them to the
+# bit on all 128 escalated envs of walker2d, hopper, walker3d (36 rows)
+# and humanwalker (41 rows, with the refinement tier) and on all 16 of the
+# hybrid mode above 32 rows (NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
+# Before, torch.sum added in another order (scripts/torch_sum_order.py):
+# 73 of 128 walker3d and 111 of 128 humanwalker envs stayed the same, and
+# half were allowed to part above 32 rows.
+BPP_MAY_DIVERGE = 4
 
 
-def may_diverge(m, K):
-    """Envs of K whose exact re-solve may take another branch than the
-    plain version's.  Up to 32 rows (walker2d, hopper) BPP_MAY_DIVERGE
-    of 128 part.  Above 32 rows (the lanes over rows, bpp_body.h) the
-    kernel's matvecs sum in column order and the plain version's
-    torch.sum on the card in another (on random rows of 41 it equals a
-    column-order sum on 1112 of 5248 entries, of 24 on 808 of 3072:
-    scripts/torch_sum_order.py), and the 3D models' escalated LCPs part
-    on it: 87 of 128 walker3d envs (8 + 2 pivots) and 111-115 of 128
-    humanwalker envs stayed the same, the kernel solving 41 against 40
-    and 109 against 109 below 1e-4 (NVIDIA H100 80GB HBM3 at 700 W,
-    PERF.md).  There half may part, and the kernel must solve about as
-    many envs as its plain version (solved_as_plain)."""
-    return BPP_MAY_DIVERGE if m <= 32 else K // 2
-
-
-def solved_as_plain(m, K, solved_k, solved_p, n_same):
+def solved_as_plain(K, solved_k, solved_p, n_same):
     """The kernel solves (< 1e-4) as many envs as its plain version, less
-    the ones that parted (up to 32 rows) or less one in 16 (above: the
-    humanwalker escalation solved 105 against 109, PERF.md)."""
-    slack = K - n_same if m <= 32 else K // 16
-    return solved_k >= solved_p - slack
+    the ones that parted."""
+    return solved_k >= solved_p - (K - n_same)
+
+
 LOCK_MAY_DIVERGE = 2           # envs of 1024 beyond 1e-3 after one step
 CONTROL_STEPS_BEFORE = 25      # control steps before the states are taken
 # (env, perturb) -> (batch, horizon, rollouts); the first rollout of each
@@ -327,26 +339,23 @@ def check_bpp(name, cfg, findex, A, b, lo, hi, mu, act, lam_c,
          res_kernel_on_others=r_k[~same].tolist(),
          res_plain_on_others=r_r[~same].tolist(),
          ms=bpp_ms, plain_ms=bpp_plain_ms,
-         tol_lam=1e-5, tol_res_diff=1e-5 if m_c <= 32 else 1e-4,
-         tol_envs_same=K - may_diverge(m_c, K))
+         tol_lam=1e-5, tol_res_diff=1e-5,
+         tol_envs_same=K - BPP_MAY_DIVERGE)
     assert torch.isfinite(lam_k).all()
     # These are the WORST K envs of a live rollout under the shipped 4 + 2
     # pivot budget, which does not close every one of them in either
     # version (the escalation stage keeps the better point per env).  The
     # kernel is held to its plain version env by env: impulses within 1e-5
     # and residuals within 1e-5.  A few envs may part ways: in float32 the
-    # pivot's re-open test compares rounding noise with 1e-10, the two
-    # versions sum in different orders, and one flipped row sends a
-    # stalling solve down another branch.  Those envs are counted and
-    # bounded, and over all K the kernel must solve (< 1e-4) as many envs
-    # as the plain version, less the ones that parted.
-    assert n_same >= K - may_diverge(m_c, K), (n_same, K)
-    # (above 32 rows the 3D models' operators are large enough that
-    # impulses within 1e-5 move the normalized residual by more: 1.03e-5
-    # at walker3d, PERF.md)
-    assert bpp_err <= 1e-5 and res_diff_same <= (1e-5 if m_c <= 32
-                                                 else 1e-4)
-    assert solved_as_plain(m_c, K, solved(r_k), solved(r_r), n_same)
+    # pivot's re-open test compares rounding noise with 1e-10, and one
+    # flipped row sends a stalling solve down another branch (the two
+    # versions sum in the same order, and on the card all 128 have stayed
+    # the same: see BPP_MAY_DIVERGE).  Those envs are counted and bounded,
+    # and over all K the kernel must solve (< 1e-4) as many envs as the
+    # plain version, less the ones that parted.
+    assert n_same >= K - BPP_MAY_DIVERGE, (n_same, K)
+    assert bpp_err <= 1e-5 and res_diff_same <= 1e-5
+    assert solved_as_plain(K, solved(r_k), solved(r_r), n_same)
     assert solved(r_k) > K * min_solved
     assert float(r_k.median()) < float(r_pgs.median())
     bb, bf = bpp_work(m_c, K, it1, rf1, po1)
@@ -356,8 +365,7 @@ def check_bpp(name, cfg, findex, A, b, lo, hi, mu, act, lam_c,
                       f"polish={po1}")
 
 
-def compare_escalation(phase, name, K, got, ref, others_equal,
-                       loose=None, m_rows=0):
+def compare_escalation(phase, name, K, got, ref, others_equal):
     """Hold one escalation launch against its plain version.  got / ref:
     (patched rows (K, w), take (K,), residual of the kept point (K,)) of
     the K escalated envs; others_equal: whether every env outside the top
@@ -365,25 +373,14 @@ def compare_escalation(phase, name, K, got, ref, others_equal,
     max(1, |plain|) and whose take flags agree count as the same; at most
     BPP_MAY_DIVERGE may part (the f32 re-open sensitivity of the bpp
     phase), and over all K the kernel must solve (< 1e-4) as many envs as
-    the plain version, less those that parted.  loose = (c, tol): columns
-    c: (the impulses, after the compensated refinement tier) are held at
-    tol instead: the refined points of an operator with redundant contact
-    rows may part along its near-null directions, which leave the
-    velocity columns unmoved (tests/test_torch_kernels3d.py)."""
+    the plain version, less those that parted."""
     import torch
 
     rows_k, take_k, res_k = got
     rows_r, take_r, res_r = ref
-    rel = lambda a, b: ((a - b).abs().max(1).values
-                        / b.abs().max(1).values.clamp(min=1.0))
-    if loose is None:
-        env_err = rel(rows_k, rows_r)
-        same = (env_err <= 1e-5) & (take_k == take_r)
-    else:
-        c, tol = loose
-        env_err = rel(rows_k[:, :c], rows_r[:, :c])
-        same = ((env_err <= 1e-5) & (take_k == take_r)
-                & (rel(rows_k[:, c:], rows_r[:, c:]) <= tol))
+    env_err = ((rows_k - rows_r).abs().max(1).values
+               / rows_r.abs().max(1).values.clamp(min=1.0))
+    same = (env_err <= 1e-5) & (take_k == take_r)
     n_same = int(same.sum())
     err = float((rows_k - rows_r)[same].abs().max()) if n_same else 0.0
     solved = lambda r: int((r < 1e-4).sum())
@@ -396,12 +393,11 @@ def compare_escalation(phase, name, K, got, ref, others_equal,
                solved_kernel=solved(res_k), solved_plain=solved(res_r),
                res_kernel_max=float(res_k.max()),
                res_plain_max=float(res_r.max()),
-               tol_rel=1e-5, tol_envs_same=K - may_diverge(m_rows, K),
-               tol_loose=None if loose is None else loose[1])
+               tol_rel=1e-5, tol_envs_same=K - BPP_MAY_DIVERGE)
     assert torch.isfinite(rows_k).all() and torch.isfinite(res_k).all()
     assert others_equal, f"{phase} {name}: envs outside the top K changed"
-    assert n_same >= K - may_diverge(m_rows, K), (phase, name, n_same, K)
-    assert solved_as_plain(m_rows, K, solved(res_k), solved(res_r),
+    assert n_same >= K - BPP_MAY_DIVERGE, (phase, name, n_same, K)
+    assert solved_as_plain(K, solved(res_k), solved(res_r),
                            n_same), (phase, name)
     return out, err
 
@@ -415,6 +411,7 @@ def check_escalate(name, st, cfg, outs, tier2=False):
 
     import torch
 
+    from dartenv_tpu_torch.bench.kernel_stages import device_ms
     from dartenv_tpu_torch.engine import hopper_substep as hs
 
     if tier2:
@@ -436,20 +433,20 @@ def check_escalate(name, st, cfg, outs, tier2=False):
               and torch.equal(lamf_k[rest], lamf_r[rest])
               and torch.equal(dqp_k[rest], dqp0[rest]))
     rows = lambda d, l: torch.cat([d[idx], l[idx]], dim=1)
-    loose = (dqp0.shape[1], 1e-2) if cfg.escalate_ref > 0 else None
     line, err = compare_escalation(
         "escalate", name, K, (rows(dqp_k, lamf_k), take_k, res_k),
-        (rows(dqp_r, lamf_r), take_r, res_r), others, loose, st.m_c)
+        (rows(dqp_r, lamf_r), take_r, res_r), others)
     ms = time_ms(run_k)
+    dev_ms = device_ms(run_k, "bpp_fused_kernel")
     plain_ms = time_ms(run_r, runs=5, warmup=1)
     n, m_c, m, width, _ = st.escalation_dims
     eb, ef = escalate_work(K, m_c, budgets, width + n + m, n + m,
                            rebuild_n=n)
     emit("escalate", **line, iters2=cfg.escalate_iters2,
-         refine_passes=cfg.escalate_ref, ms=ms, plain_ms=plain_ms,
-         bound_ms=bound(eb, ef)[0])
+         refine_passes=cfg.escalate_ref, ms=ms, device_ms=dev_ms,
+         plain_ms=plain_ms, bound_ms=bound(eb, ef)[0])
     assert torch.equal(dqp0, outs["dq_plus"])      # inputs not modified
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                 bound=bound(eb, ef),
                 shape=f"{name} K={K} m={m_c} n={n} fused "
                       f"iters={budgets[0]}+{budgets[1]} "
@@ -487,8 +484,90 @@ def check_hybrid_rows(name, cfg, findex, g, K=16):
               and torch.equal(out_k[rest], lam[rest]))
     line, _ = compare_escalation(
         "hybrid", name, K, (out_k[idx], take_k, kept_k),
-        (out_r[idx], take_r, kept_r), others, m_rows=m)
+        (out_r[idx], take_r, kept_r), others)
     emit("hybrid", **line, m=m)
+
+
+def hold_substep(name, model, kern, outs, ins, m64, dr_vals=(),
+                 phase="substep"):
+    """Hold one substep-kernel launch's outputs (on ins = (q, dq, tau,
+    lam)) against the kernel's plain version on the same inputs, block by
+    block, and time both (phase substep; phase dr for a DR build, whose
+    plain version runs on the model with the per-env leaves dr_vals).
+    Returns what the kernels line needs."""
+    import torch
+
+    from dartenv_tpu_torch.bench.kernel_stages import device_ms
+    from dartenv_tpu_torch.dynamics.hopper_dynamics import with_leaves
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+
+    st, fields = kern.st, kern.dr_fields
+    q, dq, tau, lam_prev = ins
+    B, dev = q.shape[0], q.device
+    plain_model = with_leaves(model, fields, dr_vals)
+    ref = hs.substep_reference(plain_model, st, *ins)
+    got_b, ref_b = hs.output_blocks(st, outs), hs.output_blocks(st, ref)
+    assert set(got_b) == set(ref_b) and "esc" not in got_b
+    agree = torch.ones(B, dtype=torch.bool, device=dev)
+    for f in DISCRETE:
+        agree &= (got_b[f] == ref_b[f]).all(1)
+    frac = float(agree.float().mean())
+    ref_c = ref_b                 # the plain version the kernel is held to
+    if m64 is not None:           # n > 12: see plain64
+        ref64 = hs.substep_reference(
+            with_leaves(m64[0], fields, [v.double() for v in dr_vals]),
+            m64[1], *(x.double() for x in ins))
+        ref_c = {k: v.float()
+                 for k, v in hs.output_blocks(st, ref64).items()}
+        for f in DISCRETE:
+            agree &= (ref_c[f] == ref_b[f]).all(1)
+    errs, abs_errs, unequal, errs32 = {}, {}, {}, {}
+    for f in got_b:
+        a, r = got_b[f][agree], ref_c[f][agree]
+        assert torch.isfinite(a).all(), f
+        if f in EXACT_BLOCKS:
+            unequal[f] = int((a != ref_b[f][agree]).sum())
+        elif a.numel():
+            abs_errs[f] = float((a - r).abs().max())
+            errs[f] = abs_errs[f] / max(1.0, float(r.abs().max()))
+            r32 = ref_b[f][agree]
+            errs32[f] = (float((a - r32).abs().max())
+                         / max(1.0, float(r32.abs().max())))
+    sub_ms = time_ms(lambda: kern(*ins, *dr_vals))
+    sub_dev_ms = device_ms(lambda: kern(*ins, *dr_vals), "substep_kernel")
+    sub_plain_ms = time_ms(
+        lambda: hs.substep_reference(plain_model, st, *ins), runs=5,
+        warmup=1)
+    emit(phase, kernel="substep", env=name, B=B, dr_fields=list(fields),
+         agree_frac=frac, agree_frac_all=float(agree.float().mean()),
+         rel_err=errs, abs_err=abs_errs, unequal_entries=unequal,
+         plain_dtype="float32" if m64 is None else "float64",
+         rel_err_float32_plain=errs32, envs_per_block=kern.shape[0],
+         active_slots=float(ref["con_active"].sum()),
+         active_rows=float(ref_b["act"].sum()), ms=sub_ms,
+         device_ms=sub_dev_ms, plain_ms=sub_plain_ms, tol_rel=1e-4,
+         tol_rel_after_sweeps=1e-4 if m64 is None else 2e-2,
+         tol_agree=0.999)
+    if st.ns:
+        # (hopper stands on one foot and is in the air for part of its
+        # stride)
+        assert float(ref["con_active"].sum()) > 0.05 * B, \
+            "contacts are not live"
+    assert float(ref_b["act"].sum()) > B // 2, "constraint rows are not live"
+    assert frac >= 0.999, f"discrete fields agree on {frac:.5f} of envs"
+    assert float(agree.float().mean()) >= 0.99
+    assert not any(unequal.values()), f"copied blocks differ: {unequal}"
+    tol = lambda f: 2e-2 if m64 is not None and f in AFTER_SWEEPS else 1e-4
+    bad = {f: e for f, e in errs.items() if not e <= tol(f)}
+    assert not bad, f"substep kernel disagrees: {bad}"
+    sb, sf = substep_work(st, B, kern.dr_width)
+    lay = f"n={st.n} m={st.layout.m} m_c={st.m_c}"
+    return dict(max_abs_err=max(abs_errs.values()), ms=sub_ms,
+                device_ms=sub_dev_ms, plain_ms=sub_plain_ms,
+                bound=bound(sb, sf),
+                shape=f"{name} B={B} {lay} envs_per_block={kern.shape[0]}"
+                      + (f" dr={len(fields)} leaves, {kern.dr_width} floats"
+                         if fields else ""))
 
 
 def check_env(name, B, dev):
@@ -538,70 +617,9 @@ def check_env(name, B, dev):
     assert torch.isfinite(q).all() and torch.isfinite(dq).all()
 
     outs = kern(q, dq, tau, lam_prev)
-    torch.cuda.synchronize()
-    ref = hs.substep_reference(model, st, q, dq, tau, lam_prev)
-    got_b, ref_b = hs.output_blocks(st, outs), hs.output_blocks(st, ref)
-    assert set(got_b) == set(ref_b) and "esc" not in got_b
-    agree = torch.ones(B, dtype=torch.bool, device=dev)
-    for f in DISCRETE:
-        agree &= (got_b[f] == ref_b[f]).all(1)
-    frac = float(agree.float().mean())
-    ref_c = ref_b                 # the plain version the kernel is held to
-    if m64 is not None:           # n > 12: see plain64
-        ref64 = hs.substep_reference(m64[0], m64[1], q.double(),
-                                     dq.double(), tau.double(),
-                                     lam_prev.double())
-        ref_c = {k: v.float()
-                 for k, v in hs.output_blocks(st, ref64).items()}
-        for f in DISCRETE:
-            agree &= (ref_c[f] == ref_b[f]).all(1)
-    errs, abs_errs, unequal, errs32 = {}, {}, {}, {}
-    for f in got_b:
-        a, r = got_b[f][agree], ref_c[f][agree]
-        assert torch.isfinite(a).all(), f
-        if f in EXACT_BLOCKS:
-            unequal[f] = int((a != ref_b[f][agree]).sum())
-        elif a.numel():
-            abs_errs[f] = float((a - r).abs().max())
-            errs[f] = abs_errs[f] / max(1.0, float(r.abs().max()))
-            r32 = ref_b[f][agree]
-            errs32[f] = (float((a - r32).abs().max())
-                         / max(1.0, float(r32.abs().max())))
-    sub_ms = time_ms(lambda: kern(q, dq, tau, lam_prev))
-    sub_plain_ms = time_ms(
-        lambda: hs.substep_reference(model, st, q, dq, tau, lam_prev),
-        runs=5, warmup=1)
-    emit("substep", env=name, B=B, agree_frac=frac,
-         agree_frac_all=float(agree.float().mean()), rel_err=errs,
-         abs_err=abs_errs, unequal_entries=unequal,
-         plain_dtype="float32" if m64 is None else "float64",
-         rel_err_float32_plain=errs32,
-         envs_per_block=hs.launch_shape(st)[0],
-         active_slots=float(ref["con_active"].sum()),
-         active_rows=float(ref_b["act"].sum()), ms=sub_ms,
-         plain_ms=sub_plain_ms, tol_rel=1e-4,
-         tol_rel_after_sweeps=1e-4 if m64 is None else 2e-2,
-         tol_agree=0.999)
-    if st.ns:
-        # (hopper stands on one foot and is in the air for part of its
-        # stride)
-        assert float(ref["con_active"].sum()) > 0.05 * B, \
-            "contacts are not live"
-    assert float(ref_b["act"].sum()) > B // 2, "constraint rows are not live"
-    assert frac >= 0.999, f"discrete fields agree on {frac:.5f} of envs"
-    assert float(agree.float().mean()) >= 0.99
-    assert not any(unequal.values()), f"copied blocks differ: {unequal}"
-    tol = lambda f: 2e-2 if m64 is not None and f in AFTER_SWEEPS else 1e-4
-    bad = {f: e for f, e in errs.items() if not e <= tol(f)}
-    assert not bad, f"substep kernel disagrees: {bad}"
-    sb, sf = substep_work(st, B)
-    lay = f"n={st.n} m={st.layout.m} m_c={st.m_c}"
-    out = {"substep": dict(
-        max_abs_err=max(abs_errs.values()), ms=sub_ms,
-        plain_ms=sub_plain_ms, bound=bound(sb, sf),
-        shape=f"{name} B={B} {lay} envs_per_block="
-              f"{hs.launch_shape(st)[0]}"),
-        "states": (q, dq, tau, lam_prev)}
+    out = {"substep": hold_substep(name, model, kern, outs,
+                                   (q, dq, tau, lam_prev), m64),
+           "states": (q, dq, tau, lam_prev)}
 
     # ---- 4. BPP kernel vs its plain version -----------------------------
     if escal:
@@ -816,49 +834,58 @@ def random_states(model, B, seed, dev):
             f(rng.uniform(-50.0, 50.0, (B, n))))
 
 
-def dynamics_work(model, B):
-    """(bytes, flops) of one dynamics launch for B envs: q, dq, tau read
-    once, dq_star, M, phi, R_w, p_w written once; flops of the stages that
-    dominate (kinematics, mass matrix, bias forces, Cholesky solve)."""
+def dynamics_work(model, B, dr_width=0):
+    """(bytes, flops) of one dynamics launch for B envs: q, dq, tau (and
+    dr_width floats of DR leaves) read once, dq_star, M, phi, R_w, p_w
+    written once; flops of the stages that dominate (kinematics, mass
+    matrix, bias forces, Cholesky solve)."""
     n, nb = model.n, model.nb
-    words = 3 * n + n + n * n + 6 * n + 12 * nb
+    words = 3 * n + dr_width + n + n * n + 6 * n + 12 * nb
     flops = (nb * 400 + nb * (n * 60 + n * (n + 1) * 6)
              + n ** 3 // 3 + 2 * n * n + 12 * n)
     return 4 * words * B, flops * B
 
 
-def check_dynamics(name, model, B, q, dq, tau):
+def check_dynamics(name, model, B, q, dq, tau, dr_fields=(), dr_vals=(),
+                   phase="dynamics"):
     """Phase dynamics for one model: the kernel against its plain version,
-    output by output, relative to max(1, |ref|_inf)."""
+    output by output, relative to max(1, |ref|_inf).  With dr_fields
+    (phase dr) the kernel built with those leaves as per-env inputs,
+    dr_vals, against the plain version on the model with them."""
     import torch
 
     from dartenv_tpu_torch.bench.kernel_stages import device_ms
     from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
 
-    kern = hd.get_dynamics_kernel(model)
-    got = kern(q, dq, tau)
+    kern = hd.get_dynamics_kernel(model, dr_fields)
+    plain_model = hd.with_leaves(model, dr_fields, dr_vals)
+    got = kern(q, dq, tau, *dr_vals)
     torch.cuda.synchronize()
-    ref = hd.dynamics_reference(model, q, dq, tau)
+    ref = hd.dynamics_reference(plain_model, q, dq, tau)
     errs, abs_errs = {}, {}
     for k, a, r in zip(DYN_TOL, got, ref):
         assert a.shape == r.shape and torch.isfinite(a).all(), k
         abs_errs[k] = float((a - r).abs().max())
         errs[k] = abs_errs[k] / max(1.0, float(r.abs().max()))
-    ms = time_ms(lambda: kern(q, dq, tau))
-    dev_ms = device_ms(lambda: kern(q, dq, tau), "dynamics_kernel")
-    plain_ms = time_ms(lambda: hd.dynamics_reference(model, q, dq, tau),
-                       runs=5, warmup=1)
+    ms = time_ms(lambda: kern(q, dq, tau, *dr_vals))
+    dev_ms = device_ms(lambda: kern(q, dq, tau, *dr_vals),
+                       "dynamics_kernel")
+    plain_ms = time_ms(
+        lambda: hd.dynamics_reference(plain_model, q, dq, tau), runs=5,
+        warmup=1)
     joints = sorted({int(t) for t in model.joint_type})
-    emit("dynamics", env=name, B=B, n=model.n, nb=model.nb,
-         lane_group=kern.group, joint_types=joints, rel_err=errs,
-         abs_err=abs_errs, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-         tol_rel=DYN_TOL)
+    emit(phase, kernel="dynamics", env=name, B=B, n=model.n, nb=model.nb,
+         dr_fields=list(dr_fields), lane_group=kern.group,
+         joint_types=joints, rel_err=errs, abs_err=abs_errs, ms=ms,
+         device_ms=dev_ms, plain_ms=plain_ms, tol_rel=DYN_TOL)
     bad = {k: e for k, e in errs.items() if not e <= DYN_TOL[k]}
     assert not bad, f"dynamics kernel disagrees on {name}: {bad}"
     return dict(max_abs_err=max(abs_errs.values()), ms=ms,
                 device_ms=dev_ms, plain_ms=plain_ms,
-                bound=bound(*dynamics_work(model, B)),
-                shape=f"{name} B={B} n={model.n} nb={model.nb}")
+                bound=bound(*dynamics_work(model, B, kern.dr_width)),
+                shape=f"{name} B={B} n={model.n} nb={model.nb}"
+                      + (f" dr={len(dr_fields)} leaves, {kern.dr_width} "
+                         f"floats" if dr_fields else ""))
 
 
 def random_pushes(model, task, B, gen, dev):
@@ -1036,6 +1063,7 @@ def check_pgs(dev, states):
     both."""
     import torch
 
+    from dartenv_tpu_torch.bench.kernel_stages import device_ms
     from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
     from dartenv_tpu_torch.lcp.hybrid import escalate_rows, escalation_size
@@ -1079,15 +1107,290 @@ def check_pgs(dev, states):
         "hybrid", "walker2d_perturbed", K, (out_k[idx], take_k, kept_k),
         (out_r[idx], take_r, kept_r), others)
     ms = time_ms(run_k)
+    dev_ms = device_ms(run_k, "bpp_hybrid_kernel")
     plain_ms = time_ms(run_r, runs=5, warmup=1)
     hbb, hbf = escalate_work(K, m, budgets, m * m + 7 * m, m)
-    emit("hybrid", **line, ms=ms, plain_ms=plain_ms,
+    emit("hybrid", **line, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
          bound_ms=bound(hbb, hbf)[0])
-    bpp = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    bpp = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                bound=bound(hbb, hbf),
                shape=f"walker2d_perturbed K={K} m={m} hybrid "
                      f"iters={budgets[0]}+{budgets[1]}")
     return pgs, bpp
+
+
+# ---- domain randomization ------------------------------------------------
+# The builds with per-env DR leaves, (env, field set) -> batch: "spec" is
+# the throughput bench's spec (bench/throughput.DR_SPEC: mass,
+# geom_friction, damping; kernel 3 takes its dynamics leaves), "all" every
+# leaf the kernel takes (DR_FIELDS_SUB, DR_FIELDS_DYN).
+DR_SUBSTEP = {("walker2d", "spec"): 4096, ("walker2d", "all"): 4096,
+              ("walker3d", "spec"): 4096, ("humanwalker", "spec"): 1024}
+DR_DYNAMICS = {("cartpole", "all"): 8192, ("cartpole", "spec"): 8192,
+               ("walker2d", "mass_damping"): 4096}
+# bench_dr paths: env -> (batch, substeps); one warm-up run and one more
+DR_PATHS = {"walker2d": (4096, 400), "cartpole": (8192, 400)}
+
+
+def dr_fields_of(tag, kernel):
+    """The DR leaves of a build of phase dr."""
+    from dartenv_tpu_torch.bench.throughput import DR_SPEC
+    from dartenv_tpu_torch.dynamics.hopper_dynamics import DR_FIELDS_DYN
+    from dartenv_tpu_torch.engine.hopper_substep import DR_FIELDS_SUB
+
+    if tag == "mass_damping":
+        return ("mass", "damping")
+    if tag == "all":
+        return DR_FIELDS_SUB if kernel == "substep" else DR_FIELDS_DYN
+    return tuple(f for f in DR_SPEC
+                 if kernel == "substep" or f in DR_FIELDS_DYN)
+
+
+def dr_values(model, fields, B, seed, dev):
+    """Per-env values of the DR leaves, (B, ...) float32 on `dev`, drawn
+    from `seed`: each leaf scaled entry by entry by uniform(0.7, 1.3) (the
+    inertia tensors by one such factor per body, so they stay positive
+    definite), spring stiffness uniform(0, 20) and rest positions
+    uniform(-0.1, 0.1) (zero in the shipped models): every env its own
+    values, up to 30 % apart."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    u = lambda shape, lo, hi: lo + (hi - lo) * torch.rand(
+        shape, generator=gen, device=dev)
+    out = []
+    for f in fields:
+        base = getattr(model, f)
+        shape = (B,) + tuple(base.shape)
+        if f == "inertia":
+            v = base * u(shape[:2] + (1, 1), 0.7, 1.3)
+        elif f == "spring_stiff":
+            v = u(shape, 0.0, 20.0)
+        elif f == "rest_pos":
+            v = u(shape, -0.1, 0.1)
+        else:
+            v = base * u(shape, 0.7, 1.3)
+        out.append(v.contiguous())
+    return out
+
+
+def base_values(model, fields, B):
+    """The base model's values of the DR leaves, for every env."""
+    return [getattr(model, f).expand((B,) + tuple(getattr(model, f).shape))
+            for f in fields]
+
+
+def identity_and_base(label, kern, plain_kern, ins, vals, model, gen,
+                      blocks=None, tol=None):
+    """Phase dr, two properties of a DR build: env identity (the envs of
+    the inputs and of the DR leaves permuted: the outputs are the
+    unpermuted outputs, permuted, to the bit), and the base values (every
+    DR value the base model's: the outputs within the phase's bound of the
+    build without DR inputs, `plain_kern`; whether to the bit is
+    printed).  blocks: outputs -> named blocks; tol: block -> bound."""
+    import torch
+
+    B = ins[0].shape[0]
+    outs = kern(*ins, *vals)
+    perm = torch.randperm(B, generator=gen, device=ins[0].device)
+    outs_p = kern(*(x[perm] for x in ins), *(v[perm] for v in vals))
+    as_dict = lambda o: o if isinstance(o, dict) else dict(enumerate(o))
+    ident = all(torch.equal(a, as_dict(outs)[k][perm])
+                for k, a in as_dict(outs_p).items())
+    got = kern(*ins, *base_values(model, kern.dr_fields, B))
+    want = plain_kern(*ins)
+    got_b, want_b = (blocks(x) for x in (got, want)) if blocks else (
+        as_dict(got), as_dict(want))
+    bitwise = all(torch.equal(got_b[k], want_b[k]) for k in want_b)
+    errs = {str(k): float((got_b[k] - w).abs().max())
+            / max(1.0, float(w.abs().max()))
+            for k, w in want_b.items() if w.numel()}
+    emit("dr", check="identity_and_base", env=label, B=B,
+         permuted_outputs_bitwise=ident, base_values_bitwise=bitwise,
+         base_values_rel_err=errs)
+    assert ident, f"{label}: the outputs do not follow the envs"
+    bad = {k: e for k, e in errs.items() if not e <= tol(k)}
+    assert not bad, f"{label}: base values off the build without DR: {bad}"
+
+
+def lockstep_dr(dev, kern, states):
+    """Phase dr, lockstep: one walker2d control step of a DR batch
+    (B = 1024, the bench's draw of randomize_model) through the port's
+    randomized sim step (the DR substep kernel and the escalation kernel)
+    beside the plain path composed here on the per-env model, as phase
+    lockstep holds the paths without DR."""
+    import torch
+
+    from dartenv_tpu_torch.bench.throughput import DR_SPEC, make_task
+    from dartenv_tpu_torch.dynamics.hopper_dynamics import with_leaves
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+    from dartenv_tpu_torch.engine.world import SimState
+    from dartenv_tpu_torch.parallel.domain_rand import (
+        make_randomized_sim_step, randomize_model,
+    )
+
+    task = make_task("walker2d", device=dev)
+    model, cfg, st = task.model, task.model.solver, kern.st
+    Bl = min(1024, states[0].shape[0])
+    q, dq, _, lam = (x[:Bl].clone() for x in states)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    bmodel = randomize_model(model, DR_SPEC, Bl, gen)
+    fields = tuple(DR_SPEC)
+    assert fields == kern.dr_fields
+    m_dr = with_leaves(model, fields, [getattr(bmodel, f) for f in fields])
+    step = make_randomized_sim_step(model, fields)
+    tiers = plain_tiers(st.findex_c, cfg_budgets(cfg))
+    hi_a = torch.as_tensor(task.control_bounds[0], device=dev,
+                           dtype=torch.float32)
+    a = (torch.rand((Bl, task.action_size), generator=gen, device=dev)
+         * 2 - 1) * hi_a
+    tau = task.action_to_tau(a, ())
+    rows = list(range(0, 3 * st.ns, 3)) + list(range(3 * st.ns,
+                                                     st.layout.m))
+    sk = SimState(q=q, dq=dq, time=q.new_zeros(Bl), lam=lam)
+    sp = (q, dq, lam)
+    same = torch.ones(Bl, dtype=torch.bool, device=dev)
+    plain_before = plain_counts()
+    launches_before = hs.SUBSTEP_LAUNCHES
+    for _ in range(task.frame_skip):
+        sk, _ = step(bmodel, sk, tau)
+        sp = plain_substep(m_dr, st, tiers, *sp[:3], tau)
+        same &= (sk.lam[:, rows] > 0).eq(sp[2][:, rows] > 0).all(1)
+    rel = lambda x, y: ((x - y).abs() / y.abs().clamp(min=1.0)).max(
+        1).values
+    q_err, dq_err = rel(sk.q, sp[0]), rel(sk.dq, sp[1])
+    lock = dict(same_contact_frac=float(same.float().mean()),
+                q_err=float(q_err[same].max()),
+                dq_err=float(dq_err[same].max()),
+                dq_err_all=float(dq_err.max()),
+                envs_beyond_tol=int(((dq_err > 1e-3)
+                                     | (q_err > 1e-3))[same].sum()),
+                q_err_q99=float(q_err[same].quantile(0.99)),
+                dq_err_q99=float(dq_err[same].quantile(0.99)))
+    emit("dr", check="lockstep", env="walker2d_dr", B=Bl, **lock,
+         tol=1e-3, tol_envs_beyond=LOCK_MAY_DIVERGE)
+    assert plain_counts() == plain_before    # the kernel path took none
+    assert hs.SUBSTEP_LAUNCHES - launches_before == task.frame_skip
+    assert torch.isfinite(sk.q).all() and torch.isfinite(sk.dq).all()
+    assert lock["same_contact_frac"] > 0.9
+    assert lock["envs_beyond_tol"] <= LOCK_MAY_DIVERGE
+    assert lock["q_err_q99"] <= 1e-3 and lock["dq_err_q99"] <= 1e-3
+
+
+def check_dr(dev, checks, dr_kerns, dyn_models):
+    """Phase dr: the substep kernel and the dynamics kernel built with
+    per-env DR leaves, each against its DR plain version at the bounds of
+    phases substep and dynamics, on the check states of those phases with
+    per-env leaves (dr_values); env identity under a permutation and the
+    base values (identity_and_base); a partly filled last block (walker2d
+    B = 4095, cartpole B = 8191); the escalation kernel's fused mode on the
+    walker2d DR substep's outputs (phase escalate's rules); a lockstep
+    control step (lockstep_dr).  Returns what the kernels line needs."""
+    import torch
+
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    out = {}
+    for i, ((e, tag), kern) in enumerate(dr_kerns.items()):
+        B, model = DR_SUBSTEP[(e, tag)], kern.model
+        ins = checks[e]["states"]
+        assert ins[0].shape[0] == B
+        vals = dr_values(model, kern.dr_fields, B, 20 + i, dev)
+        m64 = plain64(model)
+        outs = kern(*ins, *vals)
+        c = hold_substep(f"{e}_dr_{tag}", model, kern, outs, ins, m64, vals,
+                         phase="dr")
+        after = lambda f: m64 is not None and f in AFTER_SWEEPS
+        identity_and_base(
+            f"{e}_dr_{tag}", kern, hs.get_substep_kernel(model), ins, vals,
+            model, gen, blocks=lambda o: hs.output_blocks(kern.st, o),
+            tol=lambda f: 0.0 if f in EXACT_BLOCKS else (
+                2e-2 if after(f) else 1e-4))
+        if (e, tag) == ("walker2d", "spec"):
+            out["substep"] = c
+            # B not a multiple of the 16 envs per block
+            Bp = 4095
+            assert Bp % kern.shape[0]
+            part = [x[:Bp] for x in ins]
+            vp = [v[:Bp] for v in vals]
+            hold_substep(f"{e}_dr_{tag}", model, kern, kern(*part, *vp),
+                         part, m64, vp, phase="dr")
+            out["escalate"] = check_escalate(f"{e}_dr", kern.st,
+                                             model.solver, outs)
+            lockstep_dr(dev, kern, ins)
+    for i, ((e, tag), Bd) in enumerate(DR_DYNAMICS.items()):
+        from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+
+        model = dyn_models[e]
+        fields = dr_fields_of(tag, "dynamics")
+        sizes = [Bd] + ([Bd - 1] if tag == "all" else [])
+        for Bs in sizes:
+            if e == "walker2d":
+                q, dq, tau = (x[:Bs] for x in checks[e]["states"][:3])
+            else:
+                q, dq, tau = random_states(model, Bs, 200 + i, dev)
+            vals = dr_values(model, fields, Bs, 30 + i, dev)
+            c = check_dynamics(f"{e}_dr_{tag}", model, Bs, q, dq, tau,
+                               fields, vals, phase="dr")
+            if Bs == Bd:
+                identity_and_base(
+                    f"{e}_dr_{tag}", hd.get_dynamics_kernel(model, fields),
+                    hd.get_dynamics_kernel(model), (q, dq, tau), vals,
+                    model, gen,
+                    tol=lambda k: DYN_TOL[("dq_star", "M", "phi", "R_w",
+                                           "p_w")[int(k)]])
+            if (e, tag) == ("cartpole", "spec") and Bs == Bd:
+                out["dynamics"] = c
+    return out
+
+
+def drive_dr_path(dev, name, smi):
+    """Phase dr_path: bench_dr (a domain-randomized batch, the bench's
+    spec, fixed random torques) with every launch counter and plain-call
+    counter set to 0 just before and read just after.  Walker2d runs the
+    DR substep kernel and the escalation kernel's fused mode on every
+    substep; cartpole (no constraint rows) the DR dynamics kernel.  The
+    rate is printed with the card; it sets no limit.  Returns the launch
+    counts."""
+    import torch
+
+    from dartenv_tpu_torch.bench.throughput import bench_dr
+    from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+    from dartenv_tpu_torch.lcp import hopper_bpp as hb
+    from dartenv_tpu_torch.lcp import hopper_pgs as hp
+    from dartenv_tpu_torch.parallel import domain_rand as tdr
+
+    B, substeps = DR_PATHS[name]
+    hs.SUBSTEP_LAUNCHES = hd.DYNAMICS_LAUNCHES = hp.PGS_LAUNCHES = 0
+    hb.CORE_LAUNCHES = hb.FUSED_LAUNCHES = hb.HYBRID_LAUNCHES = 0
+    hs.PLAIN_CALLS = hb.PLAIN_CALLS = hd.PLAIN_CALLS = hp.PLAIN_CALLS = 0
+    tdr.PLAIN_DYNAMICS_STEPS = 0
+    t0 = time.time()
+    out = bench_dr(name, batch=B, substeps=substeps, iters=1, device=dev)
+    seconds = time.time() - t0
+    counts = dict(substep=hs.SUBSTEP_LAUNCHES, bpp_core=hb.CORE_LAUNCHES,
+                  bpp_fused=hb.FUSED_LAUNCHES, bpp_hybrid=hb.HYBRID_LAUNCHES,
+                  dynamics=hd.DYNAMICS_LAUNCHES, pgs=hp.PGS_LAUNCHES)
+    plain = sum(plain_counts())
+    emit("dr_path", card=smi, **out,
+         **{f"{k}_launches": v for k, v in counts.items()},
+         plain_calls=plain,
+         plain_dynamics_steps=tdr.PLAIN_DYNAMICS_STEPS, seconds=seconds)
+    sub = substeps * out["runs"]
+    want = dict.fromkeys(counts, 0)
+    if name == "cartpole":
+        want.update(dynamics=sub)
+    else:
+        want.update(substep=sub, bpp_fused=sub)
+    assert counts == want, (counts, want)
+    assert plain == 0 and tdr.PLAIN_DYNAMICS_STEPS == 0
+    assert out["finite_state"] and torch.cuda.is_available()
+    return dict(counts, steps=sub / out["frame_skip"])
 
 
 def plain_counts():
@@ -1250,6 +1553,13 @@ def main():
                   for e in ("cartpole", "doublependulum", "walker2d")}
     dyn_models.update(joint_chains(dev))
     dkerns = {e: hd.get_dynamics_kernel(m) for e, m in dyn_models.items()}
+    # the DR builds of phase dr: kernel 1 and kernel 3 with per-env leaves
+    dr_kerns = {(e, tag): hs.get_substep_kernel(
+        kerns[e].model, dr_fields=dr_fields_of(tag, "substep"))
+        for e, tag in DR_SUBSTEP}
+    dr_dkerns = {(e, tag): hd.get_dynamics_kernel(
+        dyn_models[e], dr_fields_of(tag, "dynamics"))
+        for e, tag in DR_DYNAMICS}
     # the BPP kernel: core and hybrid modes per row count, fused mode per
     # substep digest (of the models that escalate)
     esc = [k for k in kerns.values() if k.st.cfg.escalate_frac > 0]
@@ -1258,11 +1568,14 @@ def main():
     builds = ([hb.start_build(m, h) for m, h in bpp_keys]
               + [hp.start_build()]
               + [k.start_build() for k in kerns.values()]
-              + [k.start_build() for k in dkerns.values()])
+              + [k.start_build() for k in dkerns.values()]
+              + [k.start_build() for k in dr_kerns.values()]
+              + [k.start_build() for k in dr_dkerns.values()])
     for (m, h), bld in zip(bpp_keys, builds):
         hb.load(m, bld, h)
     hp.load(builds[len(bpp_keys)])
-    for k in list(kerns.values()) + list(dkerns.values()):
+    for k in (list(kerns.values()) + list(dkerns.values())
+              + list(dr_kerns.values()) + list(dr_dkerns.values())):
         k.load()
     ptxas = {bld.tag + "/" + bld.so_path.split("/")[-2][-6:]:
              [ln.strip() for ln in cuda_build.build_log(bld).splitlines()
@@ -1274,6 +1587,12 @@ def main():
                              for e, k in kerns.items()},
          substep_envs_per_block={e: hs.launch_shape(k.st)
                                  for e, k in kerns.items()},
+         dr_substep={f"{e}_{tag}": dict(
+             dr_floats=k.dr_width, launch_shape=k.shape,
+             smem_bytes=k.load().substep_smem_bytes())
+             for (e, tag), k in dr_kerns.items()},
+         dr_dynamics_floats={f"{e}_{tag}": k.dr_width
+                             for (e, tag), k in dr_dkerns.items()},
          fused_smem_bytes={m: hb.load(m, None, h).bpp_fused_smem_bytes()
                            for m, h in bpp_keys if h})
     st = kerns["walker2d"].st
@@ -1318,6 +1637,10 @@ def main():
     # ---- 9. the main paths, launches counted per path -------------------
     counts = {key: drive_main_path(dev, *key) for key in PATHS}
 
+    # ---- 9b. domain randomization: the DR kernels, then their paths -----
+    dr = check_dr(dev, checks, dr_kerns, dyn_models)
+    dr_counts = {e: drive_dr_path(dev, e, smi) for e in DR_PATHS}
+
     # ---- 10. device launches of one eager walker2d control step ---------
     from dartenv_tpu_torch.bench.profile_step import profile
 
@@ -1351,11 +1674,13 @@ def main():
     entries += [("cartpole", False, "dynamics", dyn["cartpole"]),
                 ("walker2d", True, "pgs", pgs),
                 ("walker2d", True, "bpp_hybrid", bpp_pert)]
+    entries += [("walker2d", "dr", "substep", dr["substep"]),
+                ("cartpole", "dr", "dynamics", dr["dynamics"])]
     kernels = []
     for e, perturb, key, c in entries:
         kname, src, repl = sources[key]
-        n = counts[(e, perturb)]
-        label = e + ("_perturbed" if perturb else "")
+        n = dr_counts[e] if perturb == "dr" else counts[(e, perturb)]
+        label = e + {False: "", True: "_perturbed", "dr": "_dr"}[perturb]
         kernels.append({
             "name": f"{kname}[{label}]", "route": "cuda", "source": src,
             "replaces": repl, "launches": n[key],
@@ -1364,7 +1689,7 @@ def main():
             "bound_by": c["bound"][1], "library_ms": None,
             "launches_per_control_step": n[key] / n["steps"],
             "device_ms": c.get("device_ms"), "shape": c["shape"]})
-        if key == "dynamics":
+        if key == "dynamics" and perturb is False:
             w = dyn["walker2d"]
             kernels[-1].update(walker2d_states_device_ms=w["device_ms"],
                                walker2d_states_ms=w["ms"],

@@ -2,15 +2,19 @@
 
     python -m dartenv_tpu_torch.bench.profile_step [--env walker2d]
         (any name of bench/throughput._TASKS: walker3d, humanwalker, ...)
-        [--batch 4096] [--steps 20] [--perturb] [--out out/profile.json]
+        [--batch 4096] [--steps 20] [--perturb | --dr]
+        [--out out/profile.json]
 
 Steps a batched env under the random policy for `--steps` control steps
 inside torch.profiler and prints one JSON object: host wall time per
 control step (from an un-profiled pass), device-busy time per control step
 and its share of the wall time, device launches per control step, and the
 kernels that take the most device time.  `--perturb` turns on the task's
-random pushes (the phase-wise path with external forces).  Needs a GPU
-(it measures nothing on a CPU).
+random pushes (the phase-wise path with external forces).  `--dr` profiles
+bench/throughput.bench_dr's step instead: a domain-randomized batch (the
+bench's spec), frame_skip randomized sim steps per control step under
+fixed random torques (no env step around them).  Needs a GPU (it
+measures nothing on a CPU).
 """
 from __future__ import annotations
 
@@ -23,11 +27,42 @@ import time
 import torch
 
 
-def profile(env="walker2d", batch=4096, steps=20, top=12, perturb=False):
+def _control_step(task, batch, gen, dr):
+    """A function that runs one control step of the batch: the env step
+    under the random policy, or (dr) frame_skip randomized sim steps."""
+    from dartenv_tpu_torch.bench.throughput import DR_SPEC, random_policy
+    from dartenv_tpu_torch.engine.world import init_state
+    from dartenv_tpu_torch.parallel.domain_rand import (
+        make_randomized_sim_step, randomize_model,
+    )
+    from dartenv_tpu_torch.parallel.vec_env import VecEnv
+
+    model = task.model
+    if dr:
+        bmodel = randomize_model(model, DR_SPEC, batch, gen)
+        step = make_randomized_sim_step(model, list(DR_SPEC))
+        sim = [init_state(model, batch, warm_start=task.warm_start)]
+        tau = (torch.rand((batch, model.n), generator=gen,
+                          device=model.device) * 2 - 1) * 50.0
+
+        def run():
+            for _ in range(task.frame_skip):
+                sim[0], _ = step(bmodel, sim[0], tau)
+        return run
+    vec = VecEnv(task, batch, max_episode_steps=1000, generator=gen)
+    policy = random_policy(task)
+    env = list(vec.reset())
+
+    def run():
+        env[0], env[1], *_ = vec.step(env[0], policy(None, env[1], gen))
+    return run
+
+
+def profile(env="walker2d", batch=4096, steps=20, top=12, perturb=False,
+            dr=False):
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    from dartenv_tpu_torch.bench.throughput import make_task, random_policy
-    from dartenv_tpu_torch.parallel.vec_env import VecEnv
+    from dartenv_tpu_torch.bench.throughput import make_task
 
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
@@ -36,21 +71,19 @@ def profile(env="walker2d", batch=4096, steps=20, top=12, perturb=False):
     task.add_perturbation = perturb
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    vec = VecEnv(task, batch, max_episode_steps=1000, generator=gen)
-    policy = random_policy(task)
-    state, obs = vec.reset()
+    control_step = _control_step(task, batch, gen, dr)
     for _ in range(10):                       # build kernels, warm caches
-        state, obs, *_ = vec.step(state, policy(None, obs, gen))
+        control_step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):                    # un-profiled wall time
-        state, obs, *_ = vec.step(state, policy(None, obs, gen))
+        control_step()
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            state, obs, *_ = vec.step(state, policy(None, obs, gen))
+            control_step()
         torch.cuda.synchronize()
     # device-side events only (kernels, memcpy, memset): the op-level rows
     # repeat their kernels' time and would count it twice
@@ -66,7 +99,7 @@ def profile(env="walker2d", batch=4096, steps=20, top=12, perturb=False):
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip()
     return {
-        "env": env, "perturb": perturb, "batch": batch,
+        "env": env, "perturb": perturb, "dr": dr, "batch": batch,
         "control_steps": steps,
         "card": smi,
         "wall_ms_per_control_step": plain_wall_ms / steps,
@@ -91,9 +124,11 @@ def main():
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--perturb", action="store_true")
+    ap.add_argument("--dr", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    res = profile(args.env, args.batch, args.steps, perturb=args.perturb)
+    res = profile(args.env, args.batch, args.steps, perturb=args.perturb,
+                  dr=args.dr)
     text = json.dumps(res, indent=1)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

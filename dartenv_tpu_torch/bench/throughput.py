@@ -133,12 +133,78 @@ def bench_env(name: str = "walker2d", batch: int = 4096,
     return out
 
 
+DR_SPEC = {"mass": 0.3, "geom_friction": 0.3, "damping": 0.3}
+
+
+def bench_dr(name: str = "walker2d", batch: int = 4096, substeps: int = 400,
+             iters: int = 5, device="cuda", seed: int = 0,
+             force_phasewise: bool = False):
+    """Throughput of a domain-randomized batch: per-env mass, friction and
+    damping (DR_SPEC: each scaled per env by uniform(0.7, 1.3)), stepped
+    `substeps` physics substeps under fixed random torques, after one
+    warm-up run (which also builds the kernels).  force_phasewise skips
+    the fused route (parallel/domain_rand.make_randomized_sim_step).  The
+    env-steps/s divide the substeps by the task's frame_skip, so they are
+    comparable to bench_env's control-step rate."""
+    import numpy as np
+
+    from dartenv_tpu_torch.engine.world import init_state
+    from dartenv_tpu_torch.parallel.domain_rand import (
+        make_randomized_sim_step, randomize_model,
+    )
+
+    device = torch.device(device)
+    task = make_task(name, device=device)
+    model = task.model
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    bmodel = randomize_model(model, DR_SPEC, batch, gen)
+    step = make_randomized_sim_step(model, list(DR_SPEC),
+                                    force_phasewise=force_phasewise)
+    state0 = init_state(model, batch, warm_start=task.warm_start)
+    rng = np.random.default_rng(seed)
+    tau = torch.as_tensor(rng.uniform(-1.0, 1.0, (batch, model.n)) * 50.0,
+                          dtype=model.dtype, device=device)
+
+    def roll():
+        state = state0
+        for _ in range(substeps):
+            state, _ = step(bmodel, state, tau)
+        return state
+
+    t0 = time.perf_counter()
+    out = roll()
+    _sync(device)
+    warmup_s = time.perf_counter() - t0
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = roll()
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    best = min(times) if times else warmup_s
+    return {
+        "env": name, "batch": batch, "substeps": substeps,
+        "frame_skip": task.frame_skip, "runs": iters + 1,
+        "dr_fields": sorted(DR_SPEC), "kernel_path": not force_phasewise,
+        "device": str(device),
+        "device_name": (torch.cuda.get_device_name(device)
+                        if device.type == "cuda" else "cpu"),
+        "env_steps_per_s": batch * substeps / task.frame_skip / best,
+        "warmup_s": warmup_s, "iter_times_s": times,
+        "finite_state": bool(torch.isfinite(out.q).all()
+                             and torch.isfinite(out.dq).all()),
+    }
+
+
 def main():
     """python -m dartenv_tpu_torch.bench.throughput [--env walker2d]
     [--batch 4096 ...] [--horizon 100] [--iters 3] [--repeat 1]
     [--perturb] [--device cuda]: one JSON line per (batch, repeat) with
     the card's name and power limit beside the rate.  The horizon
-    defaults to 1000 for cartpole, 100 otherwise."""
+    defaults to 1000 for cartpole, 100 otherwise.  --dr measures bench_dr
+    instead (400 substeps, or --substeps), and --dr_phasewise its
+    phase-wise route."""
     import argparse
     import json
     import subprocess
@@ -150,6 +216,9 @@ def main():
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--perturb", action="store_true")
+    ap.add_argument("--dr", action="store_true")
+    ap.add_argument("--dr_phasewise", action="store_true")
+    ap.add_argument("--substeps", type=int, default=400)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     card = "cpu"
@@ -161,9 +230,15 @@ def main():
     horizon = args.horizon or (1000 if args.env == "cartpole" else 100)
     for batch in args.batch:
         for rep in range(args.repeat):
-            out = bench_env(args.env, batch=batch, horizon=horizon,
-                            iters=args.iters, device=args.device, seed=rep,
-                            perturb=args.perturb)
+            if args.dr or args.dr_phasewise:
+                out = bench_dr(args.env, batch=batch,
+                               substeps=args.substeps, iters=args.iters,
+                               device=args.device, seed=rep,
+                               force_phasewise=args.dr_phasewise)
+            else:
+                out = bench_env(args.env, batch=batch, horizon=horizon,
+                                iters=args.iters, device=args.device,
+                                seed=rep, perturb=args.perturb)
             print(json.dumps({"card": card, "repeat": rep, **out}),
                   flush=True)
 

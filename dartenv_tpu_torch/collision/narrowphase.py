@@ -101,20 +101,24 @@ def collide(model: SkelModel, R_w, p_w) -> Contacts:
         pg = p_w[:, bidx] + sp.mv(Rb, model.geom_pos[gi])
         n = model.wg_normal[wi]
         off = model.wg_offset[wi]
-        fric = torch.minimum(model.geom_friction[gi], model.wg_friction[wi])
-        rest = torch.maximum(model.geom_restitution[gi],
-                             model.wg_restitution[wi])
+        # size, friction and restitution may carry a leading env axis
+        # (domain randomization): index from the end
+        size = model.geom_size[..., gi, :]                  # (3,) or (B, 3)
+        fric = torch.minimum(model.geom_friction[..., gi],
+                             model.wg_friction[..., wi])
+        rest = torch.maximum(model.geom_restitution[..., gi],
+                             model.wg_restitution[..., wi])
         if gt == GEOM_SPHERE:
-            cpos, cdep = _halfspace_point(pg, model.geom_size[gi, 0], n, off)
+            cpos, cdep = _halfspace_point(pg, size[..., 0], n, off)
             cpos, cdep = cpos[:, None], cdep[:, None]
         elif gt == GEOM_CAPSULE:
-            r, hl = model.geom_size[gi, 0], model.geom_size[gi, 1]
+            r, hl = size[..., 0:1], size[..., 1:2]
             axis = Rg[..., :, 2]
             ends = torch.stack([pg + axis * hl, pg - axis * hl], dim=1)
             cpos, cdep = _halfspace_point(ends, r, n, off)
         elif gt == GEOM_BOX:
             corners = torch.tensor(_CORNERS8, dtype=dtype,
-                                   device=device) * model.geom_size[gi]
+                                   device=device) * size[..., None, :]
             cw = pg[:, None, :] + sp.mv(Rg[:, None], corners)   # (B, 8, 3)
             dist = torch.sum(cw * n, dim=-1) - off
             cdep, top_i = topk_stable(-dist, 4)
@@ -127,8 +131,8 @@ def collide(model: SkelModel, R_w, p_w) -> Contacts:
         pos_l.append(cpos)
         nrm_l.append(n.expand(B, k, 3))
         dep_l.append(cdep)
-        fr_l.append(fric.expand(B, k))
-        re_l.append(rest.expand(B, k))
+        fr_l.append(fric.reshape(-1, 1).expand(B, k))
+        re_l.append(rest.reshape(-1, 1).expand(B, k))
     if not pos_l:
         z3 = torch.zeros((B, 0, 3), dtype=dtype, device=device)
         z = torch.zeros((B, 0), dtype=dtype, device=device)

@@ -30,9 +30,14 @@
 // and tables as __constant__ arrays from a header generated from the
 // model's static digest (dynamics_model.h; one build per digest).  A
 // group's lanes read different bodies' rows at once, which the constant
-// cache serves one address at a time.  Domain-randomized model leaves as per-env inputs
-// (the JAX kernel's DR_FIELDS_DYN) are not ported yet: they wait for the
-// domain-randomization slice of the port.
+// cache serves one address at a time.  Domain-randomized model leaves (the
+// JAX kernel's DR_FIELDS_DYN) are per-env inputs when the generated header
+// carries a DR layout (DR_F floats per env, one (B, width) float32 array
+// per leaf, in the order of its c_dr_w / c_dr_o tables): the block copies
+// its envs' rows of every leaf into the env's block of shared memory, each
+// leaf's rows read as one coalesced run, and dynamics_body.h's accessors
+// read the leaves there instead of in their __constant__ tables.  Without
+// a DR layout the kernel is the same as before DR inputs existed.
 //
 // Built with -fmad=false: products and sums round separately, like the
 // plain PyTorch version (dynamics/hopper_dynamics.dynamics_reference);
@@ -71,15 +76,19 @@ __device__ unsigned long long dy_cycles[DY_NSTAGES];
 #include "dynamics_body.h"
 
 // floats of one env in shared memory: q, dq, tau, dq_star, M, phi, R_w,
-// p_w, L and the group's scratch
+// p_w, L, the group's scratch and the DR block
 #define DY_ENV_F (4 * DY_N + 2 * DY_N * DY_N + 6 * DY_N + 12 * DY_NB \
-                  + DY_SCRATCH)
+                  + DY_SCRATCH + DR_F)
 
 __global__ void __launch_bounds__(DY_THREADS)
 dynamics_kernel(const float* __restrict__ q_g, const float* __restrict__ dq_g,
                 const float* __restrict__ tau_g, float* __restrict__ dqs_g,
                 float* __restrict__ M_g, float* __restrict__ phi_g,
-                float* __restrict__ Rw_g, float* __restrict__ pw_g, int B) {
+                float* __restrict__ Rw_g, float* __restrict__ pw_g, int B
+#if DR_F
+                , const DrInputs dr_g
+#endif
+                ) {
     extern __shared__ float smem[];
     const int k = threadIdx.x / DY_G, gl = threadIdx.x % DY_G;
     const int e0 = blockIdx.x * DY_EPB;
@@ -95,6 +104,7 @@ dynamics_kernel(const float* __restrict__ q_g, const float* __restrict__ dq_g,
     float* spw = sRw + DY_EPB * 9 * DY_NB;
     float* sL = spw + DY_EPB * 3 * DY_NB;
     float* sscr = sL + DY_EPB * DY_N * DY_N;
+    float* sdr = sscr + DY_EPB * DY_SCRATCH;   // DR_F floats per env
     DY_STAMP_DECL
 
     const size_t in0 = (size_t)e0 * DY_N;
@@ -104,12 +114,15 @@ dynamics_kernel(const float* __restrict__ q_g, const float* __restrict__ dq_g,
         sdq[i] = in ? dq_g[in0 + i] : 0.0f;
         stau[i] = in ? tau_g[in0 + i] : 0.0f;
     }
+#if DR_F
+    dr_load_block(dr_g, sdr, DR_F, DY_EPB, e0, nv);
+#endif
     __syncthreads();
     DY_STAMP(0);
     dyn_group(gl, sq + k * DY_N, sdq + k * DY_N, stau + k * DY_N,
               sRw + k * 9 * DY_NB, spw + k * 3 * DY_NB, sphi + k * 6 * DY_N,
               sM + k * DY_N * DY_N, sdqs + k * DY_N, sL + k * DY_N * DY_N,
-              sscr + k * DY_SCRATCH);
+              sscr + k * DY_SCRATCH, sdr + k * DR_F);
     __syncthreads();
     DY_STAMP_RESTART
     for (int i = threadIdx.x; i < nv * DY_N; i += DY_THREADS)
@@ -126,8 +139,8 @@ dynamics_kernel(const float* __restrict__ q_g, const float* __restrict__ dq_g,
 }
 
 extern "C" int dynamics_dims(int* out) {
-    out[0] = DY_N; out[1] = DY_NB; out[2] = DY_G;
-    return 3;
+    out[0] = DY_N; out[1] = DY_NB; out[2] = DY_G; out[3] = DR_F;
+    return 4;
 }
 
 // The stage cycles summed over warps since the last call (cleared);
@@ -145,9 +158,12 @@ extern "C" int dynamics_stage_cycles(unsigned long long* out) {
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = ok).
+// dr: DR_NF pointers to the DR leaves' (B, c_dr_w[f]) arrays (ignored
+// without a DR layout).
 extern "C" int dynamics_launch(const float* q, const float* dq,
                                const float* tau, float* dq_star, float* M,
-                               float* phi, float* R_w, float* p_w, int B,
+                               float* phi, float* R_w, float* p_w,
+                               const float* const* dr, int B,
                                void* stream) {
     const int bytes = DY_EPB * DY_ENV_F * (int)sizeof(float);
     if (bytes > 48 * 1024) {
@@ -157,7 +173,15 @@ extern "C" int dynamics_launch(const float* q, const float* dq,
         if (e != cudaSuccess) return (int)e;
     }
     const int grid = (B + DY_EPB - 1) / DY_EPB;
+#if DR_F
+    DrInputs dr_in;
+    for (int f = 0; f < DR_NF; ++f) dr_in.p[f] = dr[f];
+    dynamics_kernel<<<grid, DY_THREADS, bytes, (cudaStream_t)stream>>>(
+        q, dq, tau, dq_star, M, phi, R_w, p_w, B, dr_in);
+#else
+    (void)dr;
     dynamics_kernel<<<grid, DY_THREADS, bytes, (cudaStream_t)stream>>>(
         q, dq, tau, dq_star, M, phi, R_w, p_w, B);
+#endif
     return (int)cudaGetLastError();
 }

@@ -62,6 +62,86 @@
 #endif
 
 
+// ---- per-env domain-randomized leaves --------------------------------------
+// A leaf named in the generated header's DR layout (DR_HAS_<LEAF>, at float
+// offset DR_O_<LEAF> of the env's block of DR_F floats, flattened row-major
+// as the model array) is read from that block, `dr`; any other leaf from its
+// DY_CONST table.  The functions below take `dr` (unused without a DR
+// layout, which then compiles to the same code as before the layout
+// existed).  The JAX kernel's DR_FIELDS_DYN: mass, com, inertia, damping,
+// spring_stiff, rest_pos, gravity.
+#ifndef DR_F
+#define DR_F 0
+#define DR_NF 0
+#endif
+#if DR_F
+// the DR leaves' arrays of a launch: one (B, c_dr_w[f]) float32 array per
+// leaf, in the order of the generated c_dr_w / c_dr_o tables
+struct DrInputs {
+    const float* p[DR_NF];
+};
+#ifdef __CUDACC__
+// The block's threads copy the DR blocks of envs e0 .. e0 + nenv - 1 into
+// dst + k * stride (env e0 + k), each leaf's rows read as one coalesced
+// run; an env k >= nv (past the batch) takes env e0 + nv - 1's values.
+__device__ __forceinline__ void dr_load_block(const DrInputs& in, float* dst,
+                                              int stride, int nenv, int e0,
+                                              int nv) {
+#pragma unroll
+    for (int f = 0; f < DR_NF; ++f) {
+        const int w = c_dr_w[f], o = c_dr_o[f];
+        const float* src = in.p[f] + (size_t)e0 * w;
+        for (int i = threadIdx.x; i < nenv * w; i += blockDim.x) {
+            const int k = i / w, j = i - k * w;
+            dst[k * stride + o + j] = src[(k < nv ? k : nv - 1) * w + j];
+        }
+    }
+}
+#else
+// A host build's copy of env e's DR block into dst.
+static inline void dr_load_env(const float* const* in, float* dst, int e) {
+    for (int f = 0; f < DR_NF; ++f)
+        for (int j = 0; j < c_dr_w[f]; ++j)
+            dst[c_dr_o[f] + j] = in[f][(size_t)e * c_dr_w[f] + j];
+}
+#endif
+#endif
+#ifdef DR_HAS_MASS
+#define DY_MASS(b) dr[DR_O_MASS + (b)]
+#else
+#define DY_MASS(b) c_mass[b]
+#endif
+#ifdef DR_HAS_COM
+#define DY_COM(b) (&dr[DR_O_COM + 3 * (b)])
+#else
+#define DY_COM(b) (&c_com[3 * (b)])
+#endif
+#ifdef DR_HAS_INERTIA
+#define DY_INERTIA(b) (&dr[DR_O_INERTIA + 9 * (b)])
+#else
+#define DY_INERTIA(b) (&c_inertia[9 * (b)])
+#endif
+#ifdef DR_HAS_DAMPING
+#define DY_DAMP(d) dr[DR_O_DAMPING + (d)]
+#else
+#define DY_DAMP(d) c_damping[d]
+#endif
+#ifdef DR_HAS_SPRING_STIFF
+#define DY_SPRING(d) dr[DR_O_SPRING_STIFF + (d)]
+#else
+#define DY_SPRING(d) c_spring[d]
+#endif
+#ifdef DR_HAS_REST_POS
+#define DY_REST(d) dr[DR_O_REST_POS + (d)]
+#else
+#define DY_REST(d) c_rest[d]
+#endif
+#ifdef DR_HAS_GRAVITY
+#define DY_GRAV(k) dr[DR_O_GRAVITY + (k)]
+#else
+#define DY_GRAV(k) c_gravity[k]
+#endif
+
 DI float dot3(const float* a, const float* b) {
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
@@ -170,11 +250,12 @@ DI void ad_cj(int b, const float* row6, float* o6) {
     for (int k = 0; k < 3; ++k) o6[3 + k] += t[k];
 }
 // body-frame spatial inertia times motion vector (structural form)
-DI void inertia_mul(int b, const float* v6, float* o6) {
-    const float m_b = c_mass[b];
-    const float* c = &c_com[3 * b];
+DI void inertia_mul(const float* dr, int b, const float* v6, float* o6) {
+    (void)dr;
+    const float m_b = DY_MASS(b);
+    const float* c = DY_COM(b);
     float Icw[3], cxw[3], d[3], t[3];
-    m3v(&c_inertia[9 * b], v6, Icw);
+    m3v(DY_INERTIA(b), v6, Icw);
     cross3(c, v6, cxw);
     for (int k = 0; k < 3; ++k) d[k] = v6[3 + k] - cxw[k];
     cross3(c, d, t);
@@ -350,12 +431,13 @@ DI void joint_kin(int b, const float* q, const float* dq, float* Rj,
 // diag(dt d + dt^2 k).
 DI void dyn_stage(const float* q, const float* dq, const float* tau,
                   float (*R_w)[9], float (*p_w)[3], float (*phi)[6],
-                  float* M, float* dq_star, float* L) {
+                  float* M, float* dq_star, float* L, const float* dr) {
+    (void)dr;
     // ---- joint kinematics + tree recursion ------------------------------
     float vel[DY_NB][6], ab[DY_NB][6];
     float S[DY_N][6], Sd[DY_N][6];
-    const float a_base[6] = {0.0f, 0.0f, 0.0f, -c_gravity[0], -c_gravity[1],
-                             -c_gravity[2]};
+    const float a_base[6] = {0.0f, 0.0f, 0.0f, -DY_GRAV(0), -DY_GRAV(1),
+                             -DY_GRAV(2)};
 #pragma unroll 1
     for (int b = 0; b < DY_NB; ++b) {
         float Rj[9] = {1, 0, 0, 0, 1, 0, 0, 0, 1};
@@ -418,11 +500,11 @@ DI void dyn_stage(const float* q, const float* dq, const float* tau,
     for (int i = 0; i < DY_N * DY_N; ++i) M[i] = 0.0f;
 #pragma unroll 1
     for (int b = 0; b < DY_NB; ++b) {
-        const float m_b = c_mass[b];
+        const float m_b = DY_MASS(b);
         float d_w[3], IcR[9], Ic_w[9], t3[3];
-        m3v(R_w[b], &c_com[3 * b], t3);
+        m3v(R_w[b], DY_COM(b), t3);
         for (int k = 0; k < 3; ++k) d_w[k] = p_w[b][k] + t3[k];
-        m3m(R_w[b], &c_inertia[9 * b], IcR);
+        m3m(R_w[b], DY_INERTIA(b), IcR);
         m3mt(IcR, R_w[b], Ic_w);
         float F[DY_N][6];
         for (int j = 0; j < DY_N; ++j) {
@@ -451,8 +533,8 @@ DI void dyn_stage(const float* q, const float* dq, const float* tau,
     float f_sub[DY_NB][6];
     for (int b = 0; b < DY_NB; ++b) {
         float Ia[6], Iv[6], cf[6], fb[6], t3[3];
-        inertia_mul(b, ab[b], Ia);
-        inertia_mul(b, vel[b], Iv);
+        inertia_mul(dr, b, ab[b], Ia);
+        inertia_mul(dr, b, vel[b], Iv);
         crf6(vel[b], Iv, cf);
         for (int c = 0; c < 6; ++c) fb[c] = Ia[c] + cf[c];
         // inverse force transform (E = R_w^T, r = p_w)
@@ -475,11 +557,11 @@ DI void dyn_stage(const float* q, const float* dq, const float* tau,
         float Cd = 0.0f;
         for (int c = 0; c < 6; ++c) Cd += phi[d][c] * f_sub[b][c];
         float td = tau[d] - Cd;
-        td -= c_damping[d] * dq[d];
-        td -= c_spring[d] * ((q[d] - c_rest[d]) + DY_DT * dq[d]);
+        td -= DY_DAMP(d) * dq[d];
+        td -= DY_SPRING(d) * ((q[d] - DY_REST(d)) + DY_DT * dq[d]);
         rhs[d] = td;
-        Mi[d * DY_N + d] += DY_DT * c_damping[d]
-                            + (DY_DT * DY_DT) * c_spring[d];
+        Mi[d * DY_N + d] += DY_DT * DY_DAMP(d)
+                            + (DY_DT * DY_DT) * DY_SPRING(d);
     }
     chol_n(Mi, L);
     chol_solve_n(L, rhs, ddq);
@@ -525,7 +607,9 @@ DI void dyn_stage(const float* q, const float* dq, const float* tau,
 // lanes; visible to the group after its last GL_SYNC).
 DI void dyn_group(int gl, const float* q, const float* dq, const float* tau,
                   float* R_w, float* p_w, float* phi, float* M,
-                  float* dq_star, float* L, float* scr) {
+                  float* dq_star, float* L, float* scr,
+                  const float* dr) {
+    (void)dr;
     float* S = scr + DY_O_S;
     float* vel = scr + DY_O_VEL;
     float* ab = scr + DY_O_AB;
@@ -579,8 +663,8 @@ DI void dyn_group(int gl, const float* q, const float* dq, const float* tau,
     DY_STAMP(1);
 
     // ---- world composition, one tree level at a time --------------------
-    const float a_base[6] = {0.0f, 0.0f, 0.0f, -c_gravity[0], -c_gravity[1],
-                             -c_gravity[2]};
+    const float a_base[6] = {0.0f, 0.0f, 0.0f, -DY_GRAV(0), -DY_GRAV(1),
+                             -DY_GRAV(2)};
     for (int lv = 0; lv < DY_NLEVEL; ++lv) {
         GL_FOR(t, c_lvl_start[lv], c_lvl_start[lv + 1]) {
             const int b = c_lvl_body[t];
@@ -628,15 +712,15 @@ DI void dyn_group(int gl, const float* q, const float* dq, const float* tau,
     // ---- mass matrix: M[i][j] = sum_b phi_i . (I_w(b) phi_j) ------------
     GL_FOR(b, 0, DY_NB) {                   // world COM and inertia
         float IcR[9], t3[3];
-        m3v(&R_w[9 * b], &c_com[3 * b], t3);
+        m3v(&R_w[9 * b], DY_COM(b), t3);
         for (int k = 0; k < 3; ++k) d_w[3 * b + k] = p_w[3 * b + k] + t3[k];
-        m3m(&R_w[9 * b], &c_inertia[9 * b], IcR);
+        m3m(&R_w[9 * b], DY_INERTIA(b), IcR);
         m3mt(IcR, &R_w[9 * b], &Ic_w[9 * b]);
     }
     GL_SYNC();
     GL_FOR(t, 0, DY_NF) {                   // F columns of (body, dof)
         const int b = c_f_body[t], j = c_f_dof[t];
-        const float m_b = c_mass[b];
+        const float m_b = DY_MASS(b);
         const float* dw = &d_w[3 * b];
         const float* pj = &phi[6 * j];
         float* Fj = &F[6 * (b * DY_N + j)];
@@ -670,8 +754,8 @@ DI void dyn_group(int gl, const float* q, const float* dq, const float* tau,
     GL_FOR(b, 0, DY_NB) {
         float Ia[6], Iv[6], cf[6], fb[6], t3[3];
         float* fs = &f_sub[6 * b];
-        inertia_mul(b, &ab[6 * b], Ia);
-        inertia_mul(b, &vel[6 * b], Iv);
+        inertia_mul(dr, b, &ab[6 * b], Ia);
+        inertia_mul(dr, b, &vel[6 * b], Iv);
         crf6(&vel[6 * b], Iv, cf);
         for (int c = 0; c < 6; ++c) fb[c] = Ia[c] + cf[c];
         // inverse force transform (E = R_w^T, r = p_w)
@@ -697,7 +781,7 @@ DI void dyn_group(int gl, const float* q, const float* dq, const float* tau,
         float v = M[k];
         if (k % (DY_N + 1) == 0) {
             const int d = k / (DY_N + 1);
-            v += DY_DT * c_damping[d] + (DY_DT * DY_DT) * c_spring[d];
+            v += DY_DT * DY_DAMP(d) + (DY_DT * DY_DT) * DY_SPRING(d);
         }
         Mi[k] = v;
     }
@@ -706,8 +790,8 @@ DI void dyn_group(int gl, const float* q, const float* dq, const float* tau,
         float Cd = 0.0f;
         for (int c = 0; c < 6; ++c) Cd += phi[6 * d + c] * f_sub[6 * b + c];
         float td = tau[d] - Cd;
-        td -= c_damping[d] * dq[d];
-        td -= c_spring[d] * ((q[d] - c_rest[d]) + DY_DT * dq[d]);
+        td -= DY_DAMP(d) * dq[d];
+        td -= DY_SPRING(d) * ((q[d] - DY_REST(d)) + DY_DT * dq[d]);
         rhs[d] = td;
     }
     GL_SYNC();

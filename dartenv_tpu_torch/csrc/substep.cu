@@ -50,7 +50,16 @@
 // The model is NOT passed at run time: sizes are compile-time constants
 // and the model tables are __constant__ arrays, both from a header
 // generated from the model's static digest (substep_model.h; one build per
-// distinct digest).
+// distinct digest).  Domain randomization (the JAX kernel's DR_FIELDS_SUB:
+// mass, com, inertia, damping, spring_stiff, rest_pos, gravity,
+// geom_friction, geom_restitution, wg_friction, wg_restitution, geom_size)
+// makes chosen leaves per-env inputs: the digest then carries a DR layout
+// (dynamics_body.h, one build per DR field set), each leaf is one
+// (B, width) float32 array, the block copies its envs' rows into each
+// env's working set (DR_F floats at SM_DR; each leaf's rows one coalesced
+// run, then the block's barrier) and the stages read them there; the
+// implicit spring / damping factor is then always on (SS_IMPLICIT).
+// Without a DR layout the kernel is the same as before DR inputs existed.
 //
 // Joint types: all ten (the shared dynamics stage computes each).  Geoms: sphere, capsule, box.  The
 // per-env arithmetic lives in substep_body.h, whose dynamics stage is
@@ -98,11 +107,22 @@ substep_kernel(const float* __restrict__ q_g, const float* __restrict__ dq_g,
                float* __restrict__ lamf_g, float* __restrict__ res_g,
                float* __restrict__ ovf_g, float* __restrict__ cpos_g,
                float* __restrict__ cdep_g, float* __restrict__ cact_g,
-               float* __restrict__ esc_g, int B) {
+               float* __restrict__ esc_g, int B
+#if DR_F
+               , const DrInputs dr_g
+#endif
+               ) {
     extern __shared__ float smem[];
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int e0 = blockIdx.x * SS_WARPS;
     SS_STAMP_DECL
+#if DR_F
+    // the DR blocks of the block's envs, before the dynamics stage reads
+    // them
+    dr_load_block(dr_g, smem + SM_DR, SS_SMEM, SS_WARPS, e0,
+                  min(SS_WARPS, B - e0));
+    __syncthreads();
+#endif
     // the dynamics stage: one thread per env, the block's envs on the
     // first lanes of warp 0
     if (warp == 0 && lane < SS_WARPS && e0 + lane < B)
@@ -117,8 +137,8 @@ substep_kernel(const float* __restrict__ q_g, const float* __restrict__ dq_g,
 
 extern "C" int substep_dims(int* out) {
     out[0] = SS_N; out[1] = SS_M; out[2] = SS_NS; out[3] = SS_ESC;
-    out[4] = SS_WARPS;
-    return 5;
+    out[4] = SS_WARPS; out[5] = DR_F;
+    return 6;
 }
 
 // Dynamic shared memory of one block (SS_WARPS envs), in bytes.
@@ -141,12 +161,15 @@ extern "C" int substep_stage_cycles(unsigned long long* out) {
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = ok).
+// dr: DR_NF pointers to the DR leaves' (B, c_dr_w[f]) arrays (ignored
+// without a DR layout).
 extern "C" int substep_launch(const float* q, const float* dq,
                               const float* tau, const float* lam_prev,
                               float* dq_plus, float* lam_full, float* res,
                               float* overflow, float* con_pos,
                               float* con_depth, float* con_active,
-                              float* esc, int B, void* stream) {
+                              float* esc, const float* const* dr, int B,
+                              void* stream) {
     const int bytes = substep_smem_bytes();
     if (bytes > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
@@ -155,8 +178,17 @@ extern "C" int substep_launch(const float* q, const float* dq,
         if (err != cudaSuccess) return (int)err;
     }
     const int grid = (B + SS_WARPS - 1) / SS_WARPS;
+#if DR_F
+    DrInputs dr_in;
+    for (int f = 0; f < DR_NF; ++f) dr_in.p[f] = dr[f];
+    substep_kernel<<<grid, SS_WARPS * 32, bytes, (cudaStream_t)stream>>>(
+        q, dq, tau, lam_prev, dq_plus, lam_full, res, overflow, con_pos,
+        con_depth, con_active, esc, B, dr_in);
+#else
+    (void)dr;
     substep_kernel<<<grid, SS_WARPS * 32, bytes, (cudaStream_t)stream>>>(
         q, dq, tau, lam_prev, dq_plus, lam_full, res, overflow, con_pos,
         con_depth, con_active, esc, B);
+#endif
     return (int)cudaGetLastError();
 }

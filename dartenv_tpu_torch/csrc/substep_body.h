@@ -40,13 +40,58 @@
 #define SM_SEL (SM_A + SS_MC_A * SS_LDA)     // int: compacted row -> slot
 #define SM_FLAG (SM_SEL + SS_CAP_A)         // int: slot among the top cap
 #define SM_SLOTR (SM_FLAG + SS_NS_A)        // int: slot -> compacted row
-#define SS_SMEM (SM_SLOTR + SS_NS_A)
+#define SM_DR (SM_SLOTR + SS_NS_A)          // the env's DR block (DR_F)
+#define SS_SMEM (SM_DR + DR_F)
 // the generated header's count (engine/hopper_substep.smem_floats), from
 // which it derived SS_WARPS
 static_assert(SS_SMEM == SS_SMEM_FLOATS,
               "substep_model.h was generated for another working-set size");
 // rows per lane of the PGS sweeps (pgs_row.h)
 #define SS_PG_R ((SS_MC_A + PG_LANES - 1) / PG_LANES)
+
+// ---- per-env domain-randomized contact leaves ----------------------------
+// With geom_size / geom_friction / geom_restitution / wg_friction /
+// wg_restitution in the generated header's DR layout (dynamics_body.h), a
+// world pair g reads them from the env's DR block `dr` at its geom
+// c_g_gi[g] and world geom c_g_wi[g]; its slots' friction is the min and
+// their restitution the max of the two sides (the JAX kernel's
+// _apply_dr_sub), a side without a DR leaf taking its static value.
+// Without such leaves the folded per-pair tables are read, as before.
+#ifdef DR_HAS_GEOM_SIZE
+#define SS_GSIZE(g) (&dr[DR_O_GEOM_SIZE + 3 * c_g_gi[g]])
+#else
+#define SS_GSIZE(g) (&c_g_size[3 * (g)])
+#endif
+#ifdef DR_HAS_GEOM_FRICTION
+#define SS_FRIC_G(g) dr[DR_O_GEOM_FRICTION + c_g_gi[g]]
+#else
+#define SS_FRIC_G(g) c_g_fric_g[g]
+#endif
+#ifdef DR_HAS_WG_FRICTION
+#define SS_FRIC_W(g) dr[DR_O_WG_FRICTION + c_g_wi[g]]
+#else
+#define SS_FRIC_W(g) c_g_fric_w[g]
+#endif
+#if defined(DR_HAS_GEOM_FRICTION) || defined(DR_HAS_WG_FRICTION)
+#define SS_FRIC(g) fminf(SS_FRIC_G(g), SS_FRIC_W(g))
+#else
+#define SS_FRIC(g) c_g_fric[g]
+#endif
+#ifdef DR_HAS_GEOM_RESTITUTION
+#define SS_REST_G(g) dr[DR_O_GEOM_RESTITUTION + c_g_gi[g]]
+#else
+#define SS_REST_G(g) c_g_rest_g[g]
+#endif
+#ifdef DR_HAS_WG_RESTITUTION
+#define SS_REST_W(g) dr[DR_O_WG_RESTITUTION + c_g_wi[g]]
+#else
+#define SS_REST_W(g) c_g_rest_w[g]
+#endif
+#if defined(DR_HAS_GEOM_RESTITUTION) || defined(DR_HAS_WG_RESTITUTION)
+#define SS_REST(g) fmaxf(SS_REST_G(g), SS_REST_W(g))
+#else
+#define SS_REST(g) c_g_rest[g]
+#endif
 
 // Stage stamps (see substep.cu); nothing in a normal or host build.
 #ifndef SS_STAMP
@@ -58,7 +103,8 @@ static_assert(SS_SMEM == SS_SMEM_FLOATS,
 // envs of a block on the lanes of one warp, one env per lane, as the
 // dynamics kernel does): reads row e of q, dq, tau into the env's scratch
 // `sm` and leaves there R_w, p_w, phi, M (in the `esc` block), dq_star and
-// the Cholesky factor L of M (dynamics_body.h).
+// the Cholesky factor L of M (dynamics_body.h).  A DR build's leaves are
+// read from the env's DR block at SM_DR, loaded before.
 SS_FN void substep_dyn(int e, float* sm, const float* __restrict__ q_g,
                        const float* __restrict__ dq_g,
                        const float* __restrict__ tau_g) {
@@ -73,7 +119,7 @@ SS_FN void substep_dyn(int e, float* sm, const float* __restrict__ q_g,
     }
     dyn_stage(q, dq, tau, (float (*)[9])(sm + SM_RW),
               (float (*)[3])(sm + SM_PW), (float (*)[6])(sm + SM_PHI), M,
-              sm + SM_DQS, sm + SM_L);
+              sm + SM_DQS, sm + SM_L, sm + SM_DR);
 #if SS_IMPLICIT
     chol_n(M, sm + SM_L);  // the A build factors M itself, not M + diag
 #endif
@@ -117,6 +163,8 @@ SS_FN void substep_warp(int e, int lane, float* sm,
     int* sel = (int*)(sm + SM_SEL);
     int* flag = (int*)(sm + SM_FLAG);
     int* slot_r = (int*)(sm + SM_SLOTR);
+    const float* dr = sm + SM_DR;          // read by the SS_* accessors
+    (void)dr;
     SS_STAMP_DECL
 
     // ---- collision: halfspace slots, lanes over geoms ---------------------
@@ -124,7 +172,7 @@ SS_FN void substep_warp(int e, int lane, float* sm,
         const int b = c_g_body[g];
         const float* nrm = &c_g_n[3 * g];
         const float off = c_g_off[g];
-        const float* size = &c_g_size[3 * g];
+        const float* size = SS_GSIZE(g);
         float Rg[9], pg[3], t3[3];
         m3m(R_w[b], &c_g_rot[9 * g], Rg);
         m3v(R_w[b], &c_g_pos[3 * g], t3);
@@ -253,7 +301,7 @@ SS_FN void substep_warp(int e, int lane, float* sm,
                     if (r3 == 0) vnb += jv * dq[i];
                 }
             }
-            const float bounce = c_g_rest[g] * fmaxf(-vnb, 0.0f);
+            const float bounce = SS_REST(g) * fmaxf(-vnb, 0.0f);
             const float erp_push = fminf(
                 SS_ERP_DT * fmaxf(slot_depth[s] - SS_ALLOWANCE, 0.0f),
                 SS_MAX_ERV);
@@ -263,7 +311,7 @@ SS_FN void substep_warp(int e, int lane, float* sm,
                 bv[row] = (r3 == 0) ? vstar[0] - desired : vstar[r3];
                 lov[row] = (r3 == 0) ? 0.0f : -BIGF;
                 hiv[row] = BIGF;
-                muv[row] = (r3 == 0) ? 0.0f : c_g_fric[g];
+                muv[row] = (r3 == 0) ? 0.0f : SS_FRIC(g);
                 act[row] = slot_active[s];
             }
         } else if (t < SS_CAP + SS_NLIM) {        // limit rows

@@ -10,7 +10,8 @@
 
 extern "C" int substep_dims(int* out) {
     out[0] = SS_N; out[1] = SS_M; out[2] = SS_NS; out[3] = SS_ESC;
-    return 4;
+    out[4] = SS_WARPS; out[5] = DR_F;
+    return 6;
 }
 
 extern "C" int substep_host(const float* q, const float* dq,
@@ -18,9 +19,14 @@ extern "C" int substep_host(const float* q, const float* dq,
                             float* dq_plus, float* lam_full, float* res,
                             float* overflow, float* con_pos,
                             float* con_depth, float* con_active,
-                            float* esc, int B) {
+                            float* esc, const float* const* dr, int B) {
     static float sm[SS_SMEM];
     for (int e = 0; e < B; ++e) {
+#if DR_F
+        dr_load_env(dr, sm + SM_DR, e);
+#else
+        (void)dr;
+#endif
         substep_dyn(e, sm, q, dq, tau);
         substep_warp(e, 0, sm, lam_prev, dq_plus, lam_full, res, overflow,
                      con_pos, con_depth, con_active, esc);

@@ -235,7 +235,9 @@ def bkin(model: SkelModel, q, dq) -> BKin:
                                             Sdot * dq[..., None])
 
     E = R_rel.transpose(-1, -2)
-    a_base = torch.cat([q.new_zeros(3), -model.gravity]).expand(B, 6)
+    # gravity may carry a leading env axis (domain randomization)
+    g = model.gravity
+    a_base = torch.cat([torch.zeros_like(g), -g], dim=-1).expand(B, 6)
     R_l, p_l, v_l, a_l = [], [], [], []
     for i in range(nb):
         par = int(idx.parent[i])
@@ -267,7 +269,14 @@ def bkin(model: SkelModel, q, dq) -> BKin:
 
 
 def _body_inertias(model: SkelModel):
-    return sp.spatial_inertia(model.mass, model.com, model.inertia)
+    """(nb, 6, 6) body-frame spatial inertias, or (B, nb, 6, 6) when any
+    of mass / com / inertia carries a leading env axis (domain
+    randomization; the others are broadcast over it)."""
+    mass, com, inertia = model.mass, model.com, model.inertia
+    lead = torch.broadcast_shapes(mass.shape, com.shape[:-1],
+                                  inertia.shape[:-2])
+    return sp.spatial_inertia(mass.expand(lead), com.expand(*lead, 3),
+                              inertia.expand(*lead, 3, 3))
 
 
 def world_jacobians(model: SkelModel, kin: BKin):
@@ -334,11 +343,15 @@ def forward_dynamics(model: SkelModel, kin: BKin, q, dq, tau, dt,
                      f_ext_world=None):
     """(ddq, M) with the implicit spring/damper scheme:
     (M + diag(dt d + dt^2 k)) ddq = tau - d dq - k (q - rest + dt dq) - C,
-    C including the external forces `f_ext_world` (see bias_forces)."""
+    C including the external forces `f_ext_world` (see bias_forces).
+    d, k and the rest positions may carry a leading env axis (domain
+    randomization)."""
     M = mass_matrix(model, kin)
     C = bias_forces(model, kin, f_ext_world)
     d, k = model.damping, model.spring_stiff
     tau_total = tau - d * dq - k * (q - model.rest_pos + dt * dq) - C
-    Mi = M + torch.diag(dt * d + dt * dt * k)
+    diag = dt * d + dt * dt * k
+    Mi = M + (torch.diag(diag) if diag.ndim == 1
+              else torch.diag_embed(diag))
     ddq = solve_psd(Mi, tau_total, eps=1e-10)
     return ddq, M

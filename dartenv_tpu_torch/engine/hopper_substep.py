@@ -22,6 +22,13 @@ escalation runs the exact tiers and, with SolverConfig.escalate_ref > 0,
 the compensated refinement tier (lcp/dantzig.refine_compensated);
 escalate_ref64 (the mixed-precision tier) is not ported and raises.
 
+Domain randomization: with `dr_fields` (a subset of DR_FIELDS_SUB) those
+model leaves are per-env inputs, (B, ...) values passed after tau; the
+kernel is built with a DR layout (one build per field set) and the plain
+version runs on the model with those leaves replaced by the per-env
+values.  The escalation takes none: it rebuilds from the substep's M, Jc,
+b and mu, which the DR leaves have already shaped.
+
 `SUBSTEP_LAUNCHES` counts kernel launches; `PLAIN_CALLS` counts runs of
 the plain version (so a run can show it took none).
 """
@@ -38,7 +45,8 @@ from dartenv_tpu_torch import cuda_build
 from dartenv_tpu_torch.collision.narrowphase import Contacts, collide
 from dartenv_tpu_torch.dynamics import batched
 from dartenv_tpu_torch.dynamics.hopper_dynamics import (
-    c_float, c_floats, c_ints, dynamics_header,
+    DR_FIELDS_DYN, c_ptrs, c_float, c_floats, c_ints, dr_inputs, dr_layout,
+    dynamics_header, with_leaves,
 )
 from dartenv_tpu_torch.engine.constraints import (
     assemble_lcp, build_layout, compact_lam, compacted_findex,
@@ -51,7 +59,7 @@ from dartenv_tpu_torch.lcp.hybrid import (
 )
 from dartenv_tpu_torch.lcp.pgs import pgs_solve
 from dartenv_tpu_torch.math.linalg import (
-    _UNROLL_MAX, _pmm, chol, chol_solve, inv_psd,
+    _UNROLL_MAX, chol, chol_solve, inv_psd, seq_mm, seq_mv,
 )
 from dartenv_tpu_torch.model.skel_model import (
     GEOM_BOX, GEOM_CAPSULE, GEOM_SPHERE, JOINT_NAMES, SkelModel,
@@ -66,6 +74,14 @@ _NSLOTS = {GEOM_SPHERE: 1, GEOM_CAPSULE: 2, GEOM_BOX: 4}
 
 _OUT_FIELDS = ("dq_plus", "lam_full", "res", "overflow", "con_pos",
                "con_depth", "con_active", "esc")
+
+# Model leaves the substep kernel takes as per-env inputs (the JAX kernel's
+# DR_FIELDS_SUB): the dynamics kernel's and the contact values its
+# collision and row stages read.  Layout leaves stay static.
+DR_FIELDS_SUB = DR_FIELDS_DYN + (
+    "geom_friction", "geom_restitution", "wg_friction", "wg_restitution",
+    "geom_size",
+)
 
 
 def in_fused_scope(model: SkelModel) -> bool:
@@ -185,24 +201,25 @@ SMEM_PER_SM = 233472
 MAX_ENVS_PER_BLOCK = 16
 
 
-def smem_floats(st: _SubStatic) -> int:
+def smem_floats(st: _SubStatic, dr_width: int = 0) -> int:
     """Floats of kernel 1's per-env working set in shared memory: SS_SMEM
     of csrc/substep_body.h (its layout macros), which static_asserts that
-    the two agree."""
+    the two agree; dr_width: the floats of the env's DR block."""
     n, nb, cap = st.n, st.nb, max(1, st.cap)
     ns, mc = max(1, st.ns), max(1, st.m_c)
     return (_esc_layout(st)[1] + 10 * n + n * n + 12 * nb + 8 * ns
-            + mc * (n + (mc | 1)) + cap)
+            + mc * (n + (mc | 1)) + cap + dr_width)
 
 
-def launch_shape(st: _SubStatic):
+def launch_shape(st: _SubStatic, dr_width: int = 0):
     """(envs per block, min blocks per SM) of kernel 1 for this digest:
     the most envs (one warp each, at most MAX_ENVS_PER_BLOCK, and at most
     32 because the dynamics stage takes one lane of warp 0 per env) whose
     working sets fit in the shared memory a block may opt in to; two
     blocks per SM (the 64-register launch bound) where two such blocks fit
-    on an SM, else one.  Walker2d and hopper: (16, 2)."""
-    per_env = 4 * smem_floats(st)
+    on an SM, else one.  Walker2d and hopper: (16, 2).  dr_width: the
+    floats of an env's DR block, part of its working set."""
+    per_env = 4 * smem_floats(st, dr_width)
     warps = min(MAX_ENVS_PER_BLOCK, 32, SMEM_BLOCK_OPTIN // per_env)
     if warps < 1:
         raise NotImplementedError(
@@ -267,13 +284,15 @@ def substep_reference(model: SkelModel, st: _SubStatic, q, dq, tau,
 # the CUDA kernel: generated model header, build, launch wrapper
 # ---------------------------------------------------------------------------
 
-def model_header(model: SkelModel, st: _SubStatic) -> str:
+def model_header(model: SkelModel, st: _SubStatic, dr_fields=()) -> str:
     """The C header that fixes csrc/substep.cu to one model: the dynamics
-    stage's sizes and tables (dynamics/hopper_dynamics.dynamics_header),
-    then the launch shape (`launch_shape`), the substep's sizes and solver
-    constants as macros and its contact, limit and friction tables as
-    DY_CONST arrays (__constant__ under nvcc, static const in the host
-    build)."""
+    stage's sizes and tables (dynamics/hopper_dynamics.dynamics_header,
+    with the DR layout of `dr_fields`), then the launch shape
+    (`launch_shape`), the substep's sizes and solver constants as macros
+    and its contact, limit and friction tables as DY_CONST arrays
+    (__constant__ under nvcc, static const in the host build); with DR
+    fields also each world pair's geom and world-geom index and the
+    unfolded friction and restitution of both sides."""
     bad = unsupported_joints(model)
     if bad:
         raise NotImplementedError(
@@ -284,22 +303,28 @@ def model_header(model: SkelModel, st: _SubStatic) -> str:
     lay = st.layout
     damping, spring = h("damping"), h("spring_stiff")
     f = c_float
-    warps, blocks = launch_shape(st)
+    dr_width = sum(w for _, _, w in dr_layout(model, dr_fields))
+    warps, blocks = launch_shape(st, dr_width)
+    # per-env damping or springs are not known when the kernel is built:
+    # the implicit factor is then always on
+    implicit = (bool(np.any(damping != 0) or np.any(spring != 0))
+                or "damping" in dr_fields or "spring_stiff" in dr_fields)
     defs = dict(
-        SS_WARPS=warps, SS_MIN_BLOCKS=blocks, SS_SMEM_FLOATS=smem_floats(st),
+        SS_WARPS=warps, SS_MIN_BLOCKS=blocks,
+        SS_SMEM_FLOATS=smem_floats(st, dr_width),
         SS_N=n, SS_NB=nb, SS_NG=len(st.slots), SS_NS=st.ns,
         SS_NS_A=max(1, st.ns), SS_CAP=st.cap, SS_CAP_A=max(1, st.cap),
         SS_M=lay.m, SS_MC=st.m_c, SS_MC_A=max(1, st.m_c),
         SS_NLIM=len(lay.limit_dofs), SS_NFRIC=len(lay.friction_dofs),
         SS_PGS_ITERS=int(cfg.pgs_iters), SS_ESC=_esc_layout(st)[1],
         SS_COMPACT=int(st.compact),
-        SS_IMPLICIT=int(bool(np.any(damping != 0) or np.any(spring != 0))),
+        SS_IMPLICIT=int(implicit),
         SS_DT=f(dt), SS_ERP_DT=f(cfg.erp / dt), SS_ALLOWANCE=f(cfg.allowance),
         SS_MAX_ERV=f(cfg.max_erv), SS_JERP_DT=f(cfg.joint_erp / dt),
         SS_CFM=f(cfg.cfm), SS_OMEGA=f(cfg.pgs_omega),
         SS_CONTACT_EPS=f(cfg.contact_eps),
     )
-    out = [dynamics_header(model)]
+    out = [dynamics_header(model, dr_fields)]
     out += [f"#define {k} {v}\n" for k, v in defs.items()]
     sl = st.slots
     slot0 = np.cumsum([0] + [d["nslots"] for d in sl])[:-1]
@@ -321,20 +346,40 @@ def model_header(model: SkelModel, st: _SubStatic) -> str:
         c_floats("c_dof_friction", h("dof_friction")),
         c_ints("c_findex", st.findex_c),
     ]
+    if dr_fields:
+        gf, wf = h("geom_friction"), h("wg_friction")
+        gr, wr = h("geom_restitution"), h("wg_restitution")
+        out += [
+            c_ints("c_g_gi", col("gi")), c_ints("c_g_wi", col("wi")),
+            c_floats("c_g_fric_g", [gf[d["gi"]] for d in sl]),
+            c_floats("c_g_fric_w", [wf[d["wi"]] for d in sl]),
+            c_floats("c_g_rest_g", [gr[d["gi"]] for d in sl]),
+            c_floats("c_g_rest_w", [wr[d["wi"]] for d in sl]),
+        ]
     return "".join(out)
 
 
 class SubstepKernel:
-    """The substep kernel built for one model digest."""
+    """The substep kernel built for one model digest and DR field set (a
+    subset of DR_FIELDS_SUB, each leaf then a per-env input)."""
 
-    def __init__(self, model: SkelModel, st: Optional[_SubStatic] = None):
+    def __init__(self, model: SkelModel, st: Optional[_SubStatic] = None,
+                 dr_fields=()):
+        bad = [f for f in dr_fields if f not in DR_FIELDS_SUB]
+        if bad:
+            raise ValueError(f"the substep kernel takes no per-env {bad}; "
+                             f"its DR leaves are {DR_FIELDS_SUB}")
+        self.model = model
         self.st = st or _SubStatic(model)
+        self.dr_fields = tuple(dr_fields)
+        self.dr_width = sum(w for _, _, w in dr_layout(model, dr_fields))
+        self.shape = launch_shape(self.st, self.dr_width)
         self.sizes = _out_sizes(self.st)
         ends = np.cumsum([0] + [self.sizes[f] for f in _OUT_FIELDS])
         self._spans = {f: (int(ends[i]), int(ends[i + 1]))
                        for i, f in enumerate(_OUT_FIELDS)}
         self._width = int(ends[-1])
-        self._header = model_header(model, self.st)
+        self._header = model_header(model, self.st, self.dr_fields)
         self._build = None
         self._lib = None
         self._host_lib = None
@@ -347,24 +392,27 @@ class SubstepKernel:
                 deps=("substep_body.h", "dynamics_body.h", "pgs_row.h"))
         return self._build
 
+    def _check_dims(self, lib):
+        dims = (ctypes.c_int * 6)()
+        lib.substep_dims(dims)
+        want = [self.st.n, self.st.layout.m, self.st.ns, self.sizes["esc"],
+                self.shape[0], self.dr_width]
+        if list(dims) != want:
+            raise RuntimeError(
+                f"substep kernel built for sizes {list(dims)}, the model "
+                f"needs {want}")
+
     def load(self):
         if self._lib is None:
             lib = cuda_build.finish_build(self.start_build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.substep_launch.argtypes = [vp] * 12 + [ci, vp]
+            lib.substep_launch.argtypes = [vp] * 13 + [ci, vp]
             lib.substep_launch.restype = ci
-            dims = (ctypes.c_int * 5)()
-            lib.substep_dims(dims)
-            want = [self.st.n, self.st.layout.m, self.st.ns,
-                    self.sizes["esc"], launch_shape(self.st)[0]]
-            if list(dims) != want:
-                raise RuntimeError(
-                    f"substep kernel built for sizes {list(dims)}, the "
-                    f"model needs {want}")
+            self._check_dims(lib)
             self._lib = lib
         return self._lib
 
-    def run_host(self, q, dq, tau, lam_prev):
+    def run_host(self, q, dq, tau, lam_prev, *dr_vals):
         """The kernel's per-env arithmetic (csrc/substep_body.h) built
         with the host C++ compiler and run as a loop over envs on float32
         CPU tensors.  For tests on machines without a GPU: nothing on the
@@ -375,24 +423,29 @@ class SubstepKernel:
                 "dartenv_substep_host", "substep_host.cpp",
                 header_text=self._header, header_name="substep_model.h",
                 deps=("substep_body.h", "dynamics_body.h", "pgs_row.h"))
-            lib.substep_host.argtypes = [ctypes.c_void_p] * 12 + [
+            lib.substep_host.argtypes = [ctypes.c_void_p] * 13 + [
                 ctypes.c_int]
             lib.substep_host.restype = ctypes.c_int
+            self._check_dims(lib)
             self._host_lib = lib
         ins = [x.to(torch.float32).contiguous()
                for x in (q, dq, tau, lam_prev)]
         if any(x.is_cuda for x in ins):
             raise ValueError("run_host takes CPU tensors")
+        dr = dr_inputs(self.model, self.dr_fields,
+                       [v.to(torch.float32) for v in dr_vals], B, "cpu",
+                       "substep host build")
         outs = {f: torch.zeros((B, self.sizes[f]), dtype=torch.float32)
                 for f in _OUT_FIELDS}
         self._host_lib.substep_host(
             *[x.data_ptr() for x in ins],
-            *[outs[f].data_ptr() for f in _OUT_FIELDS], B)
+            *[outs[f].data_ptr() for f in _OUT_FIELDS], c_ptrs(dr), B)
         return outs
 
-    def __call__(self, q, dq, tau, lam_prev):
-        """q, dq, tau: (B, n); lam_prev: (B, m); float32 CUDA tensors.
-        Returns the eight `_OUT_FIELDS` as (B, k) tensors."""
+    def __call__(self, q, dq, tau, lam_prev, *dr_vals):
+        """q, dq, tau: (B, n); lam_prev: (B, m); float32 CUDA tensors;
+        dr_vals: the values of the DR leaves, (B, ...) float32 on the same
+        device.  Returns the eight `_OUT_FIELDS` as (B, k) tensors."""
         global SUBSTEP_LAUNCHES
         st = self.st
         B = q.shape[0]
@@ -405,6 +458,8 @@ class SubstepKernel:
                     f"substep kernel: {name} must be a float32 CUDA tensor "
                     f"of shape {(B, k)}, got {x.dtype} {tuple(x.shape)} on "
                     f"{x.device}")
+        dr = dr_inputs(self.model, self.dr_fields, dr_vals, B, q.device,
+                       "substep kernel")
         lib = self.load()
         ins = [x.contiguous() for x in (q, dq, tau, lam_prev)]
         # one allocation; each output a contiguous (B, k) view of it
@@ -418,7 +473,8 @@ class SubstepKernel:
             stream = torch.cuda.current_stream().cuda_stream
             code = lib.substep_launch(
                 *[x.data_ptr() for x in ins],
-                *[outs[f].data_ptr() for f in _OUT_FIELDS], B, stream)
+                *[outs[f].data_ptr() for f in _OUT_FIELDS], c_ptrs(dr), B,
+                stream)
         cuda_build.check_launch(code, "substep kernel")
         SUBSTEP_LAUNCHES += 1
         return outs
@@ -427,10 +483,10 @@ class SubstepKernel:
 _KERNELS: Dict[str, SubstepKernel] = {}
 
 
-def get_substep_kernel(model: SkelModel,
-                       st: Optional[_SubStatic] = None) -> SubstepKernel:
-    """The (cached) kernel object for this model's digest."""
-    k = SubstepKernel(model, st)
+def get_substep_kernel(model: SkelModel, st: Optional[_SubStatic] = None,
+                       dr_fields=()) -> SubstepKernel:
+    """The (cached) kernel object for this model's digest and DR fields."""
+    k = SubstepKernel(model, st, dr_fields)
     return _KERNELS.setdefault(k._header, k)
 
 
@@ -442,7 +498,9 @@ def gather_escalation(st: _SubStatic, cfg, outs):
     """Top-K by residual and ONE gather of the packed `esc` buffer; the
     boxed LCPs of the worst K envs, operator rebuilt from M and Jc with the
     port's own Cholesky.  Returns a dict (worst, idx, A, b, lo, hi, mu,
-    act, lam_c, sel_slots, MinvJt)."""
+    act, lam_c, sel_slots, MinvJt).  Its sums run in the escalation
+    kernel's order (math/linalg.seq_mm): it is the plain version of the
+    kernel's rebuild."""
     n, m_c = st.n, st.m_c
     res = outs["res"][:, 0]
     B = res.shape[0]
@@ -454,11 +512,11 @@ def gather_escalation(st: _SubStatic, cfg, outs):
     Jk = blk["Jc"].reshape(K, m_c, n)
     Jt = Jk.transpose(-1, -2)
     if n > _UNROLL_MAX:
-        MinvJt = _pmm(inv_psd(Mk, eps=1e-10), Jt)
+        MinvJt = seq_mm(inv_psd(Mk, eps=1e-10, seq=True), Jt)
     else:
         MinvJt = chol_solve(chol(Mk, eps=1e-10), Jt)
     eye = torch.eye(m_c, dtype=actk.dtype, device=actk.device)
-    Ak = _pmm(Jk, MinvJt) + cfg.cfm * eye
+    Ak = seq_mm(Jk, MinvJt) + cfg.cfm * eye
     Ak = (Ak * actk[:, :, None] * actk[:, None, :]
           + eye * (1.0 - actk)[:, None, :])
     return dict(worst=worst, idx=idx, A=Ak, b=blk["b"], lo=blk["lo"],
@@ -492,14 +550,14 @@ def escalate_reference(st: _SubStatic, cfg, outs, dq_plus, lam_full,
         lam_ref = refine_compensated(*prob[:4], st.findex_c, *prob[4:],
                                      lam_new, passes=cfg.escalate_ref)
         res_ref = comp_residual(*prob[:2], lam_ref, *prob[2:4],
-                                st.findex_c, *prob[4:])
+                                st.findex_c, *prob[4:], seq=True)
         take_r = (res_kept > cfg.escalate_tol) & (res_ref < res_kept)
         lam_new = torch.where(take_r[:, None], lam_ref, lam_new)
         res_kept = torch.where(take_r, res_ref, res_kept)
         take = take | take_r
     dlam = torch.where(take[:, None], lam_new - lamk,
                        torch.zeros_like(lamk))
-    dqp_delta = torch.sum(g["MinvJt"] * dlam[:, None, :], dim=-1)
+    dqp_delta = seq_mv(g["MinvJt"], dlam)
     slots = torch.arange(ns, dtype=dlam.dtype, device=dlam.device)
     Wk = (g["sel_slots"][:, :, None] == slots).to(dlam.dtype)
     dlam_con = dlam[:, : 3 * cap].reshape(K, cap, 3)
@@ -550,17 +608,42 @@ def escalate_batch(st: _SubStatic, cfg, outs, dq_plus, lam_full,
 # the substep phase
 # ---------------------------------------------------------------------------
 
-def make_substep_phase(model: SkelModel):
-    """sub(q, dq, lam_prev, tau) -> (q_new, dq_plus, lam_full, Contacts)
-    for a batch, or None when the model is outside the fused path's scope
-    (the caller keeps the phase-wise path).
+def slot_contact_values(model: SkelModel, dr_fields, dr_vals, gi, wi, ref):
+    """(friction, restitution) of every contact slot, (ns,) on the model's
+    static values, or (B, ns) where a DR leaf of either side is per-env:
+    min of the geom's and the world geom's friction, max of their
+    restitution (what the kernel's rows and its plain version read).
+    gi, wi: each slot's geom and world geom, index tensors on ref's
+    device."""
+    dr = dict(zip(dr_fields, dr_vals))
+    leaf = lambda f: (dr[f] if f in dr else getattr(model, f)).to(
+        device=ref.device, dtype=ref.dtype)
+    fric = torch.minimum(leaf("geom_friction")[..., gi],
+                         leaf("wg_friction")[..., wi])
+    rest = torch.maximum(leaf("geom_restitution")[..., gi],
+                         leaf("wg_restitution")[..., wi])
+    return fric, rest
 
-    A float32 CUDA batch runs the substep kernel + `escalate_batch` (the
-    escalation kernel's fused mode) + `integrate_positions`; a CPU or
-    float64 batch runs the plain versions in the same sequence."""
+
+def make_substep_phase(model: SkelModel, dr_fields=()):
+    """sub(q, dq, lam_prev, tau, *dr_vals) -> (q_new, dq_plus, lam_full,
+    Contacts) for a batch, or None when the model is outside the fused
+    path's scope (the caller keeps the phase-wise path) or a DR field is
+    outside DR_FIELDS_SUB.
+
+    dr_vals: the per-env values of the `dr_fields` leaves, (B, ...)
+    tensors; `model` is then the base model, whose values of those leaves
+    are ignored, and the Contacts carry per-env friction and restitution
+    where those leaves are per-env.  A float32 CUDA batch runs the
+    substep kernel + `escalate_batch` (the escalation kernel's fused mode)
+    + `integrate_positions`; a CPU or float64 batch runs the plain
+    versions in the same sequence."""
+    dr_fields = tuple(dr_fields)
     if not in_fused_scope(model):
         return None
     if model.solver.solver != "pgs":
+        return None
+    if any(f not in DR_FIELDS_SUB for f in dr_fields):
         return None
     st = _SubStatic(model)
     cfg = model.solver
@@ -570,6 +653,9 @@ def make_substep_phase(model: SkelModel):
     rep = lambda k: [d[k] for d in st.slots for _ in range(d["nslots"])]
     slot_normal = t(rep("n")).reshape(ns, 3)
     slot_fric, slot_rest = t(rep("fric")), t(rep("rest"))
+    per_env_contact = bool(set(dr_fields) & {
+        "geom_friction", "wg_friction", "geom_restitution",
+        "wg_restitution"})
 
     exact1 = exact2 = None
     if cfg.escalate_frac > 0.0 and st.m_c > 0:
@@ -586,24 +672,32 @@ def make_substep_phase(model: SkelModel):
             slot_consts[key] = tuple(
                 x.to(device=ref.device, dtype=ref.dtype)
                 for x in (slot_normal, slot_fric, slot_rest))
+            # each slot's geom and world geom, for per-env contact values
+            slot_consts[key] += tuple(
+                torch.as_tensor(rep(k), device=ref.device)
+                for k in ("gi", "wi"))
         return slot_consts[key]
 
-    def sub(q, dq, lam_prev, tau):
+    def sub(q, dq, lam_prev, tau, *dr_vals):
         global PLAIN_CALLS
         B = q.shape[0]
         if cuda_build.use_kernel(q):
             if kernel[0] is None:
-                kernel[0] = get_substep_kernel(model, st)
-            outs = kernel[0](q, dq, tau, lam_prev)
+                kernel[0] = get_substep_kernel(model, st, dr_fields)
+            outs = kernel[0](q, dq, tau, lam_prev, *dr_vals)
         else:
             PLAIN_CALLS += 1
-            outs = substep_reference(model, st, q, dq, tau, lam_prev)
+            outs = substep_reference(with_leaves(model, dr_fields, dr_vals),
+                                     st, q, dq, tau, lam_prev)
         dq_plus, lam_full = outs["dq_plus"], outs["lam_full"]
         if exact1 is not None:
             dq_plus, lam_full = escalate_batch(
                 st, cfg, outs, dq_plus, lam_full, exact1, exact2)
         q_new = batched.integrate_positions(model, q, dq_plus, dt)
-        normal, fric, rest = consts(q)
+        normal, fric, rest, gi, wi = consts(q)
+        if per_env_contact:
+            fric, rest = slot_contact_values(model, dr_fields, dr_vals, gi,
+                                             wi, q)
         contacts = Contacts(
             pos=outs["con_pos"].reshape(B, ns, 3),
             normal=normal.expand(B, ns, 3),

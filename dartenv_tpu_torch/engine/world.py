@@ -22,7 +22,7 @@ for escalation, on a float32 CUDA batch).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -64,6 +64,31 @@ def init_state(model: SkelModel, batch: int, warm_start: bool = True
     return SimState(q=q, dq=dq, time=q.new_zeros(batch), lam=lam)
 
 
+def phasewise_substep(model: SkelModel, layout, state: SimState, tau,
+                      dyn=None, f_ext_world=None):
+    """Steps 1-5 of one substep as separate phases: the dynamics phase
+    `dyn(q, dq, tau)` (or, when dyn is None, the plain dynamics/batched
+    path with the external force `f_ext_world`), collision,
+    solve_constraints, the position update.  `model` may carry per-env
+    leaves (domain randomization) that the plain stages read.  Returns
+    (q_new, dq_plus, lam, Contacts)."""
+    q, dq, dt = state.q, state.dq, model.dt
+    if dyn is not None:
+        dq_star, M, phi, R_w, p_w = dyn(q, dq, tau)
+    else:
+        kin = batched.bkin(model, q, dq)
+        ddq, M = batched.forward_dynamics(model, kin, q, dq, tau, dt,
+                                          f_ext_world)
+        dq_star = dq + dt * ddq
+        phi, R_w, p_w = kin.phi, kin.R_w, kin.p_w
+    contacts = collide(model, R_w, p_w)
+    dq_plus, lam = solve_constraints(
+        model, layout, phi, M, q, dq, dq_star, contacts, dt,
+        lam_prev=state.lam)
+    q_new = batched.integrate_positions(model, q, dq_plus, dt)
+    return q_new, dq_plus, lam, contacts
+
+
 def make_sim_step(model: SkelModel, return_impulses: bool = False
                   ) -> Callable:
     """Build the single-substep function of a model:
@@ -83,19 +108,43 @@ def make_sim_step(model: SkelModel, return_impulses: bool = False
                         else q.new_zeros((q.shape[0], layout.m)))
             q_new, dq_plus, lam, contacts = sub_phase(q, dq, lam_prev, tau)
         else:
-            if dyn_phase is not None and f_ext_world is None:
-                dq_star, M, phi, R_w, p_w = dyn_phase(q, dq, tau)
-            else:
-                kin = batched.bkin(model, q, dq)
-                ddq, M = batched.forward_dynamics(model, kin, q, dq, tau,
-                                                  dt, f_ext_world)
-                dq_star = dq + dt * ddq
-                phi, R_w, p_w = kin.phi, kin.R_w, kin.p_w
-            contacts = collide(model, R_w, p_w)
-            dq_plus, lam = solve_constraints(
-                model, layout, phi, M, q, dq, dq_star, contacts, dt,
-                lam_prev=state.lam)
-            q_new = batched.integrate_positions(model, q, dq_plus, dt)
+            dyn = dyn_phase if f_ext_world is None else None
+            q_new, dq_plus, lam, contacts = phasewise_substep(
+                model, layout, state, tau, dyn, f_ext_world)
+        out = (contacts, lam) if return_impulses else contacts
+        lam_carry = lam if state.lam is not None else None
+        return SimState(q=q_new, dq=dq_plus, time=state.time + dt,
+                        lam=lam_carry), out
+
+    return step
+
+
+def make_dr_sim_step(model: SkelModel, dr_fields,
+                     return_impulses: bool = False) -> Optional[Callable]:
+    """The fused-path sim step of a domain-randomized batch:
+    step(state, tau, dr_vals) -> (state', Contacts), or (state',
+    (Contacts, lam)) with `return_impulses`; dr_vals is a tuple of the
+    per-env values of the `dr_fields` leaves ((B, ...) tensors, in that
+    order).  `model` is the base model (every static structure, and the
+    values of the leaves that are not randomized).  A float32 CUDA batch
+    runs the substep kernel with the DR leaves as per-env inputs, then the
+    escalation kernel's fused mode and the position update; a CPU or
+    float64 batch runs their plain versions on the per-env model.  None
+    when the fused path cannot serve the model or a field is outside
+    hopper_substep.DR_FIELDS_SUB (the caller keeps the phase-wise path)."""
+    dr_fields = tuple(dr_fields)
+    sub_phase = make_substep_phase(model, dr_fields=dr_fields)
+    if sub_phase is None:
+        return None
+    layout = build_layout(model)
+    dt = model.dt
+
+    def step(state: SimState, tau, dr_vals):
+        q, dq = state.q, state.dq
+        lam_prev = (state.lam if state.lam is not None
+                    else q.new_zeros((q.shape[0], layout.m)))
+        q_new, dq_plus, lam, contacts = sub_phase(q, dq, lam_prev, tau,
+                                                  *dr_vals)
         out = (contacts, lam) if return_impulses else contacts
         lam_carry = lam if state.lam is not None else None
         return SimState(q=q_new, dq=dq_plus, time=state.time + dt,

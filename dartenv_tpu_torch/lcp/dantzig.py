@@ -218,7 +218,9 @@ def refine_compensated(A, b, lo, hi, findex, mu, active, x,
     clip to the bounds; a pass's point is kept only where its compensated
     residual (`comp_residual_ff`) is lower than the best so far (a wrong
     partition diverges; it never worsens the point).  A: (K, m, m),
-    vectors (K, m).  Returns the best point (K, m)."""
+    vectors (K, m).  The correction solve sums in the escalation
+    kernel's order (math/linalg.solve_psd with seq), as the plain version
+    of its refinement tier.  Returns the best point (K, m)."""
     fidx, has_f = findex_tensors(findex, x.device)
     dtype = A.dtype
     has_f = has_f.to(dtype)
@@ -247,7 +249,7 @@ def refine_compensated(A, b, lo, hi, findex, mu, active, x,
         r = -_comp_matvec_add(A, xa, b) * fm
         Am = (A * fm[..., :, None] * fm[..., None, :]
               + eye * (1.0 - fm)[..., None, :])
-        d = solve_psd(Am, r, eps=1e-12) * fm
+        d = solve_psd(Am, r, eps=1e-12, seq=True) * fm
         x = torch.minimum(torch.maximum(xa + d, lo_e), hi_e)
         r_new = resid(x)
         better = r_new < best_r

@@ -51,6 +51,7 @@ import torch
 
 from dartenv_tpu_torch import cuda_build
 from dartenv_tpu_torch.lcp.pgs import findex_i32, findex_tensors
+from dartenv_tpu_torch.math.linalg import seq_mv
 
 _FREE, _AT_LO, _AT_HI = 0, 1, 2
 
@@ -185,11 +186,32 @@ def _gauss_solve(Am, r):
     return x
 
 
+def lane_sum(p):
+    """p (..., m) summed over its last axis in the order of the kernel's
+    polish rows (csrc/pgs_row.h row_dot): lane l's partial over
+    j = l, l + 32, ... in order, then the 32 partials added in the tree of
+    the xor butterfly (16, 8, 4, 2, 1)."""
+    m = p.shape[-1]
+    R = max(1, -(-m // 32))
+    pad = torch.zeros(p.shape[:-1] + (R * 32 - m,), dtype=p.dtype,
+                      device=p.device)
+    rows = torch.cat([p, pad], dim=-1).reshape(p.shape[:-1] + (R, 32))
+    part = torch.zeros_like(rows[..., 0, :])
+    for r in range(R):
+        part = part + rows[..., r, :]
+    for o in (16, 8, 4, 2, 1):
+        part = part[..., :o] + part[..., o:2 * o]
+    return part[..., 0]
+
+
 def bpp_solve_reference(A, b, lo, hi, findex, mu, active, iters: int = 24,
                         polish_iters: int = 10, lam0=None,
                         refine_iters=None):
     """Plain PyTorch version of the kernel.  A: (B, m, m); b, lo, hi, mu,
-    active, lam0: (B, m); findex: static numpy (m,).  Returns lam (B, m)."""
+    active, lam0: (B, m); findex: static numpy (m,).  Returns lam (B, m).
+    Its sums run in the kernel's order on any device: the matvecs over
+    columns in order (math/linalg.seq_mv), a polish row as the kernel's
+    lane partials and butterfly (`lane_sum`)."""
     B, m = b.shape
     dtype, device = A.dtype, A.device
     if m == 0:
@@ -219,12 +241,12 @@ def bpp_solve_reference(A, b, lo, hi, findex, mu, active, iters: int = 24,
         x_fixed = torch.where(state == _AT_LO, lo_i,
                               torch.where(state == _AT_HI, hi_i, zero))
         x_fixed = x_fixed * active * (1.0 - fmask)
-        Axf = torch.sum(A * x_fixed[:, None, :], dim=-1)
+        Axf = seq_mv(A, x_fixed)
         rhs = -(b + Axf) * fmask
         Am = (A * fmask[:, :, None] * fmask[:, None, :]
               + eye * (1.0 - fmask)[:, None, :])
         x_new = _gauss_solve(Am, rhs) * fmask + x_fixed
-        w = torch.sum(A * x_new[:, None, :], dim=-1) + b
+        w = seq_mv(A, x_new) + b
         state = torch.where(free & (x_new < lo_i - 1e-12), full(_AT_LO),
                             state)
         state = torch.where(free & (x_new > hi_i + 1e-12), full(_AT_HI),
@@ -241,7 +263,7 @@ def bpp_solve_reference(A, b, lo, hi, findex, mu, active, iters: int = 24,
     state = torch.zeros_like(b, dtype=torch.int32)
     state = torch.where(x <= lo_w + 1e-12, full(_AT_LO), state)
     state = torch.where(x >= hi_w - 1e-12, full(_AT_HI), state)
-    w0 = torch.sum(A * x[:, None, :], dim=-1) + b
+    w0 = seq_mv(A, x) + b
     state = torch.where((state == _AT_LO) & (w0 < 0.0), full(_FREE), state)
     state = torch.where((state == _AT_HI) & (w0 > 0.0), full(_FREE), state)
 
@@ -261,7 +283,7 @@ def bpp_solve_reference(A, b, lo, hi, findex, mu, active, iters: int = 24,
     lam = x.clone()
     for _ in range(polish_iters):
         for i in range(m):
-            w_i = torch.sum(A[:, i, :] * lam, dim=-1) + b[:, i]
+            w_i = lane_sum(A[:, i, :] * lam) + b[:, i]
             new = lam[:, i] - w_i * inv_diag[:, i]
             if findex[i] >= 0:
                 bound = mu[:, i] * torch.abs(lam[:, int(findex[i])])

@@ -30,18 +30,22 @@ import numpy as np
 import torch
 
 from dartenv_tpu_torch.lcp.pgs import findex_tensors
+from dartenv_tpu_torch.math.linalg import seq_mv
 
 
-def comp_residual(A, b, x, lo, hi, findex, mu, active):
+def comp_residual(A, b, x, lo, hi, findex, mu, active, seq: bool = False):
     """Normalized max complementarity violation at x's own friction-bound
     fixed point over active rows.  A: (..., m, m), vectors (..., m);
-    returns (...,) scalars normalized by max(1, |x|_inf) per problem."""
+    returns (...,) scalars normalized by max(1, |x|_inf) per problem.
+    seq: w = A x summed in the kernels' order (math/linalg.seq_mv), as the
+    escalation kernel's es_residual sums it."""
     fidx, has_f = findex_tensors(findex, x.device)
     has_f = has_f.to(x.dtype)
     bd = mu * torch.abs(x[..., fidx]) * has_f + 1e20 * (1 - has_f)
     lo_e = torch.maximum(lo, -bd)
     hi_e = torch.minimum(hi, bd)
-    w = torch.sum(A * x[..., None, :], dim=-1) + b
+    w = (seq_mv(A, x) if seq
+         else torch.sum(A * x[..., None, :], dim=-1)) + b
     scale = torch.clamp(torch.amax(torch.abs(x), dim=-1, keepdim=True),
                         min=1.0)
     eps = 1e-6 * scale + 1e-9
@@ -69,11 +73,13 @@ def keep_best(prob, findex, worst, lamk, tol, exact1, exact2=None):
     the optional tier 2 cold; a point is taken only where the residual it
     replaces exceeds `tol` and its own is lower.  Returns (lam_new, take,
     res_kept) with take (K,) bool: which envs changed, and res_kept (K,):
-    the residual of the point kept (`worst` where none was taken)."""
+    the residual of the point kept (`worst` where none was taken).  The
+    residuals sum in the kernels' order (it is the plain version of the
+    escalation kernel's fused and hybrid modes)."""
     A, b, lo, hi, mu, act = prob
 
     def resid(lam):
-        return comp_residual(A, b, lam, lo, hi, findex, mu, act)
+        return comp_residual(A, b, lam, lo, hi, findex, mu, act, seq=True)
 
     lam_ex = exact1(*prob, lamk)
     res_ex = resid(lam_ex)

@@ -102,47 +102,86 @@ def _pmm(a, b):
     return torch.sum(a[..., :, :, None] * b[..., None, :, :], dim=-2)
 
 
-def _inv_psd_rec(A):
+# The kernels' order of a sum: every entry starts from 0 and adds its terms
+# over the summed index in ascending order, each product and sum rounded
+# on its own (the CUDA kernels are built with -fmad=false).  torch.sum
+# adds in an order of its own, which differs between devices and from the
+# kernels' (scripts/torch_sum_order.py); the plain versions that a kernel
+# is held to env by env use these instead, on any device.
+
+def seq_mm(a, b):
+    """a @ b, (..., i, k) x (..., k, j), in the kernels' order."""
+    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-1] + (1,),
+                                             b.shape[:-2] + (1, 1))[:-1]
+                      + (b.shape[-1],), dtype=a.dtype, device=a.device)
+    for k in range(a.shape[-1]):
+        acc = acc + a[..., :, k, None] * b[..., None, k, :]
+    return acc
+
+
+def seq_mv(a, x):
+    """a @ x, (..., i, j) x (..., j), in the kernels' order."""
+    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-1],
+                                             x.shape[:-1] + (1,)),
+                      dtype=a.dtype, device=a.device)
+    for j in range(a.shape[-1]):
+        acc = acc + a[..., :, j] * x[..., j, None]
+    return acc
+
+
+def seq_sum(x):
+    """x summed over its last axis in the kernels' order."""
+    acc = torch.zeros_like(x[..., 0])
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def _inv_psd_rec(A, mm=_pmm):
     n = A.shape[-1]
     if n <= _UNROLL_MAX:
         Li = _tri_inv_unrolled(chol(A))
-        return _pmm(Li.transpose(-1, -2), Li)
+        return mm(Li.transpose(-1, -2), Li)
     k = (n + 1) // 2
     A11 = A[..., :k, :k]
     A12 = A[..., :k, k:]
     A22 = A[..., k:, k:]
-    i11 = _inv_psd_rec(A11)
-    U = _pmm(i11, A12)
-    S = A22 - _pmm(A12.transpose(-1, -2), U)
-    i22 = _inv_psd_rec(S)
-    B12 = -_pmm(U, i22)
-    B11 = i11 - _pmm(B12, U.transpose(-1, -2))
+    i11 = _inv_psd_rec(A11, mm)
+    U = mm(i11, A12)
+    S = A22 - mm(A12.transpose(-1, -2), U)
+    i22 = _inv_psd_rec(S, mm)
+    B12 = -mm(U, i22)
+    B11 = i11 - mm(B12, U.transpose(-1, -2))
     top = torch.cat([B11, B12], dim=-1)
     bot = torch.cat([B12.transpose(-1, -2), i22], dim=-1)
     return torch.cat([top, bot], dim=-2)
 
 
-def inv_psd(A, eps: float = 0.0):
+def inv_psd(A, eps: float = 0.0, seq: bool = False):
     """Explicit inverse of SPD A (..., n, n): unrolled Cholesky + unrolled
     triangular inverse for n <= _UNROLL_MAX, recursive 2x2 Schur-complement
     block inversion above.  In f32 a relative diagonal jitter guards
-    PSD-ness."""
+    PSD-ness.  seq: every sum in the kernels' order (seq_mm), as
+    csrc/linalg_body.h's la_inv_psd adds."""
     n = A.shape[-1]
     if eps or A.dtype == torch.float32:
         rel = 1e-6 if A.dtype == torch.float32 else 0.0
-        scale = torch.mean(torch.diagonal(A, dim1=-2, dim2=-1), dim=-1)
+        diag = torch.diagonal(A, dim1=-2, dim2=-1)
+        scale = (seq_sum(diag) / n if seq else torch.mean(diag, dim=-1))
         A = A + (eps + rel * scale)[..., None, None] * _eye(n, A)
-    return _inv_psd_rec(A)
+    return _inv_psd_rec(A, seq_mm if seq else _pmm)
 
 
-def solve_psd(A, b, eps: float = 0.0):
+def solve_psd(A, b, eps: float = 0.0, seq: bool = False):
     """Solve A x = b for SPD A: unrolled Cholesky + substitution for small
-    n, explicit `inv_psd` + product above _UNROLL_MAX."""
+    n, explicit `inv_psd` + product above _UNROLL_MAX (seq: its sums in
+    the kernels' order, as la_solve_psd adds)."""
     n = A.shape[-1]
     if n > _UNROLL_MAX:
-        Ainv = inv_psd(A, eps=eps)
+        Ainv = inv_psd(A, eps=eps, seq=seq)
         vec = b.ndim == A.ndim - 1
         if vec:
-            return torch.sum(Ainv * b[..., None, :], dim=-1)
-        return _pmm(Ainv, b)
+            return (seq_mv(Ainv, b) if seq
+                    else torch.sum(Ainv * b[..., None, :], dim=-1))
+        return (seq_mm if seq else _pmm)(Ainv, b)
     return chol_solve(chol(A, eps=eps), b)

@@ -1,0 +1,129 @@
+"""Domain randomization: per-env values of a model's physics leaves.
+
+A randomized batch is the base model with some numeric leaves replaced by
+tensors with a leading env axis (B, ...); the other leaves stay shared.
+`randomize_model` draws such a batch; `make_randomized_sim_step` steps it:
+
+  * a model inside the fused path's scope, with fields within
+    engine/hopper_substep.DR_FIELDS_SUB, runs engine/world.
+    make_dr_sim_step: on a float32 CUDA batch the substep kernel with the
+    DR leaves as per-env inputs, then the escalation kernel's fused mode;
+  * any other model runs the phase-wise step (engine/world.
+    phasewise_substep) with the per-env model: its dynamics phase is the
+    dynamics kernel with the DR_FIELDS_DYN leaves as per-env inputs, and
+    collision and the constraint solve read the per-env contact leaves.
+
+Leaves that define the static constraint / contact layout (LAYOUT_LEAVES)
+are read when a step is built and can not be randomized.  The plain
+versions take per-env values of the DR_FIELDS_SUB leaves only.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Sequence
+
+import torch
+
+from dartenv_tpu_torch.dynamics.hopper_dynamics import (
+    DR_FIELDS_DYN, make_dynamics_phase,
+)
+from dartenv_tpu_torch.engine.constraints import build_layout
+from dartenv_tpu_torch.engine.hopper_substep import DR_FIELDS_SUB
+from dartenv_tpu_torch.engine.world import (
+    SimState, make_dr_sim_step, phasewise_substep,
+)
+from dartenv_tpu_torch.model.skel_model import FLOAT_LEAVES, SkelModel
+
+# leaves whose values feed the static layout: never batch these
+LAYOUT_LEAVES = frozenset({
+    "limited", "dof_friction", "servo_flimit", "geom_body", "geom_type",
+    "ancestor_mask",
+})
+
+# steps of the phase-wise route whose dynamics ran the plain per-env
+# version (a model the dynamics kernel can not serve); chosen when the step
+# is built, counted when it runs
+PLAIN_DYNAMICS_STEPS = 0
+
+
+def check_fields(fields: Sequence[str]) -> tuple:
+    """The randomized fields as a tuple, after the check of the JAX
+    package's model_in_axes: ValueError for a layout leaf (or a name that
+    is not a numeric leaf); NotImplementedError for a numeric leaf whose
+    per-env values the port's plain versions do not take."""
+    fields = tuple(fields)
+    bad = set(fields) & LAYOUT_LEAVES
+    if bad:
+        raise ValueError(
+            f"cannot batch layout-defining leaves {sorted(bad)}; they are "
+            "read when the step is built, to make the static constraint "
+            "layout")
+    unknown = [f for f in fields if f not in FLOAT_LEAVES]
+    if unknown:
+        raise ValueError(f"{unknown} are not numeric model leaves")
+    other = [f for f in fields if f not in DR_FIELDS_SUB]
+    if other:
+        raise NotImplementedError(
+            f"per-env values of {other} are not ported; the randomizable "
+            f"leaves are {DR_FIELDS_SUB}")
+    return fields
+
+
+def randomize_model(model: SkelModel, spec: Dict[str, float],
+                    num_envs: int, generator: torch.Generator) -> SkelModel:
+    """Batched copy of `model`: each field in `spec` gets a leading env
+    axis, its values scaled per env by uniform(1 - s, 1 + s) (s =
+    spec[field]) drawn from `generator` (on the generator's device, then
+    moved to the model's)."""
+    kw = {}
+    for f, s in spec.items():
+        if f in LAYOUT_LEAVES:
+            raise ValueError(f"cannot randomize layout leaf {f!r}")
+        leaf = getattr(model, f)
+        u = torch.rand((num_envs,) + (1,) * leaf.ndim, generator=generator,
+                       device=generator.device, dtype=torch.float64)
+        scale = (1.0 - s) + (2.0 * s) * u
+        kw[f] = leaf[None] * scale.to(device=leaf.device, dtype=leaf.dtype)
+    return model.replace(**kw)
+
+
+def make_randomized_sim_step(model: SkelModel, fields: Sequence[str],
+                             force_phasewise: bool = False) -> Callable:
+    """stepper(bmodel, state, tau) -> (state', Contacts): one substep of a
+    batch whose `fields` carry per-env values in `bmodel` (as
+    randomize_model returns it; its other leaves are taken from `model`).
+    force_phasewise skips the fused route (the ablation of the
+    throughput bench)."""
+    fields = check_fields(fields)
+    kstep = None if force_phasewise else make_dr_sim_step(model, fields)
+    if kstep is not None:
+        def stepper(bmodel, state, tau):
+            return kstep(state, tau, tuple(getattr(bmodel, f)
+                                           for f in fields))
+        return stepper
+
+    # The phase-wise step with the per-env model.  Its dynamics phase is
+    # the dynamics kernel with the DR_FIELDS_DYN leaves passed explicitly:
+    # the route the JAX package's make_dynamics_phase prescribes for DR
+    # callers (its own fallback can not take it only because it runs the
+    # model traced under vmap).  The contact leaves go to collision and
+    # the constraint solve, which read the per-env model.
+    layout = build_layout(model)
+    dyn_fields = tuple(f for f in fields if f in DR_FIELDS_DYN)
+    dyn_phase = make_dynamics_phase(model, dyn_fields)
+
+    def stepper(bmodel, state, tau):
+        global PLAIN_DYNAMICS_STEPS
+        m = model.replace(**{f: getattr(bmodel, f) for f in fields})
+        if dyn_phase is not None:
+            vals = tuple(getattr(bmodel, f) for f in dyn_fields)
+            dyn = lambda q, dq, t: dyn_phase(q, dq, t, *vals)
+        else:
+            PLAIN_DYNAMICS_STEPS += 1
+            dyn = None
+        q_new, dq_plus, lam, contacts = phasewise_substep(
+            m, layout, state, tau, dyn)
+        lam_carry = lam if state.lam is not None else None
+        return SimState(q=q_new, dq=dq_plus, time=state.time + model.dt,
+                        lam=lam_carry), contacts
+
+    return stepper

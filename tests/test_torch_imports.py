@@ -53,7 +53,8 @@ def test_port_sources_exist():
               "model/assets/cartpole.skel",
               "model/assets/doublependulum.skel",
               "dynamics/hopper_dynamics.py", "lcp/hopper_pgs.py",
-              "envs/cart_pole.py", "envs/double_pendulum.py"):
+              "envs/cart_pole.py", "envs/double_pendulum.py",
+              "parallel/domain_rand.py"):
         assert os.path.exists(os.path.join(PKG, f)), f
 
 

@@ -47,3 +47,40 @@ def N(x):
 def rel_err(got, ref):
     got, ref = N(got).reshape(-1), N(ref).reshape(-1)
     return np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
+
+
+def dr_leaves(model, fields, B, seed):
+    """Per-env values of the DR leaves `fields` of a JAX SkelModel, drawn
+    with numpy from `seed`: each leaf scaled entry by entry by
+    uniform(0.7, 1.3), the inertia tensors by one such factor per body
+    (so they stay positive definite), spring stiffness uniform(0, 20) and
+    rest positions uniform(-0.1, 0.1) (zero in the shipped models).
+    Returns {field: (B, ...) float64 array}."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for f in fields:
+        base = np.asarray(getattr(model, f), np.float64)
+        shape = (B,) + base.shape
+        if f == "inertia":
+            v = base[None] * rng.uniform(0.7, 1.3, shape[:2] + (1, 1))
+        elif f == "spring_stiff":
+            v = rng.uniform(0.0, 20.0, shape)
+        elif f == "rest_pos":
+            v = rng.uniform(-0.1, 0.1, shape)
+        else:
+            v = base[None] * rng.uniform(0.7, 1.3, shape)
+        out[f] = v
+    return out
+
+
+def port_dr_model(model, leaves, dtype=torch.float64, device="cpu"):
+    """(JAX batched model, port base model, port batched model) of a JAX
+    SkelModel and per-env values of some of its leaves ({field: (B, ...)
+    array}): the batched models are the base with those leaves replaced,
+    carried across by the same path as port_model (a leaf with a leading
+    env axis becomes a (B, ...) tensor)."""
+    import jax.numpy as jnp
+
+    jb = model.replace(**{f: jnp.asarray(v) for f, v in leaves.items()})
+    return (jb, port_model(model, dtype=dtype, device=device),
+            port_model(jb, dtype=dtype, device=device))
