@@ -7,36 +7,48 @@ toolkit:  python3 chip_smoke.py
 It builds the port's four CUDA kernels from dartenv_tpu_torch/csrc (all
 nvcc processes started together) and then, in float32:
 
-  * for DartWalker2d and DartHopper at B = 4096, DartWalker3d at B = 4096
-    and DartHumanWalker at B = 1024 (the fused-substep path): the substep
-    kernel and the BPP kernel's core mode against their plain PyTorch
-    versions at that path's shapes; the escalation stage (the BPP kernel's
-    fused mode, one launch; humanwalker's with its compensated refinement
-    tier) against its plain version on the same substep outputs, and for
-    walker2d once more with a cold tier 2; the kernel path and a plain
-    path composed here in lockstep (B = 1024); for DartReacher (limit rows,
-    no contact, no escalation) at B = 4096 the substep kernel and the
-    lockstep;
+  * for DartWalker2d and DartHopper at B = 4096, DartWalker3d and DartDog
+    at B = 4096 and DartHumanWalker at B = 1024 (the fused-substep path):
+    the substep kernel and the BPP kernel's core mode against their plain
+    PyTorch versions at that path's shapes; the escalation stage (the BPP
+    kernel's fused mode, one launch; humanwalker's with its compensated
+    refinement tier, dog's with 32 + 2 pivots) against its plain version
+    on the same substep outputs, and for walker2d once more with a cold
+    tier 2; the kernel path and a plain path composed here in lockstep
+    (B = 1024); for DartReacher and DartReacher2d (limit rows, no contact,
+    no escalation) and DartSnake7Link (14 contact slots, no compaction, no
+    escalation; also on a raised ground, where its contacts are live) at
+    B = 4096 the substep kernel and the lockstep;
   * the dynamics kernel against its plain version on cartpole and the
     double pendulum at B = 8192, on walker2d states at B = 4096 and on two
     ModelBuilder chains that hold the six joint types the substep kernel
     lacks, at B = 1024; on cartpole at B = 8191 and walker2d states at
     B = 4095, whose last block is partly filled;
   * the PGS kernel against its plain version on the LCPs of perturbed
-    walker2d's phase-wise step and on random LCPs of 40 rows at B = 4096;
-    the BPP kernel's core mode on the hybrid's top K and its hybrid mode
-    (the whole escalation, one launch) against their plain versions on
-    the first, and the hybrid mode above 32 rows on walker3d's escalated
-    LCPs;
+    walker2d's phase-wise step and on random LCPs of 40 rows at B = 4096
+    and of perturbed humanwalker's (41 rows) at B = 1024; the BPP kernel's
+    core mode on walker2d's hybrid top K and its hybrid mode (the whole
+    escalation, one launch; humanwalker's with two refinement passes)
+    against their plain versions on both, and the hybrid mode above 32
+    rows on the escalated LCPs of walker3d, dog and humanwalker;
+  * the BPP kernel's core mode over whole batches, as the solver="dantzig"
+    mode runs it, on the phase-wise LCPs of walker2d (B = 4096, 24 rows),
+    walker3d (4096, 36) and humanwalker (1024, 41) against its plain
+    version;
   * lockstep control steps of cartpole and of perturbed walker2d at
-    B = 1024 beside plain paths composed here;
+    B = 1024 beside plain paths composed here, and one substep of
+    walker2d's solver="dantzig" mode (the dynamics kernel, then the BPP
+    kernel's core mode over the batch);
   * each path (bench_env: batched rollout under a random policy) with
     every kernel's launch counter and plain-call counter set to 0 just
     before it and read just after: walker2d and hopper, cartpole at
     B = 8192 for 1000 control steps, perturbed walker2d at B = 4096 for 100,
-    reacher and walker3d at B = 4096 for 100, humanwalker at B = 1024 for
-    100 (the first rollout of each path is bench_env's warm-up);
-  * per contact model, the residual envelope after the escalation (median,
+    reacher, walker3d, dog, snake7link, reacher2d and walker2d in the
+    solver="dantzig" mode at B = 4096 for 100, humanwalker at B = 1024 for
+    100 and perturbed humanwalker at B = 1024 for 15 (the first rollout of
+    each path is bench_env's warm-up);
+  * per escalating contact model, the residual envelope after the
+    escalation (median,
     p95, max over the substeps of a kernel-path rollout) beside the JAX
     harness's bounds (a finding; it does not gate);
   * domain randomization (phase dr): the substep kernel built with per-env
@@ -188,20 +200,39 @@ LOCK_MAY_DIVERGE = 2           # envs of 1024 beyond 1e-3 after one step
 CONTROL_STEPS_BEFORE = 25      # control steps before the states are taken
 # (env, perturb) -> (batch, horizon, rollouts); the first rollout of each
 # is bench_env's warm-up
-PATHS = {("walker2d", False): (4096, 100, 2), ("hopper", False): (4096, 100, 2),
+# (env, perturb[, LCP solver]) -> (batch, horizon, rollouts); the first
+# rollout of each is bench_env's warm-up.  The perturbed humanwalker path
+# (15 phase-wise substeps per control step, host-bound) runs 15 control
+# steps at full width.
+PATHS = {("walker2d", False): (4096, 100, 1), ("hopper", False): (4096, 100, 1),
          ("cartpole", False): (8192, 1000, 1),
          ("walker2d", True): (4096, 100, 1),
          ("reacher", False): (4096, 100, 1),
          ("walker3d", False): (4096, 100, 1),
-         ("humanwalker", False): (1024, 100, 1)}
+         ("humanwalker", False): (1024, 100, 1),
+         ("dog", False): (4096, 100, 1),
+         ("snake7link", False): (4096, 100, 1),
+         ("reacher2d", False): (4096, 100, 1),
+         ("walker2d", False, "dantzig"): (4096, 100, 1),
+         ("humanwalker", True): (1024, 15, 1)}
 # fused-substep envs checked kernel by kernel: env -> batch
 FUSED_ENVS = {"walker2d": 4096, "hopper": 4096, "walker3d": 4096,
-              "humanwalker": 1024, "reacher": 4096}
+              "humanwalker": 1024, "reacher": 4096, "dog": 4096,
+              "snake7link": 4096, "reacher2d": 4096}
+# DartSnake7Link's PLANAR zx root holds its capsules' axes at the height
+# of their radius, so their contact depth is 0 in every state and no
+# contact row is ever active (the JAX package's model does the same).  Its
+# substep kernel is also held on the model with the ground raised by
+# SUNK_GROUND m, where all 14 contact slots are active, so that the
+# kernel's uncompacted contact branch (SS_COMPACT = 0) runs with live
+# contact rows.
+SUNK_GROUND = {"snake7link": 0.01}
 # the JAX harness's residual envelope bounds (median, p95, max) after the
 # escalation, measured on a TPU (tests/test_pgs_residuals.py)
 JAX_ENVELOPE = {"walker2d": (1e-6, 1e-5, 1e-4), "hopper": (1e-6, 1e-5, 1e-4),
                 "walker3d": (1e-5, 1e-4, 5e-3),
-                "humanwalker": (1e-5, 1e-4, 5e-3)}
+                "humanwalker": (1e-5, 1e-4, 5e-3),
+                "dog": (1e-5, 1e-4, 1e-4)}
 # the dynamics kernel's bounds, relative to max(1, |ref|_inf): the JAX
 # package's own (tests/test_pallas_dynamics.py::_check); dq_star goes
 # through the n x n solve, whose conditioning amplifies rounding
@@ -457,8 +488,9 @@ def check_escalate(name, st, cfg, outs, tier2=False):
 def check_hybrid_rows(name, cfg, findex, g, K=16):
     """Phase hybrid above 32 rows: the BPP kernel's hybrid mode on a batch
     of the K worst of the escalated LCPs of a model with more than 32 rows
-    (no path runs this mode there yet) against its plain version
-    (lcp/hybrid.escalate_rows), as check_pgs holds it at 24 rows."""
+    (with the model's refinement passes: humanwalker's 2) against its
+    plain version (lcp/hybrid.escalate_rows), as check_pgs holds it at 24
+    rows."""
     import torch
 
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
@@ -468,7 +500,7 @@ def check_hybrid_rows(name, cfg, findex, g, K=16):
                                                   "act", "lam_c"))
     B, m = b.shape
     budgets = cfg_budgets(cfg)
-    assert m > 32 and budgets[6] == 0
+    assert m > 32
     res = comp_residual(A, b, lam, lo, hi, findex, mu, act)
     worst, idx = torch.topk(res, K)
     out_k, take_k, kept_k = hb.bpp_hybrid(A, b, lo, hi, mu, act, lam, idx,
@@ -477,7 +509,8 @@ def check_hybrid_rows(name, cfg, findex, g, K=16):
     torch.cuda.synchronize()
     out_r, take_r, kept_r = escalate_rows(A, b, lo, hi, mu, act, lam, idx,
                                           worst, findex, cfg.escalate_tol,
-                                          *plain_tiers(findex, budgets))
+                                          *plain_tiers(findex, budgets),
+                                          budgets[6])
     rest = torch.ones(B, dtype=torch.bool, device=A.device)
     rest[idx] = False
     others = (torch.equal(out_k[rest], out_r[rest])
@@ -485,7 +518,12 @@ def check_hybrid_rows(name, cfg, findex, g, K=16):
     line, _ = compare_escalation(
         "hybrid", name, K, (out_k[idx], take_k, kept_k),
         (out_r[idx], take_r, kept_r), others)
-    emit("hybrid", **line, m=m)
+    emit("hybrid", **line, m=m, refine_passes=budgets[6])
+
+
+def sunk_model(model, depth):
+    """The model with its ground (every world plane) raised by `depth`."""
+    return model.replace(wg_offset=model.wg_offset + depth)
 
 
 def hold_substep(name, model, kern, outs, ins, m64, dr_vals=(),
@@ -548,7 +586,7 @@ def hold_substep(name, model, kern, outs, ins, m64, dr_vals=(),
          device_ms=sub_dev_ms, plain_ms=sub_plain_ms, tol_rel=1e-4,
          tol_rel_after_sweeps=1e-4 if m64 is None else 2e-2,
          tol_agree=0.999)
-    if st.ns:
+    if st.ns and name not in SUNK_GROUND:
         # (hopper stands on one foot and is in the air for part of its
         # stride)
         assert float(ref["con_active"].sum()) > 0.05 * B, \
@@ -605,21 +643,28 @@ def check_env(name, B, dev):
     for _ in range(CONTROL_STEPS_BEFORE):
         state, *_ = vec.step(state, rand_a(B))
     q, dq, lam_prev = state.sim.q, state.sim.dq, state.sim.lam
-    if not st.ns:
-        # no contact slots (reacher): the random policy seldom reaches a
-        # joint limit, so every second env has its limited dofs moved past
-        # their upper limit, and the limit rows are live
+    if not st.ns or name in SUNK_GROUND:
+        # no contact slots (reacher, reacher2d) or no contact ever active
+        # (SUNK_GROUND): the random policy seldom reaches a joint limit, so
+        # every second env has its limited dofs moved past their upper
+        # limit, and the limit rows are live; three envs of four where the
+        # model has one limited dof (hold_substep wants more than B / 2
+        # live rows)
         lim = torch.as_tensor(model.host("limited") > 0, device=dev)
         past = model.q_upper + 0.05 - q
-        q = torch.where(lim & (torch.arange(B, device=dev) % 2 == 0)[:, None],
-                        q + past, q)
+        env = torch.arange(B, device=dev)
+        pushed = env % 4 != 3 if int(lim.sum()) == 1 else env % 2 == 0
+        q = torch.where(lim & pushed[:, None], q + past, q)
     tau = task.action_to_tau(rand_a(B), state.aux)
     assert torch.isfinite(q).all() and torch.isfinite(dq).all()
 
     outs = kern(q, dq, tau, lam_prev)
-    out = {"substep": hold_substep(name, model, kern, outs,
-                                   (q, dq, tau, lam_prev), m64),
-           "states": (q, dq, tau, lam_prev)}
+    ins = (q, dq, tau, lam_prev)
+    out = {"substep": hold_substep(name, model, kern, outs, ins, m64),
+           "states": ins}
+    if name in SUNK_GROUND:
+        sk = hs.get_substep_kernel(sunk_model(model, SUNK_GROUND[name]))
+        hold_substep(name + "_sunk", sk.model, sk, sk(*ins), ins, m64)
 
     # ---- 4. BPP kernel vs its plain version -----------------------------
     if escal:
@@ -637,7 +682,7 @@ def check_env(name, B, dev):
         out["escalate"] = check_escalate(name, st, cfg, outs)
         if name == "walker2d":
             check_escalate(name, st, cfg, outs, tier2=True)
-        if st.m_c > 32 and cfg.escalate_ref == 0:
+        if st.m_c > 32:
             check_hybrid_rows(name, cfg, st.findex_c, g)
 
     # ---- 5. lockstep: kernel path vs plain path, same start, same actions
@@ -663,9 +708,11 @@ def check_env(name, B, dev):
     Kl = hs.escalation_size(Bl, cfg.escalate_frac, cfg.escalate_kmax)
     drift, lock = [], None
     plain_before = hs.PLAIN_CALLS
-    # 32 substeps of drift (8 control steps at frame_skip 4; humanwalker's
-    # plain path, 0.3 s a substep, takes 2)
-    for i in range(max(2, 32 // task.frame_skip)):
+    # the bounds hold the first control step; the later ones print the
+    # drift: 32 substeps of it (8 control steps at frame_skip 4), 2
+    # control steps above 12 dofs, whose plain path runs the substep in
+    # float64 (humanwalker's 0.3 s a substep)
+    for i in range(2 if m64 is not None else max(2, 32 // task.frame_skip)):
         tau_l = task.action_to_tau(rand_a(Bl), aux_l)
         same = torch.ones(Bl, dtype=torch.bool, device=dev)
         touched = torch.zeros(Bl, dtype=torch.bool, device=dev)
@@ -903,9 +950,10 @@ def random_pushes(model, task, B, gen, dev):
     return f
 
 
-def phasewise_lcp(model, q, dq, tau, lam_prev, f_ext):
-    """The boxed LCPs of the phase-wise step with an external force, as
-    engine/world.make_sim_step assembles them (plain dynamics, collision,
+def phasewise_lcp(model, q, dq, tau, lam_prev, f_ext, dyn=None):
+    """The boxed LCPs of the phase-wise step, as engine/world.make_sim_step
+    assembles them (plain dynamics with the external force f_ext, or the
+    dynamics phase's outputs dyn = (dq_star, M, phi, R_w, p_w); collision,
     assemble_lcp, compacted warm start).  Returns (dq_star, contacts,
     (A, b, lo, hi, act, mu, findex, MinvJt, row_sel), lam0)."""
     from dartenv_tpu_torch.collision.narrowphase import collide
@@ -915,13 +963,14 @@ def phasewise_lcp(model, q, dq, tau, lam_prev, f_ext):
     )
 
     dt = model.dt
-    kin = batched.bkin(model, q, dq)
-    ddq, M = batched.forward_dynamics(model, kin, q, dq, tau, dt, f_ext)
-    dq_star = dq + dt * ddq
-    contacts = collide(model, kin.R_w, kin.p_w)
+    if dyn is None:
+        kin = batched.bkin(model, q, dq)
+        ddq, M = batched.forward_dynamics(model, kin, q, dq, tau, dt, f_ext)
+        dyn = (dq + dt * ddq, M, kin.phi, kin.R_w, kin.p_w)
+    dq_star, M, phi, R_w, p_w = dyn
+    contacts = collide(model, R_w, p_w)
     A, b, lo, hi, act, mu, findex, MinvJt, row_sel, _ = assemble_lcp(
-        model, build_layout(model), kin.phi, M, q, dq, dq_star, contacts,
-        dt)
+        model, build_layout(model), phi, M, q, dq, dq_star, contacts, dt)
     lam0 = compact_lam(lam_prev, row_sel, act)
     return dq_star, contacts, (A, b, lo, hi, act, mu, findex, MinvJt,
                                row_sel), lam0
@@ -942,18 +991,21 @@ def plain_hybrid(cfg, findex, A, b, lo, hi, mu, act, lam0):
                                    lam0=lam0, return_residual=True)
     K = escalation_size(b.shape[0], cfg.escalate_frac, cfg.escalate_kmax)
     worst, idx = torch.topk(res, K)
+    budgets = cfg_budgets(cfg)
     return escalate_rows(A, b, lo, hi, mu, act, lam, idx, worst, findex,
-                         cfg.escalate_tol,
-                         *plain_tiers(findex, cfg_budgets(cfg)))[0]
+                         cfg.escalate_tol, *plain_tiers(findex, budgets),
+                         budgets[6])[0]
 
 
 def plain_phasewise_substep(model, q, dq, lam, tau, f_ext):
     """One phase-wise substep through the plain versions only, composed
     here as engine/world.make_sim_step composes the kernels: without an
-    external force the dynamics kernel's plain version (the models here
-    have no constraint rows then); with one, the plain dynamics,
-    collision, assembly and the plain hybrid solve.  Then the position
-    update.  Returns (q, dq, lam)."""
+    external force the dynamics kernel's plain version, and for a model
+    with constraint rows (the solver="dantzig" mode) collision, assembly
+    and the BPP kernel's plain version over the batch with
+    lcp/dantzig.make_exact_solver's defaults; with an external force the
+    plain dynamics, collision, assembly and the plain hybrid solve.  Then
+    the position update.  Returns (q, dq, lam)."""
     import torch
 
     from dartenv_tpu_torch.dynamics import batched
@@ -961,17 +1013,24 @@ def plain_phasewise_substep(model, q, dq, lam, tau, f_ext):
     from dartenv_tpu_torch.engine.constraints import (
         build_layout, scatter_lam,
     )
+    from dartenv_tpu_torch.lcp.hopper_bpp import bpp_solve_reference
 
     m = build_layout(model).m
-    if f_ext is None:
-        assert m == 0
-        dq_plus = hd.dynamics_reference(model, q, dq, tau)[0]
+    dyn = None if f_ext is not None else hd.dynamics_reference(model, q, dq,
+                                                               tau)
+    if m == 0:
+        dq_plus = dyn[0]
     else:
         dq_star, _, prob, lam0 = phasewise_lcp(model, q, dq, tau, lam,
-                                               f_ext)
+                                               f_ext, dyn)
         A, b, lo, hi, act, mu, findex, MinvJt, row_sel = prob
-        lam_c = plain_hybrid(model.solver, findex, A, b, lo, hi, mu, act,
-                             lam0)
+        if model.solver.solver == "dantzig":
+            assert f_ext is None
+            lam_c = bpp_solve_reference(A, b, lo, hi, findex, mu, act,
+                                        lam0=lam0)
+        else:
+            lam_c = plain_hybrid(model.solver, findex, A, b, lo, hi, mu,
+                                 act, lam0)
         dq_plus = dq_star + torch.sum(MinvJt * lam_c[:, None, :], dim=-1)
         lam = scatter_lam(lam_c, row_sel, m)
     return (batched.integrate_positions(model, q, dq_plus, model.dt),
@@ -1054,13 +1113,15 @@ def compare_pgs(label, prob, iters, omega):
         shape=f"{label} B={B} m_c={m} iters={iters} residual")
 
 
-def check_pgs(dev, states):
+def check_pgs(dev, name, states):
     """Phase pgs: the PGS kernel against its plain version on the LCPs of
-    perturbed walker2d's phase-wise step at B = 4096 (states from the
-    walker2d rollout, about half of the envs pushed) and on random LCPs of
-    m = 40 rows (beyond a warp's 32 lanes), then the BPP kernel on the
-    hybrid's top K of the first.  Returns what the kernels line needs for
-    both."""
+    the perturbed env's phase-wise step (states from its rollout, about
+    half of the envs pushed): walker2d at B = 4096, humanwalker at
+    B = 1024 (41 rows, two per lane); for walker2d also on random LCPs of
+    m = 40 rows and the BPP kernel's core mode on the hybrid's top K.
+    Then the BPP kernel's hybrid mode (with humanwalker's two refinement
+    passes) on the hybrid's top K.  Returns what the kernels line needs
+    for the PGS kernel and the hybrid mode."""
     import torch
 
     from dartenv_tpu_torch.bench.kernel_stages import device_ms
@@ -1068,8 +1129,9 @@ def check_pgs(dev, states):
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
     from dartenv_tpu_torch.lcp.hybrid import escalate_rows, escalation_size
 
-    task = make_task("walker2d", device=dev)
+    task = make_task(name, device=dev)
     model, cfg = task.model, task.model.solver
+    label = name + "_perturbed"
     q, dq, tau, lam_prev = states
     B = q.shape[0]
     gen = torch.Generator(device=dev)
@@ -1079,15 +1141,17 @@ def check_pgs(dev, states):
     A, b, lo, hi, act, mu, findex, _, _ = prob
     m = b.shape[1]
     lam_k, res_k, pgs = compare_pgs(
-        "walker2d_perturbed", (A, b, lo, hi, findex, mu, act, lam0),
-        cfg.pgs_iters, cfg.pgs_omega)
-    compare_pgs("random_m40", random_lcps(B, 10, 10, 3, dev),
-                cfg.pgs_iters, cfg.pgs_omega)
+        label, (A, b, lo, hi, findex, mu, act, lam0), cfg.pgs_iters,
+        cfg.pgs_omega)
+    if name == "walker2d":
+        compare_pgs("random_m40", random_lcps(B, 10, 10, 3, dev),
+                    cfg.pgs_iters, cfg.pgs_omega)
 
     K = escalation_size(B, cfg.escalate_frac, cfg.escalate_kmax)
     worst, idx = torch.topk(res_k, K)
-    check_bpp("walker2d_perturbed", cfg, findex, A[idx], b[idx], lo[idx],
-              hi[idx], mu[idx], act[idx], lam_k[idx])
+    if name == "walker2d":
+        check_bpp(label, cfg, findex, A[idx], b[idx], lo[idx], hi[idx],
+                  mu[idx], act[idx], lam_k[idx])
 
     # the hybrid mode: the whole escalation of the phase-wise solve
     budgets = cfg_budgets(cfg)
@@ -1095,7 +1159,8 @@ def check_pgs(dev, states):
     run_k = lambda: hb.bpp_hybrid(A, b, lo, hi, mu, act, lam_k, idx, worst,
                                   findex, cfg.escalate_tol, budgets)
     run_r = lambda: escalate_rows(A, b, lo, hi, mu, act, lam_k, idx, worst,
-                                  findex, cfg.escalate_tol, *tiers)
+                                  findex, cfg.escalate_tol, *tiers,
+                                  budgets[6])
     out_k, take_k, kept_k = run_k()
     torch.cuda.synchronize()
     out_r, take_r, kept_r = run_r()
@@ -1104,19 +1169,93 @@ def check_pgs(dev, states):
     others = (torch.equal(out_k[rest], out_r[rest])
               and torch.equal(out_k[rest], lam_k[rest]))
     line, err = compare_escalation(
-        "hybrid", "walker2d_perturbed", K, (out_k[idx], take_k, kept_k),
+        "hybrid", label, K, (out_k[idx], take_k, kept_k),
         (out_r[idx], take_r, kept_r), others)
     ms = time_ms(run_k)
     dev_ms = device_ms(run_k, "bpp_hybrid_kernel")
     plain_ms = time_ms(run_r, runs=5, warmup=1)
     hbb, hbf = escalate_work(K, m, budgets, m * m + 7 * m, m)
-    emit("hybrid", **line, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-         bound_ms=bound(hbb, hbf)[0])
+    emit("hybrid", **line, m=m, refine_passes=budgets[6], ms=ms,
+         device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound(hbb, hbf)[0])
     bpp = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                bound=bound(hbb, hbf),
-               shape=f"walker2d_perturbed K={K} m={m} hybrid "
-                     f"iters={budgets[0]}+{budgets[1]}")
+               shape=f"{label} K={K} m={m} hybrid "
+                     f"iters={budgets[0]}+{budgets[1]} "
+                     f"refine_passes={budgets[6]}")
     return pgs, bpp
+
+
+def check_core_batch(name, dev, states):
+    """Phase bpp_batch: the BPP kernel's core mode over a whole batch, as
+    the solver="dantzig" mode runs it (lcp/dantzig.make_exact_solver with
+    its defaults: 24 damped + 8 undamped pivots and 10 polish sweeps, warm
+    from the compacted impulses, one warp per env and a grid of B blocks),
+    on the phase-wise LCPs of the env's rollout states (dynamics through
+    the plain path), against its plain version env by env, as check_bpp
+    holds the escalation's K: at most BPP_MAY_DIVERGE of every 128 envs
+    may part.  Returns what the kernels line needs."""
+    import torch
+
+    from dartenv_tpu_torch.bench.kernel_stages import device_ms
+    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.lcp import hopper_bpp as hb
+    from dartenv_tpu_torch.lcp.dantzig import make_exact_solver
+    from dartenv_tpu_torch.lcp.hybrid import comp_residual
+
+    model = make_task(name, device=dev, lcp_solver="dantzig").model
+    q, dq, tau, lam_prev = states
+    _, _, prob, lam0 = phasewise_lcp(model, q, dq, tau, lam_prev, None)
+    A, b, lo, hi, act, mu, findex, _, _ = prob
+    B, m = b.shape
+    solve = make_exact_solver(findex)
+    run_k = lambda: solve(A, b, lo, hi, mu, act, lam0)
+    # make_exact_solver's defaults
+    run_r = lambda: hb.bpp_solve_reference(A, b, lo, hi, findex, mu, act,
+                                           iters=24, polish_iters=10,
+                                           lam0=lam0)
+    launches = hb.CORE_LAUNCHES
+    lam_k = run_k()
+    torch.cuda.synchronize()
+    assert hb.CORE_LAUNCHES == launches + 1
+    lam_r = run_r()
+    resid = lambda lam: comp_residual(A, b, lam, lo, hi, findex, mu, act)
+    r_k, r_r, r_w = resid(lam_k), resid(lam_r), resid(lam0)
+    env_err = ((lam_k - lam_r).abs().max(1).values
+               / lam_r.abs().max(1).values.clamp(min=1.0))
+    same = env_err <= 1e-5
+    n_same = int(same.sum())
+    err = float((lam_k - lam_r)[same].abs().max())
+    res_diff = float((r_k - r_r)[same].abs().max())
+    allowed = BPP_MAY_DIVERGE * -(-B // 128)
+    ms = time_ms(run_k)
+    dev_ms = device_ms(run_k, "bpp_core_kernel")
+    plain_ms = time_ms(run_r, runs=2, warmup=0)
+    lib = hb.load(m)
+    per_sm = lib.bpp_core_blocks_per_sm()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    solved = lambda r: int((r < 1e-4).sum())
+    emit("bpp_batch", env=name, solver="dantzig", B=B, m=m,
+         active_rows=float(act.sum()), envs_same=n_same,
+         envs_parted=B - n_same, lam_abs_err_same=err,
+         res_abs_diff_same=res_diff,
+         lam_abs_max=float(lam_r.abs().max()),
+         res_kernel_max=float(r_k.max()), res_plain_max=float(r_r.max()),
+         res_warm_start_max=float(r_w.max()),
+         res_kernel_median=float(r_k.median()),
+         solved_kernel=solved(r_k), solved_plain=solved(r_r),
+         solved_warm_start=solved(r_w), blocks_per_sm=per_sm, sms=sms,
+         waves=B / (per_sm * sms), ms=ms, device_ms=dev_ms,
+         plain_ms=plain_ms, tol_lam=1e-5, tol_res_diff=1e-5,
+         tol_envs_parted=allowed)
+    assert torch.isfinite(lam_k).all()
+    assert float(act.sum()) > B, "constraint rows are not live"
+    assert B - n_same <= allowed, (name, B - n_same, allowed)
+    assert err <= 1e-5 and res_diff <= 1e-5
+    assert solved_as_plain(B, solved(r_k), solved(r_r), n_same)
+    bb, bf = bpp_work(m, B, 24, 8, 10)
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound=bound(bb, bf),
+                shape=f"{name} B={B} m={m} core iters=24+8 polish=10")
 
 
 # ---- domain randomization ------------------------------------------------
@@ -1403,30 +1542,33 @@ def plain_counts():
     return (hs.PLAIN_CALLS, hb.PLAIN_CALLS, hd.PLAIN_CALLS, hp.PLAIN_CALLS)
 
 
-def lockstep_phasewise(name, dev, states=None):
+def lockstep_phasewise(name, dev, states=None, perturb=False, solver=None):
     """Phase lockstep for a phase-wise path: one control step at B = 1024,
-    the port's sim step (the kernels) beside plain_phasewise_substep, the
-    same external force in both when `states` (q, dq, tau, lam) are given
-    (perturbed walker2d), none otherwise (cartpole, from reset states);
-    contact sets compared after every substep."""
+    the port's sim step (the kernels) beside plain_phasewise_substep, from
+    `states` (q, dq, tau, lam) where given, else from reset states
+    (cartpole); with `perturb` the same external force in both (perturbed
+    walker2d); `solver` "dantzig": one substep of the exact mode (kernel
+    3, then the BPP kernel's core mode over the batch: every env's exact
+    solve may branch on kernel 3's rounding, as one escalated env's may on
+    the fused path).  Contact sets compared after every substep."""
     import torch
 
     from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.engine.constraints import build_layout
     from dartenv_tpu_torch.engine.world import SimState, make_sim_step
     from dartenv_tpu_torch.envs.base import make_env_reset
 
     B = 1024 if states is None else min(1024, states[0].shape[0])
-    task = make_task(name, device=dev)
+    task = make_task(name, device=dev, lcp_solver=solver)
     model = task.model
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     if states is None:
         sim = make_env_reset(task)(B, gen)[0].sim
-        f_ext = None
     else:
         q, dq, _, lam = (x[:B].clone() for x in states)
         sim = SimState(q=q, dq=dq, time=q.new_zeros(B), lam=lam)
-        f_ext = random_pushes(model, task, B, gen, dev)
+    f_ext = random_pushes(model, task, B, gen, dev) if perturb else None
     hi_a = torch.as_tensor(task.control_bounds[0], device=dev,
                            dtype=torch.float32)
     a = (torch.rand((B, task.action_size), generator=gen, device=dev)
@@ -1437,7 +1579,7 @@ def lockstep_phasewise(name, dev, states=None):
     sk, sp = sim, (sim.q, sim.dq, sim.lam)
     same = torch.ones(B, dtype=torch.bool, device=dev)
     impulse_rows = 0
-    for _ in range(task.frame_skip):
+    for _ in range(1 if solver == "dantzig" else task.frame_skip):
         sk, _ = step(sk, tau, f_ext)
         sp = plain_phasewise_substep(model, *sp, tau, f_ext)
         if sk.lam is not None:
@@ -1455,20 +1597,35 @@ def lockstep_phasewise(name, dev, states=None):
                                      | (dq_err > 1e-3)).sum()),
                 q_err_q99=float(q_err.quantile(0.99)),
                 dq_err_q99=float(dq_err.quantile(0.99)))
-    emit("lockstep", env=name + ("" if f_ext is None else "_perturbed"),
-         B=B, **lock, tol=1e-3, tol_envs_beyond=LOCK_MAY_DIVERGE)
+    # The dantzig mode re-solves every env exactly, where the fused paths
+    # escalate 32 of 1024: an env whose exact solve takes another branch
+    # on kernel 3's rounding (the bpp phase's re-open sensitivity) ends
+    # beyond the bound, and as in phase bpp_batch BPP_MAY_DIVERGE of every
+    # 128 such envs may (on an H100: 3 of 1024 after one substep, 2 after
+    # a control step of four; PERF.md)
+    may = (BPP_MAY_DIVERGE * -(-B // 128) if solver == "dantzig"
+           else LOCK_MAY_DIVERGE)
+    emit("lockstep", env=name + ("_perturbed" if perturb else "")
+         + (f"_{solver}" if solver else ""), B=B, **lock, tol=1e-3,
+         tol_envs_beyond=may)
     assert torch.isfinite(sk.q).all() and torch.isfinite(sk.dq).all()
     assert plain_counts() == plain_before    # the kernel path took none
     assert lock["same_contact_frac"] > 0.9
-    assert lock["envs_beyond_tol"] <= LOCK_MAY_DIVERGE
-    if f_ext is not None:
-        assert impulse_rows > B, "contacts are not live"
+    assert lock["envs_beyond_tol"] <= may
+    if solver == "dantzig":
+        assert lock["q_err_q99"] <= 1e-3 and lock["dq_err_q99"] <= 1e-3
+    if build_layout(model).m:
+        # (over the one dantzig substep from walker2d's rollout states:
+        # about 900 rows at B = 1024)
+        assert impulse_rows > (B // 2 if solver == "dantzig" else B), \
+            "contacts are not live"
 
 
-def drive_main_path(dev, name, perturb=False):
-    """Phase rollout: the batched rollout of one path through bench_env,
-    with every kernel's launch counter and every plain-call counter set to
-    0 just before and read just after.  Returns the launch counts."""
+def drive_main_path(dev, name, perturb=False, solver=None):
+    """Phase rollout: the batched rollout of one path through bench_env
+    (`solver`: the LCP solver mode, None: the task's), with every kernel's
+    launch counter and every plain-call counter set to 0 just before and
+    read just after.  Returns the launch counts."""
     import torch
 
     from dartenv_tpu_torch.bench.throughput import bench_env
@@ -1477,14 +1634,15 @@ def drive_main_path(dev, name, perturb=False):
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
     from dartenv_tpu_torch.lcp import hopper_pgs as hp
 
-    B, horizon, rollouts = PATHS[(name, perturb)]
+    B, horizon, rollouts = PATHS[(name, perturb) + ((solver,) if solver
+                                                     else ())]
     hs.SUBSTEP_LAUNCHES = hd.DYNAMICS_LAUNCHES = hp.PGS_LAUNCHES = 0
     hb.CORE_LAUNCHES = hb.FUSED_LAUNCHES = hb.HYBRID_LAUNCHES = 0
     hs.PLAIN_CALLS = hb.PLAIN_CALLS = hd.PLAIN_CALLS = hp.PLAIN_CALLS = 0
     t0 = time.time()
     out = bench_env(name, batch=B, horizon=horizon, iters=rollouts - 1,
                     max_episode_steps=1000, device=dev,
-                    return_state=True, perturb=perturb)
+                    return_state=True, perturb=perturb, solver=solver)
     seconds = time.time() - t0
     counts = dict(substep=hs.SUBSTEP_LAUNCHES, bpp_core=hb.CORE_LAUNCHES,
                   bpp_fused=hb.FUSED_LAUNCHES, bpp_hybrid=hb.HYBRID_LAUNCHES,
@@ -1499,12 +1657,17 @@ def drive_main_path(dev, name, perturb=False):
          plain_calls=plain, finite_state=finite, seconds=seconds)
     assert finite
     assert obs.shape[0] == B and end.sim.q.shape == (B, task.model.n)
-    # (a reacher's episode ends only at the time limit, 1000 steps)
-    assert out["episodes_seen"] > 0 or name == "reacher"
+    # (a reacher's or a snake's episode ends only at the time limit, 1000
+    # steps; so may the perturbed humanwalker's short rollout)
+    assert out["episodes_seen"] > 0 or name in ("reacher", "reacher2d",
+                                                "snake7link") or (
+        name == "humanwalker" and perturb)
     sub = task.frame_skip * steps_run
     want = dict.fromkeys(counts, 0)
     if perturb:                      # the external-force route
         want.update(bpp_hybrid=sub, pgs=sub)
+    elif solver == "dantzig":        # kernel 3, the exact solve over B
+        want.update(dynamics=sub, bpp_core=sub)
     elif hs.in_fused_scope(task.model):
         want.update(substep=sub)
         if task.model.solver.escalate_frac > 0:
@@ -1549,6 +1712,8 @@ def main():
     t0 = time.time()
     kerns = {e: hs.get_substep_kernel(make_task(e, device=dev).model)
              for e in FUSED_ENVS}
+    sunk_kerns = [hs.get_substep_kernel(sunk_model(kerns[e].model, d))
+                  for e, d in SUNK_GROUND.items()]
     dyn_models = {e: make_task(e, device=dev).model
                   for e in ("cartpole", "doublependulum", "walker2d")}
     dyn_models.update(joint_chains(dev))
@@ -1560,21 +1725,27 @@ def main():
     dr_dkerns = {(e, tag): hd.get_dynamics_kernel(
         dyn_models[e], dr_fields_of(tag, "dynamics"))
         for e, tag in DR_DYNAMICS}
-    # the BPP kernel: core and hybrid modes per row count, fused mode per
-    # substep digest (of the models that escalate)
+    # the BPP kernel: core and hybrid modes per row count (and per
+    # refinement passes of the hybrid mode), fused mode per substep digest
+    # (of the models that escalate); the core mode at walker2d's 24 rows
+    # serves the solver="dantzig" path
     esc = [k for k in kerns.values() if k.st.cfg.escalate_frac > 0]
-    bpp_keys = [(k.st.m_c, None) for k in esc] + [
-        (k.st.m_c, k.st.escalation_header) for k in esc]
+    bpp_keys = list(dict.fromkeys(
+        [(k.st.m_c, hb.header(k.st.m_c)) for k in esc]
+        + [(k.st.m_c, hb.header(k.st.m_c, k.st.cfg.escalate_ref))
+           for k in esc]
+        + [(k.st.m_c, k.st.escalation_header) for k in esc]))
     builds = ([hb.start_build(m, h) for m, h in bpp_keys]
               + [hp.start_build()]
               + [k.start_build() for k in kerns.values()]
+              + [k.start_build() for k in sunk_kerns]
               + [k.start_build() for k in dkerns.values()]
               + [k.start_build() for k in dr_kerns.values()]
               + [k.start_build() for k in dr_dkerns.values()])
     for (m, h), bld in zip(bpp_keys, builds):
         hb.load(m, bld, h)
     hp.load(builds[len(bpp_keys)])
-    for k in (list(kerns.values()) + list(dkerns.values())
+    for k in (list(kerns.values()) + sunk_kerns + list(dkerns.values())
               + list(dr_kerns.values()) + list(dr_dkerns.values())):
         k.load()
     ptxas = {bld.tag + "/" + bld.so_path.split("/")[-2][-6:]:
@@ -1593,13 +1764,18 @@ def main():
              for (e, tag), k in dr_kerns.items()},
          dr_dynamics_floats={f"{e}_{tag}": k.dr_width
                              for (e, tag), k in dr_dkerns.items()},
-         fused_smem_bytes={m: hb.load(m, None, h).bpp_fused_smem_bytes()
-                           for m, h in bpp_keys if h})
+         fused_smem_bytes={
+             e: hb.load(k.st.m_c, None,
+                        k.st.escalation_header).bpp_fused_smem_bytes()
+             for e, k in kerns.items() if k in esc})
     st = kerns["walker2d"].st
     assert (st.n, st.ns, st.cap, st.m_c, st.layout.m) == (9, 14, 6, 24, 48)
     assert {e: (k.st.n, k.st.m_c) for e, k in kerns.items()} == {
         "walker2d": (9, 24), "hopper": (6, 15), "walker3d": (18, 36),
-        "humanwalker": (29, 41), "reacher": (5, 5)}
+        "humanwalker": (29, 41), "reacher": (5, 5), "dog": (18, 36),
+        "snake7link": (9, 48), "reacher2d": (2, 1)}
+    assert not kerns["snake7link"].st.compact       # SS_COMPACT = 0
+    assert (kerns["dog"].st.ns, kerns["dog"].st.cap) == (20, 8)
 
     # ---- 3-5. substep and BPP kernels vs their plain versions, lockstep -
     checks = {e: check_env(e, Be, dev) for e, Be in FUSED_ENVS.items()}
@@ -1628,14 +1804,24 @@ def main():
         check_dynamics(e, dyn_models[e], Bd, q, dq, tau)
 
     # ---- 7. PGS kernel (and BPP on the hybrid's top K) vs plain ---------
-    pgs, bpp_pert = check_pgs(dev, checks["walker2d"]["states"])
+    pgs, bpp_pert = check_pgs(dev, "walker2d", checks["walker2d"]["states"])
+    pgs_hw, hybrid_hw = check_pgs(dev, "humanwalker",
+                                  checks["humanwalker"]["states"])
+
+    # ---- 7b. the BPP kernel's core mode over whole batches (dantzig) ----
+    core = {e: check_core_batch(e, dev, checks[e]["states"])
+            for e in ("walker2d", "walker3d", "humanwalker")}
 
     # ---- 8. lockstep of the phase-wise paths ----------------------------
     lockstep_phasewise("cartpole", dev)
-    lockstep_phasewise("walker2d", dev, checks["walker2d"]["states"])
+    lockstep_phasewise("walker2d", dev, checks["walker2d"]["states"],
+                       perturb=True)
+    lockstep_phasewise("walker2d", dev, checks["walker2d"]["states"],
+                       solver="dantzig")
 
     # ---- 9. the main paths, launches counted per path -------------------
     counts = {key: drive_main_path(dev, *key) for key in PATHS}
+    dantzig = ("walker2d", False, "dantzig")
 
     # ---- 9b. domain randomization: the DR kernels, then their paths -----
     dr = check_dr(dev, checks, dr_kerns, dyn_models)
@@ -1665,22 +1851,32 @@ def main():
                      "dartenv_tpu/dynamics/pallas_dynamics.py:807"),
         "pgs": ("pgs_solve", "dartenv_tpu_torch/csrc/pgs.cu",
                 "dartenv_tpu/lcp/pallas_pgs.py:131"),
+        "bpp_core": ("bpp_core", "dartenv_tpu_torch/csrc/bpp.cu",
+                     "dartenv_tpu/lcp/pallas_bpp.py:232"),
     }
-    entries = [(e, False, key, checks[e][phase])
+    # (env, path: a PATHS key or "dr", kernel, its check)
+    entries = [(e, (e, False), key, checks[e][phase])
                for e in FUSED_ENVS for key, phase in (("substep", "substep"),
                                                       ("bpp_fused",
                                                        "escalate"))
                if phase in checks[e]]
-    entries += [("cartpole", False, "dynamics", dyn["cartpole"]),
-                ("walker2d", True, "pgs", pgs),
-                ("walker2d", True, "bpp_hybrid", bpp_pert)]
+    entries += [("cartpole", ("cartpole", False), "dynamics", dyn["cartpole"]),
+                ("walker2d", ("walker2d", True), "pgs", pgs),
+                ("walker2d", ("walker2d", True), "bpp_hybrid", bpp_pert)]
     entries += [("walker2d", "dr", "substep", dr["substep"]),
                 ("cartpole", "dr", "dynamics", dr["dynamics"])]
+    entries += [("walker2d", dantzig, "bpp_core", core["walker2d"]),
+                ("walker2d", dantzig, "dynamics", dyn["walker2d"]),
+                ("humanwalker", ("humanwalker", True), "pgs", pgs_hw),
+                ("humanwalker", ("humanwalker", True), "bpp_hybrid",
+                 hybrid_hw)]
     kernels = []
-    for e, perturb, key, c in entries:
+    for e, path, key, c in entries:
         kname, src, repl = sources[key]
-        n = dr_counts[e] if perturb == "dr" else counts[(e, perturb)]
-        label = e + {False: "", True: "_perturbed", "dr": "_dr"}[perturb]
+        n = dr_counts[e] if path == "dr" else counts[path]
+        label = e + ("_dr" if path == "dr" else
+                     "_perturbed" if path[1] else
+                     f"_{path[2]}" if len(path) > 2 else "")
         kernels.append({
             "name": f"{kname}[{label}]", "route": "cuda", "source": src,
             "replaces": repl, "launches": n[key],
@@ -1689,7 +1885,7 @@ def main():
             "bound_by": c["bound"][1], "library_ms": None,
             "launches_per_control_step": n[key] / n["steps"],
             "device_ms": c.get("device_ms"), "shape": c["shape"]})
-        if key == "dynamics" and perturb is False:
+        if key == "dynamics" and path == ("cartpole", False):
             w = dyn["walker2d"]
             kernels[-1].update(walker2d_states_device_ms=w["device_ms"],
                                walker2d_states_ms=w["ms"],

@@ -3,14 +3,16 @@
     python -m dartenv_tpu_torch.bench.profile_step [--env walker2d]
         (any name of bench/throughput._TASKS: walker3d, humanwalker, ...)
         [--batch 4096] [--steps 20] [--perturb | --dr]
-        [--out out/profile.json]
+        [--solver pgs|dantzig] [--out out/profile.json]
 
 Steps a batched env under the random policy for `--steps` control steps
 inside torch.profiler and prints one JSON object: host wall time per
 control step (from an un-profiled pass), device-busy time per control step
 and its share of the wall time, device launches per control step, and the
 kernels that take the most device time.  `--perturb` turns on the task's
-random pushes (the phase-wise path with external forces).  `--dr` profiles
+random pushes (the phase-wise path with external forces); `--solver`
+overrides the task's LCP solver ("dantzig": the phase-wise path with the
+exact block-pivoting solve over the whole batch).  `--dr` profiles
 bench/throughput.bench_dr's step instead: a domain-randomized batch (the
 bench's spec), frame_skip randomized sim steps per control step under
 fixed random torques (no env step around them).  Needs a GPU (it
@@ -59,7 +61,7 @@ def _control_step(task, batch, gen, dr):
 
 
 def profile(env="walker2d", batch=4096, steps=20, top=12, perturb=False,
-            dr=False):
+            dr=False, solver=None):
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from dartenv_tpu_torch.bench.throughput import make_task
@@ -67,7 +69,7 @@ def profile(env="walker2d", batch=4096, steps=20, top=12, perturb=False,
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
     dev = torch.device("cuda")
-    task = make_task(env, device=dev)
+    task = make_task(env, device=dev, lcp_solver=solver)
     task.add_perturbation = perturb
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -99,7 +101,8 @@ def profile(env="walker2d", batch=4096, steps=20, top=12, perturb=False,
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip()
     return {
-        "env": env, "perturb": perturb, "dr": dr, "batch": batch,
+        "env": env, "perturb": perturb, "dr": dr,
+        "solver": task.model.solver.solver, "batch": batch,
         "control_steps": steps,
         "card": smi,
         "wall_ms_per_control_step": plain_wall_ms / steps,
@@ -125,10 +128,12 @@ def main():
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--perturb", action="store_true")
     ap.add_argument("--dr", action="store_true")
+    ap.add_argument("--solver", default=None, choices=["pgs", "dantzig"],
+                    help="override the task's LCP solver")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     res = profile(args.env, args.batch, args.steps, perturb=args.perturb,
-                  dr=args.dr)
+                  dr=args.dr, solver=args.solver)
     text = json.dumps(res, indent=1)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -20,17 +20,23 @@ _TASKS = {
     "walker3d": ("dartenv_tpu_torch.envs.walker3d", "make_walker3d_task"),
     "humanwalker": ("dartenv_tpu_torch.envs.human_walker",
                     "make_humanwalker_task"),
+    "reacher2d": ("dartenv_tpu_torch.envs.reacher2d", "make_reacher2d_task"),
+    "snake7link": ("dartenv_tpu_torch.envs.snake_7link",
+                   "make_snake7link_task"),
+    "dog": ("dartenv_tpu_torch.envs.dog", "make_dog_task"),
 }
 
 
-def make_task(name: str, dtype=torch.float32, device="cuda", **solver_kw):
-    """The named task on `device`; `solver_kw` overrides SolverConfig
-    fields (and `lcp_solver`), as the task factories take them."""
+def make_task(name: str, dtype=torch.float32, device="cuda",
+              lcp_solver=None, **solver_kw):
+    """The named task on `device`; `lcp_solver` ("pgs" or "dantzig", None:
+    the task's own) picks the contact solver and `solver_kw` overrides
+    SolverConfig fields, as the task factories take them."""
     import importlib
 
     mod, fn = _TASKS[name]
     return getattr(importlib.import_module(mod), fn)(
-        dtype=dtype, device=device, **solver_kw)
+        dtype=dtype, device=device, lcp_solver=lcp_solver, **solver_kw)
 
 
 def random_policy(task):
@@ -57,16 +63,18 @@ def _sync(device):
 def bench_env(name: str = "walker2d", batch: int = 4096,
               horizon: int = 100, iters: int = 5,
               max_episode_steps: int = 1000, device="cuda", seed: int = 0,
-              return_state: bool = False, perturb: bool = False):
+              return_state: bool = False, perturb: bool = False,
+              solver=None):
     """Returns a dict with env-steps/s and timing detail of `iters`
     rollouts of `horizon` control steps after one warm-up rollout (which
     also builds the kernels); with iters=0 the rate is the warm-up's.
-    `perturb` turns on the task's random perturbation pushes."""
+    `perturb` turns on the task's random perturbation pushes; `solver`
+    ("pgs" or "dantzig", None: the task's own) picks the LCP solver."""
     from dartenv_tpu_torch.parallel.rollout import make_rollout
     from dartenv_tpu_torch.parallel.vec_env import VecEnv
 
     device = torch.device(device)
-    task = make_task(name, device=device)
+    task = make_task(name, device=device, lcp_solver=solver)
     task.add_perturbation = perturb
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -107,6 +115,7 @@ def bench_env(name: str = "walker2d", batch: int = 4096,
     out = {
         "env": name,
         "perturb": perturb,
+        "solver": task.model.solver.solver,
         "batch": batch,
         "horizon": horizon,
         "device": str(device),
@@ -200,8 +209,9 @@ def bench_dr(name: str = "walker2d", batch: int = 4096, substeps: int = 400,
 def main():
     """python -m dartenv_tpu_torch.bench.throughput [--env walker2d]
     [--batch 4096 ...] [--horizon 100] [--iters 3] [--repeat 1]
-    [--perturb] [--device cuda]: one JSON line per (batch, repeat) with
-    the card's name and power limit beside the rate.  The horizon
+    [--perturb] [--solver pgs|dantzig] [--device cuda]: one JSON line
+    per (batch, repeat) with the card's name and power limit beside the
+    rate.  The horizon
     defaults to 1000 for cartpole, 100 otherwise.  --dr measures bench_dr
     instead (400 substeps, or --substeps), and --dr_phasewise its
     phase-wise route."""
@@ -216,6 +226,8 @@ def main():
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--perturb", action="store_true")
+    ap.add_argument("--solver", default=None, choices=["pgs", "dantzig"],
+                    help="override the task's LCP solver")
     ap.add_argument("--dr", action="store_true")
     ap.add_argument("--dr_phasewise", action="store_true")
     ap.add_argument("--substeps", type=int, default=400)
@@ -238,7 +250,8 @@ def main():
             else:
                 out = bench_env(args.env, batch=batch, horizon=horizon,
                                 iters=args.iters, device=args.device,
-                                seed=rep, perturb=args.perturb)
+                                seed=rep, perturb=args.perturb,
+                                solver=args.solver)
             print(json.dumps({"card": card, "repeat": rep, **out}),
                   flush=True)
 

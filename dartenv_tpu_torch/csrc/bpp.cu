@@ -48,8 +48,9 @@
 //          and writes the delta patches of dq_plus / lam_full in place
 //          (the wrapper hands in copies);
 //   hybrid (bpp_hybrid_launch): reads rows idx[k] of a phase-wise batch's
-//          A, vectors and PGS lam, same tiers and keep-best, writes lam
-//          rows in place (into a copy).
+//          A, vectors and PGS lam, same tiers and keep-best, the same
+//          es_refine_tier when the header defines ES_REFC > 0 (one build
+//          per (m, passes)), writes lam rows in place (into a copy).
 //
 // Built with -fmad=false: products and sums round separately, like the
 // plain PyTorch versions (lcp/hopper_bpp.bpp_solve_reference,
@@ -363,41 +364,51 @@ bpp_hybrid_kernel(const float* __restrict__ A_g,
         vec[4 * ES_M + i] = act_g[off + i];
         fs[i] = findex[i];
     }
+    [[maybe_unused]] float* scr = reinterpret_cast<float*>(fs + ES_M);
     bool take;
     float kept;
 #if ES_M <= 32
-    const float lamc = lane < ES_M ? lam_g[off + lane] : 0.0f;
-    __syncwarp();
-    const Row rw = load_row(vec, vec + ES_M, vec + 2 * ES_M, vec + 3 * ES_M,
-                            vec + 4 * ES_M, fs, lane);
-    const float lam = tiers(As, rw, vec, fs, xs, lamc, worst_g[k], tol,
-                            iters1, refine1, polish1, iters2, refine2,
-                            polish2, lane, take, kept);
-    if (take && lane < ES_M) out_g[off + lane] = lam;
+    {
+        const float lamc = lane < ES_M ? lam_g[off + lane] : 0.0f;
+        __syncwarp();
+        const Row rw = load_row(vec, vec + ES_M, vec + 2 * ES_M,
+                                vec + 3 * ES_M, vec + 4 * ES_M, fs, lane);
+        const float lam = tiers(As, rw, vec, fs, xs, lamc, worst_g[k], tol,
+                                iters1, refine1, polish1, iters2, refine2,
+                                polish2, lane, take, kept);
+        if (lane < ES_M) xs[lane] = lam;
+        __syncwarp();
+    }
 #else
-    float* scr = reinterpret_cast<float*>(fs + ES_M);
     LANE_FOR(i, 0, ES_M) xs[i] = lam_g[off + i];
     __syncwarp();
     bp_tiers(As, vec, fs, xs, scr, worst_g[k], tol, iters1, refine1,
              polish1, iters2, refine2, polish2, take, kept, lane);
-    if (take) LANE_FOR(i, 0, ES_M) out_g[off + i] = xs[i];
 #endif
+#if ES_REFC > 0
+    es_refine_tier(As, vec, fs, xs, tol, ES_REFC, scr, take, kept, lane);
+#endif
+    if (take) LANE_FOR(i, 0, ES_M) out_g[off + i] = xs[i];
     if (lane == 0) {
         take_g[k] = take;
         res_g[k] = kept;
     }
 }
 
-// floats of scratch after the core and hybrid modes' fixed blocks
-constexpr int solve_work() { return ES_M <= 32 ? 0 : bp_tiers_scratch(); }
+// floats of scratch after the core and hybrid modes' fixed blocks: the
+// solve's above 32 rows, and the hybrid mode's refinement tier's (reused
+// in turn)
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
+constexpr int solve_work() { return ES_M <= 32 ? 0 : bp_tiers_scratch(); }
+constexpr int refine_work() {
+    return ES_REFC > 0 ? ES_M + es_refine_scratch() : 0;
+}
 
 #ifdef ES_N
 // the fused mode's scratch: the operator rebuild's, then the tiers' and
 // the refinement tier's (reused in turn)
-constexpr int FUSED_WORK = cmax(
-    es_rebuild_scratch(),
-    cmax(solve_work(), ES_REFC > 0 ? ES_M + es_refine_scratch() : 0));
+constexpr int FUSED_WORK = cmax(es_rebuild_scratch(),
+                                cmax(solve_work(), refine_work()));
 
 // ---- fused mode: rows idx[k] of the substep kernel's outputs -------------
 __global__ void __launch_bounds__(WARP)
@@ -476,6 +487,9 @@ static int set_smem(const void* fn, int bytes) {
 
 extern "C" int bpp_rows() { return ES_M; }
 
+// Passes of the compensated refinement tier the fused and hybrid modes run
+extern "C" int bpp_ref_passes() { return ES_REFC; }
+
 // The fused mode's stage cycles summed over envs since the last call
 // (cleared); returns the number of stages, or 0 without ES_STAMPS.
 extern "C" int bpp_stage_cycles(unsigned long long* out) {
@@ -492,14 +506,30 @@ extern "C" int bpp_stage_cycles(unsigned long long* out) {
 
 // Each launcher runs on `stream` and returns the cudaError_t of the launch
 // (0 = ok).
+static int core_smem_bytes() {
+    return (ES_M * ES_LD + (ES_M <= 32 ? 0 : 7 * ES_M) + solve_work())
+           * (int)sizeof(float);
+}
+
+// Blocks of the core mode (one env each) resident on one SM at once
+// (registers, shared memory and the SM's block limit), or -1 on error.
+extern "C" int bpp_core_blocks_per_sm() {
+    const int bytes = core_smem_bytes();
+    int n = 0;
+    if (set_smem((const void*)bpp_core_kernel, bytes)) return -1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, bpp_core_kernel, WARP, bytes) != cudaSuccess)
+        return -1;
+    return n;
+}
+
 extern "C" int bpp_core_launch(const float* A, const float* b,
                                const float* lo, const float* hi,
                                const float* mu, const float* act,
                                const float* lam0, const int* findex,
                                float* lam, int K, int iters, int refine,
                                int polish, void* stream) {
-    const int bytes = (ES_M * ES_LD + (ES_M <= 32 ? 0 : 7 * ES_M)
-                       + solve_work()) * (int)sizeof(float);
+    const int bytes = core_smem_bytes();
     int e = set_smem((const void*)bpp_core_kernel, bytes);
     if (e) return e;
     bpp_core_kernel<<<K, WARP, bytes, (cudaStream_t)stream>>>(
@@ -516,7 +546,8 @@ extern "C" int bpp_hybrid_launch(const float* A, const float* b,
                                  float tol, int iters1, int refine1,
                                  int polish1, int iters2, int refine2,
                                  int polish2, void* stream) {
-    const int bytes = (ES_M * ES_LD + 7 * ES_M + solve_work())
+    const int bytes = (ES_M * ES_LD + 7 * ES_M
+                       + cmax(solve_work(), refine_work()))
                       * (int)sizeof(float);
     int e = set_smem((const void*)bpp_hybrid_kernel, bytes);
     if (e) return e;

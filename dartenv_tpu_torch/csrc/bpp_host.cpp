@@ -1,12 +1,32 @@
 // Host build of the escalation kernel's core mode above 32 rows
 // (bpp_body.h: the solve with the lanes over rows and the working matrix
-// in shared memory), as one lane in a loop over the problems.  Build with
+// in shared memory), of its hybrid mode's per-env work (the tiers, then
+// ES_REFC passes of the compensated refinement tier), and of the
+// refinement's arithmetic, as one lane in a loop over the problems.  Build with
 // a C++ compiler and -ffp-contract=off (like the kernel's -fmad=false).
 // For tests on machines without a GPU; nothing on the main path calls it.
 #include <string.h>
 
 #include "bpp_model.h"
+#ifndef ES_REFC
+#define ES_REFC 0
+#endif
 #include "bpp_body.h"
+
+static void load_problem(const float* A_g, const float* b_g,
+                         const float* lo_g, const float* hi_g,
+                         const float* mu_g, const float* act_g, size_t k,
+                         float* A, float* vec) {
+    const size_t off = k * ES_M;
+    for (int i = 0; i < ES_M; ++i)
+        for (int j = 0; j < ES_M; ++j)
+            A[i * ES_LD + j] = A_g[(off + i) * ES_M + j];
+    memcpy(vec, b_g + off, ES_M * sizeof(float));
+    memcpy(vec + ES_M, lo_g + off, ES_M * sizeof(float));
+    memcpy(vec + 2 * ES_M, hi_g + off, ES_M * sizeof(float));
+    memcpy(vec + 3 * ES_M, mu_g + off, ES_M * sizeof(float));
+    memcpy(vec + 4 * ES_M, act_g + off, ES_M * sizeof(float));
+}
 
 // A (K, ES_M, ES_M); b, lo, hi, mu, act, lam0 (K, ES_M) -> lam (K, ES_M)
 extern "C" int bpp_core_host(const float* A_g, const float* b_g,
@@ -19,14 +39,7 @@ extern "C" int bpp_core_host(const float* A_g, const float* b_g,
         scr[bp_solve_scratch()];
     for (int k = 0; k < K; ++k) {
         const size_t off = (size_t)k * ES_M;
-        for (int i = 0; i < ES_M; ++i)
-            for (int j = 0; j < ES_M; ++j)
-                A[i * ES_LD + j] = A_g[(off + i) * ES_M + j];
-        memcpy(vec, b_g + off, ES_M * sizeof(float));
-        memcpy(vec + ES_M, lo_g + off, ES_M * sizeof(float));
-        memcpy(vec + 2 * ES_M, hi_g + off, ES_M * sizeof(float));
-        memcpy(vec + 3 * ES_M, mu_g + off, ES_M * sizeof(float));
-        memcpy(vec + 4 * ES_M, act_g + off, ES_M * sizeof(float));
+        load_problem(A_g, b_g, lo_g, hi_g, mu_g, act_g, k, A, vec);
         memcpy(x, lam0_g + off, ES_M * sizeof(float));
         bp_solve(A, vec, findex, x, x, scr, iters, refine, polish, 0);
         memcpy(lam_g + off, x, ES_M * sizeof(float));
@@ -47,19 +60,52 @@ extern "C" int refine_host(const float* A_g, const float* b_g,
         scr[es_refine_scratch()];
     for (int k = 0; k < K; ++k) {
         const size_t off = (size_t)k * ES_M;
-        for (int i = 0; i < ES_M; ++i)
-            for (int j = 0; j < ES_M; ++j)
-                A[i * ES_LD + j] = A_g[(off + i) * ES_M + j];
-        memcpy(vec, b_g + off, ES_M * sizeof(float));
-        memcpy(vec + ES_M, lo_g + off, ES_M * sizeof(float));
-        memcpy(vec + 2 * ES_M, hi_g + off, ES_M * sizeof(float));
-        memcpy(vec + 3 * ES_M, mu_g + off, ES_M * sizeof(float));
-        memcpy(vec + 4 * ES_M, act_g + off, ES_M * sizeof(float));
+        load_problem(A_g, b_g, lo_g, hi_g, mu_g, act_g, k, A, vec);
         memcpy(x, x_g + off, ES_M * sizeof(float));
         res_ff[2 * k] = es_residual_ff(A, vec, findex, x, 0);
         es_refine(A, vec, findex, x, passes, scr, 0);
         res_ff[2 * k + 1] = es_residual_ff(A, vec, findex, x, 0);
         memcpy(x_out + off, x, ES_M * sizeof(float));
+    }
+    return 0;
+}
+
+constexpr int hybrid_work() {
+    return bp_tiers_scratch() > ES_M + es_refine_scratch()
+               ? bp_tiers_scratch()
+               : ES_M + es_refine_scratch();
+}
+
+// The hybrid mode's per-env work on K gathered problems (A (K, ES_M,
+// ES_M), vectors and PGS impulses lam (K, ES_M), PGS residuals worst
+// (K)): bp_tiers, then ES_REFC passes of es_refine_tier when the header
+// asks for them, as bpp_hybrid_kernel runs them above 32 rows.  Writes
+// the kept points (K, ES_M; lam where none was taken), take (K) and the
+// kept point's residual (K).
+extern "C" int hybrid_host(const float* A_g, const float* b_g,
+                           const float* lo_g, const float* hi_g,
+                           const float* mu_g, const float* act_g,
+                           const float* lam_g, const float* worst,
+                           const int* findex, float tol, int iters1,
+                           int refine1, int polish1, int iters2, int refine2,
+                           int polish2, float* x_out, int* take_out,
+                           float* res_out, int K) {
+    static float A[ES_M * ES_LD], vec[5 * ES_M], x[ES_M],
+        scr[hybrid_work()];
+    for (int k = 0; k < K; ++k) {
+        const size_t off = (size_t)k * ES_M;
+        load_problem(A_g, b_g, lo_g, hi_g, mu_g, act_g, k, A, vec);
+        memcpy(x, lam_g + off, ES_M * sizeof(float));
+        bool take;
+        float kept;
+        bp_tiers(A, vec, findex, x, scr, worst[k], tol, iters1, refine1,
+                 polish1, iters2, refine2, polish2, take, kept, 0);
+        if (ES_REFC > 0)
+            es_refine_tier(A, vec, findex, x, tol, ES_REFC, scr, take, kept,
+                           0);
+        memcpy(x_out + off, x, ES_M * sizeof(float));
+        take_out[k] = take;
+        res_out[k] = kept;
     }
     return 0;
 }

@@ -259,16 +259,21 @@ def scatter_lam(lam, row_sel, m: int):
 
 def run_lcp_solver(cfg, findex, A, b, lo, hi, mu, active, lam0):
     """Dispatch the assembled boxed LCPs of a batch to the configured
-    solver: PGS (lcp/pgs.make_pgs_solver) when escalate_frac == 0, else
-    PGS with exact escalation of the worst envs
-    (lcp/hybrid.make_hybrid_solver).  The "dantzig" mode is not ported."""
+    solver: "dantzig" to the exact block-pivoting solver over the whole
+    batch (lcp/dantzig.make_exact_solver with its defaults: the BPP
+    kernel's core mode on a float32 CUDA batch); "pgs" to PGS
+    (lcp/pgs.make_pgs_solver) when escalate_frac == 0, else PGS with exact
+    escalation of the worst envs (lcp/hybrid.make_hybrid_solver).  Any
+    other mode raises."""
+    from dartenv_tpu_torch.lcp.dantzig import make_exact_solver
     from dartenv_tpu_torch.lcp.hybrid import make_hybrid_solver
     from dartenv_tpu_torch.lcp.pgs import make_pgs_solver
 
-    if cfg.solver != "pgs":
-        raise NotImplementedError(
-            f"solver={cfg.solver!r} mode is not ported yet")
-    if cfg.escalate_frac > 0.0:
+    if cfg.solver == "dantzig":
+        solver = make_exact_solver(findex)
+    elif cfg.solver != "pgs":
+        raise NotImplementedError(f"unknown LCP solver mode {cfg.solver!r}")
+    elif cfg.escalate_frac > 0.0:
         solver = make_hybrid_solver(
             findex, iters=cfg.pgs_iters, omega=cfg.pgs_omega,
             escalate_frac=cfg.escalate_frac, escalate_tol=cfg.escalate_tol,

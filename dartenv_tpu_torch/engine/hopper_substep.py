@@ -53,7 +53,6 @@ from dartenv_tpu_torch.engine.constraints import (
     has_servo_rows, scatter_lam,
 )
 from dartenv_tpu_torch.lcp import hopper_bpp
-from dartenv_tpu_torch.lcp.dantzig import refine_compensated
 from dartenv_tpu_torch.lcp.hybrid import (
     comp_residual, escalation_size, keep_best,
 )
@@ -541,20 +540,8 @@ def escalate_reference(st: _SubStatic, cfg, outs, dq_plus, lam_full,
     K = idx.shape[0]
     prob = (g["A"], g["b"], g["lo"], g["hi"], g["mu"], g["act"])
     lam_new, take, res_kept = keep_best(prob, st.findex_c, worst, lamk,
-                                        cfg.escalate_tol, exact1, exact2)
-    if cfg.escalate_ref > 0:
-        # the compensated refinement tier after the exact ones, in the JAX
-        # package's order: the kept point's residual (res_cur there: its
-        # comp_residual where a tier took, else the PGS residual), the
-        # refined point's, and keep-best between them
-        lam_ref = refine_compensated(*prob[:4], st.findex_c, *prob[4:],
-                                     lam_new, passes=cfg.escalate_ref)
-        res_ref = comp_residual(*prob[:2], lam_ref, *prob[2:4],
-                                st.findex_c, *prob[4:], seq=True)
-        take_r = (res_kept > cfg.escalate_tol) & (res_ref < res_kept)
-        lam_new = torch.where(take_r[:, None], lam_ref, lam_new)
-        res_kept = torch.where(take_r, res_ref, res_kept)
-        take = take | take_r
+                                        cfg.escalate_tol, exact1, exact2,
+                                        cfg.escalate_ref)
     dlam = torch.where(take[:, None], lam_new - lamk,
                        torch.zeros_like(lamk))
     dqp_delta = seq_mv(g["MinvJt"], dlam)

@@ -11,13 +11,14 @@ Op order of one substep (the reference engine's World::step):
 
 Models inside the fused path's scope run steps 1-5 through
 engine/hopper_substep.make_substep_phase (the CUDA kernels on a float32
-CUDA batch); other models, and every step given an external force, run
-the phase-wise composition below: step 1-2 through
-dynamics/hopper_dynamics.make_dynamics_phase (the dynamics kernel on a
-float32 CUDA batch) unless an external force is given, which takes the
-plain dynamics/batched path; step 4 through
-engine/constraints.solve_constraints (the PGS kernel, and the BPP kernel
-for escalation, on a float32 CUDA batch).
+CUDA batch); other models, the solver="dantzig" mode, and every step
+given an external force, run the phase-wise composition below: step 1-2
+through dynamics/hopper_dynamics.make_dynamics_phase (the dynamics kernel
+on a float32 CUDA batch) unless an external force is given, which takes
+the plain dynamics/batched path; step 4 through
+engine/constraints.solve_constraints (on a float32 CUDA batch the PGS
+kernel and the BPP kernel for escalation, or in the "dantzig" mode the
+BPP kernel over the whole batch).
 """
 from __future__ import annotations
 

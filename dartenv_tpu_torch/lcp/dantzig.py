@@ -11,8 +11,10 @@ batch-first.
 
 `dantzig_solve` is the plain formulation (masked SPD solve through
 math/linalg.solve_psd).  `make_exact_solver` is what the escalation stage
-calls: a float32 CUDA batch goes to the hand-written block-pivoting kernel
-(lcp/hopper_bpp.py), anything else to that kernel's plain version.
+calls, and what the solver="dantzig" mode runs over the whole batch
+(engine/constraints.run_lcp_solver): a float32 CUDA batch goes to the
+hand-written block-pivoting kernel (lcp/hopper_bpp.py, its core mode),
+anything else to that kernel's plain version.
 `refine_compensated` is the escalation's double-float refinement tier
 (the plain version of that tier in the escalation kernel's fused mode,
 csrc/escalate_body.h); the mixed-precision tier `refine_mixed` is not

@@ -20,7 +20,9 @@ NotImplementedError naming m.  Its three modes, each a wrapper here:
     digest (engine/hopper_substep.escalation_header).
   * `bpp_hybrid`: the phase-wise hybrid solver's escalation
     (lcp/hybrid.make_hybrid_solver) in one launch: rows idx of the batch's
-    LCPs, the same tiers and keep-best, lam rows patched in a copy.
+    LCPs, the same tiers and keep-best, the compensated refinement tier
+    when its build asks for it (one build per (m, passes): `header`), lam
+    rows patched in a copy.
 
 `bpp_fused` and `bpp_hybrid` take float32 CUDA tensors only (their plain
 versions are the torch compositions in hopper_substep and hybrid, which
@@ -31,8 +33,8 @@ nothing else.
 
 The escalation's tier policy has one source, `tier_budgets`: the fused and
 hybrid modes take its tuple as their launch arguments (its last entry, the
-compensated refinement passes, is also in the fused build's header and
-must agree with it), and `tier_solvers` builds the plain compositions'
+compensated refinement passes, is also in the fused and hybrid builds'
+headers and must agree with it), and `tier_solvers` builds the plain compositions'
 exact solvers from the same tuple.
 
 Iteration structure (shared with lcp/dantzig.dantzig_solve): warm
@@ -75,9 +77,14 @@ def check_rows(m: int):
             f"and takes m <= {MAX_ROWS} rows; this problem has m = {m}")
 
 
-def header(m: int) -> str:
-    """The generated header of the core and hybrid modes' build."""
-    return f"#define ES_M {int(m)}\n"
+def header(m: int, ref_passes: int = 0) -> str:
+    """The generated header of the core and hybrid modes' build for m rows;
+    ref_passes > 0: the hybrid mode runs that many passes of the
+    compensated refinement tier (ES_REFC) after its exact tiers."""
+    text = f"#define ES_M {int(m)}\n"
+    if ref_passes > 0:
+        text += f"#define ES_REFC {int(ref_passes)}\n"
+    return text
 
 
 def start_build(m: int = 24, header_text=None):
@@ -358,11 +365,12 @@ def bpp_hybrid(A, b, lo, hi, mu, active, lam, idx, worst, findex,
 
     A: (B, m, m); b, lo, hi, mu, active, lam (the PGS impulses): (B, m);
     idx (K,) int64 and worst (K,): the top K of the PGS residuals;
-    budgets: `tier_budgets(...)` without refinement passes (the hybrid
-    mode has no refinement tier).  Tier 1 re-solves rows idx warm from
-    lam[idx], tier 2 cold, keep-best against worst and tol.  Returns (lam
-    with rows idx patched, a copy; take (K,) bool; residual of the kept
-    point (K,))."""
+    budgets: `tier_budgets(...)`.  Tier 1 re-solves rows idx warm from
+    lam[idx], tier 2 cold, keep-best against worst and tol, then
+    budgets[6] passes of the compensated refinement tier on the kept point
+    (a build of `header(m, budgets[6])`), kept by the same rule.  Returns
+    (lam with rows idx patched, a copy; take (K,) bool; residual of the
+    kept point (K,))."""
     global HYBRID_LAUNCHES
     B, m = b.shape
     K = idx.shape[0]
@@ -372,16 +380,15 @@ def bpp_hybrid(A, b, lo, hi, mu, active, lam, idx, worst, findex,
                  ("active", active), ("lam", lam), ("worst", worst)],
                 [(B, m, m)] + [(B, m)] * 6 + [(K,)])
     _check_cuda("bpp_hybrid", [("idx", idx)], [(K,)], dtype=torch.int64)
-    if budgets[6] > 0:
-        raise NotImplementedError(
-            "the BPP kernel's hybrid mode has no compensated refinement "
-            "tier (escalate_ref)")
     out = lam.clone()
     take = torch.zeros((K,), dtype=torch.int32, device=lam.device)
     res = torch.empty((K,), dtype=lam.dtype, device=lam.device)
     if K == 0 or m == 0:
         return out, take.bool(), worst.clone()
-    lib = load(m)
+    lib = load(m, header_text=header(m, budgets[6]))
+    if lib.bpp_ref_passes() != budgets[6]:
+        raise ValueError(f"bpp_hybrid: {budgets[6]} refinement passes asked, "
+                         f"the build runs {lib.bpp_ref_passes()}")
     ins = [x.contiguous() for x in (A, b, lo, hi, mu, active, lam, idx,
                                     worst)]
     fidx = findex_i32(findex, A.device)
@@ -521,3 +528,32 @@ def refine_host(A, b, lo, hi, findex, mu, active, x, passes: int):
     lib.refine_host(*[t.data_ptr() for t in ins], fidx.data_ptr(),
                     int(passes), out.data_ptr(), res.data_ptr(), B)
     return out, res[:, 0], res[:, 1]
+
+
+def hybrid_host(A, b, lo, hi, findex, mu, active, lam, worst, tol: float,
+                budgets):
+    """The hybrid mode's per-env work above 32 rows (csrc/bpp_body.h
+    bp_tiers, then budgets[6] passes of csrc/escalate_body.h
+    es_refine_tier) built with the host C++ compiler and run as one lane
+    on float32 CPU tensors of K gathered problems, with their PGS
+    impulses lam and residuals worst.  Returns (the kept points (K, m),
+    take (K,) bool, the kept point's residual (K,)), as keep_best of
+    lcp/hybrid returns them.  For tests on machines without a GPU."""
+    K, m = b.shape
+    lib = cuda_build.build_host(
+        "dartenv_bpp_host", "bpp_host.cpp",
+        header_text=header(m, budgets[6]), header_name="bpp_model.h",
+        deps=_DEPS)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.hybrid_host.argtypes = ([vp] * 9 + [ctypes.c_float] + [ci] * 6
+                                + [vp] * 3 + [ci])
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    ins = [f32(t) for t in (A, b, lo, hi, mu, active, lam, worst)]
+    fidx = torch.as_tensor(np.asarray(findex, dtype=np.int32))
+    out = torch.zeros((K, m), dtype=torch.float32)
+    take = torch.zeros((K,), dtype=torch.int32)
+    res = torch.zeros((K,), dtype=torch.float32)
+    lib.hybrid_host(*[t.data_ptr() for t in ins], fidx.data_ptr(),
+                    float(tol), *[int(v) for v in budgets[:6]],
+                    out.data_ptr(), take.data_ptr(), res.data_ptr(), K)
+    return out, take.bool(), res

@@ -10,7 +10,10 @@ After the batched PGS solve,
      (lcp/dantzig.make_exact_solver: the BPP kernel on a float32 CUDA
      batch), with an optional cold tier-2,
   4. `keep_best`: a re-solved point replaces the PGS one only where the
-     PGS residual exceeded `escalate_tol` and the new residual is lower,
+     PGS residual exceeded `escalate_tol` and the new residual is lower;
+     with `escalate_ref` > 0 the compensated refinement tier
+     (lcp/dantzig.refine_compensated) then refines the kept point, and
+     its result is kept by the same rule,
   5. scatter back: envs outside the top K keep their PGS impulses bit for
      bit.
 
@@ -29,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dartenv_tpu_torch.lcp.dantzig import refine_compensated
 from dartenv_tpu_torch.lcp.pgs import findex_tensors
 from dartenv_tpu_torch.math.linalg import seq_mv
 
@@ -65,50 +69,67 @@ def escalation_size(B: int, frac: float, kmax: int) -> int:
     return min(B, int(kmax), max(1, int(np.ceil(B * frac))))
 
 
-def keep_best(prob, findex, worst, lamk, tol, exact1, exact2=None):
+def keep_best(prob, findex, worst, lamk, tol, exact1, exact2=None,
+              ref_passes: int = 0):
     """The escalation's keep-best rule over K gathered problems.
 
     prob: (A, b, lo, hi, mu, active) of the K envs; worst: their PGS
     residuals; lamk: their PGS impulses.  Tier 1 re-solves warm from lamk,
     the optional tier 2 cold; a point is taken only where the residual it
-    replaces exceeds `tol` and its own is lower.  Returns (lam_new, take,
-    res_kept) with take (K,) bool: which envs changed, and res_kept (K,):
-    the residual of the point kept (`worst` where none was taken).  The
-    residuals sum in the kernels' order (it is the plain version of the
-    escalation kernel's fused and hybrid modes)."""
+    replaces exceeds `tol` and its own is lower.  With ref_passes > 0 the
+    compensated refinement tier then refines the kept point
+    (lcp/dantzig.refine_compensated, ref_passes passes) and its result is
+    taken by the same rule against the kept point's residual (the JAX
+    package's order: its res_cur is that point's residual).  Returns
+    (lam_new, take, res_kept) with take (K,) bool: which envs changed, and
+    res_kept (K,): the residual of the point kept (`worst` where none was
+    taken).  The residuals sum in the kernels' order (it is the plain
+    version of the escalation kernel's fused and hybrid modes)."""
     A, b, lo, hi, mu, act = prob
 
     def resid(lam):
         return comp_residual(A, b, lam, lo, hi, findex, mu, act, seq=True)
 
+    def take_where(take_new, lam_c, res_c, lam_new, res_kept):
+        return (torch.where(take_new[:, None], lam_c, lam_new),
+                torch.where(take_new, res_c, res_kept))
+
     lam_ex = exact1(*prob, lamk)
     res_ex = resid(lam_ex)
     take = (worst > tol) & (res_ex < worst)
-    lam_new = torch.where(take[:, None], lam_ex, lamk)
-    res_kept = torch.where(take, res_ex, worst)
+    lam_new, res_kept = take_where(take, lam_ex, res_ex, lamk, worst)
     if exact2 is not None:
         lam_c2 = exact2(*prob, torch.zeros_like(lamk))
         res_c2 = resid(lam_c2)
         take2 = (res_kept > tol) & (res_c2 < res_kept)
-        lam_new = torch.where(take2[:, None], lam_c2, lam_new)
-        res_kept = torch.where(take2, res_c2, res_kept)
+        lam_new, res_kept = take_where(take2, lam_c2, res_c2, lam_new,
+                                       res_kept)
         take = take | take2
+    if ref_passes > 0:
+        lam_r = refine_compensated(A, b, lo, hi, findex, mu, act, lam_new,
+                                   passes=ref_passes)
+        res_r = resid(lam_r)
+        take_r = (res_kept > tol) & (res_r < res_kept)
+        lam_new, res_kept = take_where(take_r, lam_r, res_r, lam_new,
+                                       res_kept)
+        take = take | take_r
     return lam_new, take, res_kept
 
 
 def escalate_rows(A, b, lo, hi, mu, active, lam, idx, worst, findex, tol,
-                  exact1, exact2=None):
+                  exact1, exact2=None, ref_passes: int = 0):
     """The plain version of the escalation kernel's hybrid mode: ONE
-    packed gather of rows idx, `keep_best`, and the rows written back into
-    a copy of lam (envs outside idx keep their impulses bit for bit).
-    Returns (lam, take, res_kept)."""
+    packed gather of rows idx, `keep_best` (with ref_passes passes of the
+    compensated refinement tier), and the rows written back into a copy of
+    lam (envs outside idx keep their impulses bit for bit).  Returns (lam,
+    take, res_kept)."""
     m = b.shape[1]
     # the six (B, m) operands gathered as one packed buffer
     pk = torch.cat([b, lo, hi, mu, active, lam], dim=1)[idx]
     bk, lok, hik, muk, actk, lamk = pk.split(m, dim=1)
     prob = (A[idx], bk, lok, hik, muk, actk)
     lam_new, take, res_kept = keep_best(prob, findex, worst, lamk, tol,
-                                        exact1, exact2)
+                                        exact1, exact2, ref_passes)
     return lam.index_copy(0, idx, lam_new), take, res_kept
 
 
@@ -123,21 +144,23 @@ def make_hybrid_solver(findex, iters: int, omega: float = 1.0,
                        escalate_ref: int = 0):
     """Batched boxed-LCP solver: solve(A, b, lo, hi, mu, active, lam0) ->
     lam (B, m), PGS with exact re-solve of the worst envs when
-    escalate_frac > 0 (plain PGS otherwise).  A float32 CUDA batch runs
-    the PGS kernel with its fused residual and the escalation kernel's
-    hybrid mode; a CPU or float64 batch runs their plain versions."""
+    escalate_frac > 0 (plain PGS otherwise), and escalate_ref passes of the
+    compensated refinement tier on the re-solved envs.  A float32 CUDA
+    batch runs the PGS kernel with its fused residual and the escalation
+    kernel's hybrid mode; a CPU or float64 batch runs their plain
+    versions.  escalate_ref64 (the mixed-precision tier) is not ported and
+    raises."""
     from dartenv_tpu_torch.cuda_build import use_kernel
     from dartenv_tpu_torch.lcp import hopper_bpp
     from dartenv_tpu_torch.lcp.hopper_pgs import pgs_solve_batch
 
-    if escalate_ref64 > 0 or escalate_ref > 0:
+    if escalate_ref64 > 0:
         raise NotImplementedError(
-            "the phase-wise hybrid solver has no escalate_ref / "
-            "escalate_ref64 refinement tier yet (the fused substep path's "
-            "escalation runs escalate_ref)")
+            "the escalate_ref64 (mixed-precision) refinement tier is not "
+            "ported yet")
     findex = np.asarray(findex)
     budgets = hopper_bpp.tier_budgets(escalate_iters, escalate_refine,
-                                      escalate_iters2)
+                                      escalate_iters2, escalate_ref)
     exact1, exact2 = hopper_bpp.tier_solvers(findex, budgets)
 
     def solve(A, b, lo, hi, mu, active, lam0):
@@ -156,6 +179,7 @@ def make_hybrid_solver(findex, iters: int, omega: float = 1.0,
                                          worst, findex, escalate_tol,
                                          budgets)[0]
         return escalate_rows(A, b, lo, hi, mu, active, lam, idx, worst,
-                             findex, escalate_tol, exact1, exact2)[0]
+                             findex, escalate_tol, exact1, exact2,
+                             escalate_ref)[0]
 
     return solve
