@@ -4,8 +4,9 @@
 Run from the repository root on a machine with one NVIDIA GPU and the CUDA
 toolkit:  python3 chip_smoke.py
 
-It builds the port's four CUDA kernels from dartenv_tpu_torch/csrc (all
-nvcc processes started together) and then, in float32:
+It builds the port's four CUDA kernels from dartenv_tpu_torch/csrc (every
+build it needs, all nvcc processes started together) and then, in
+float32:
 
   * for DartWalker2d and DartHopper at B = 4096, DartWalker3d and DartDog
     at B = 4096 and DartHumanWalker at B = 1024 (the fused-substep path):
@@ -66,6 +67,25 @@ nvcc processes started together) and then, in float32:
     (B = 4096, the DR substep kernel and the fused escalation on every
     substep) and cartpole (B = 8192, the DR dynamics kernel), counters
     zeroed just before each (phase dr_path);
+  * the multi-skeleton world (walker2d.skel composed with a free box:
+    n 15, nb 8, 36 solver rows) and the servo walker (servo rows on its 6
+    actuated dofs, 30 rows) at B = 4096: the dynamics kernel (against its
+    plain version in float64), the PGS kernel and the BPP kernel's hybrid
+    mode on their LCPs against their plain versions, a one-substep
+    lockstep with a plain path, engine/world.make_lcp_capture on the
+    card (the multi-skeleton world), the dynamics kernel with its model
+    tables in global memory beside __constant__ (line `tables`); the JAX
+    package's servo behaviours at B = 4096 (servo_behaviour); every
+    collision-matrix scene at B = 1024, one phase-wise substep of the
+    kernel route against the plain route, and two scenes settled for 600
+    substeps (matrix); the BPP kernel's ES_REF64 builds (the
+    mixed-precision refinement tier) in the fused mode on humanwalker and
+    the hybrid mode on perturbed humanwalker against refine_mixed's plain
+    version, beside the compensated tier (ref64);
+  * the two phase-wise paths through engine/world.make_do_simulation
+    (B = 4096, 100 control steps: kernels 3, 4 and 2 on every substep;
+    line `sim_path`) and humanwalker with escalate_ref64 = 2 (B = 1024,
+    20 control steps, and perturbed, 3), counters zeroed just before each;
   * the device launches of one eager walker2d control step at B = 4096,
     counted by torch.profiler as dartenv_tpu_torch/bench/profile_step.py
     counts them (line `launches`).
@@ -74,6 +94,7 @@ Each phase prints one JSON line; any failing phase raises, and without a
 GPU the script exits non-zero before printing a result.  The last line is
 {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -151,7 +172,7 @@ def escalate_work(K, m, budgets, rows_in, rows_out, rebuild_n=0):
     lam_full rows, or A, the vectors and lam) and writes (rows_out), the
     tiers' solves and residuals, and, in the fused mode, the operator
     rebuild from M (n x n) and Jc: n^3/3 + 2 m n^2 + 2 m^2 n per env."""
-    it1, rf1, po1, it2, rf2, po2, passes = budgets
+    it1, rf1, po1, it2, rf2, po2, passes, passes64 = budgets
     n = rebuild_n
     flops = solve_flops(m, it1, rf1, po1) + 2 * m * m
     if it2 > 0:
@@ -160,6 +181,11 @@ def escalate_work(K, m, budgets, rows_in, rows_out, rebuild_n=0):
     # operator's inverse (m^3) and product (2 m^2), a compensated residual;
     # then one plain residual
     flops += passes * (m ** 3 + 44 * m * m) + 22 * m * m + 2 * m * m
+    # a mixed-precision pass: two float64 matvecs (counted twice: the
+    # card's float64 rate is half its float32 rate), the float32 inverse
+    # and product
+    flops += passes64 * (m ** 3 + 10 * m * m) + (4 * m * m if passes64
+                                                  else 0)
     if n:
         flops += n ** 3 // 3 + 2 * m * n * n + 2 * m * m * n
     return 4 * (rows_in + rows_out) * K, flops * K
@@ -246,7 +272,8 @@ def cfg_budgets(cfg):
     from dartenv_tpu_torch.lcp.hopper_bpp import tier_budgets
 
     return tier_budgets(cfg.escalate_iters, cfg.escalate_refine,
-                        cfg.escalate_iters2, cfg.escalate_ref)
+                        cfg.escalate_iters2, cfg.escalate_ref,
+                        cfg.escalate_ref64)
 
 
 def plain_tiers(findex, budgets):
@@ -470,11 +497,12 @@ def check_escalate(name, st, cfg, outs, tier2=False):
     ms = time_ms(run_k)
     dev_ms = device_ms(run_k, "bpp_fused_kernel")
     plain_ms = time_ms(run_r, runs=5, warmup=1)
-    n, m_c, m, width, _ = st.escalation_dims
+    n, m_c, m, width = st.escalation_dims[:4]
     eb, ef = escalate_work(K, m_c, budgets, width + n + m, n + m,
                            rebuild_n=n)
     emit("escalate", **line, iters2=cfg.escalate_iters2,
-         refine_passes=cfg.escalate_ref, ms=ms, device_ms=dev_ms,
+         refine_passes=budgets[6], ref64_passes=budgets[7], ms=ms,
+         device_ms=dev_ms,
          plain_ms=plain_ms, bound_ms=bound(eb, ef)[0])
     assert torch.equal(dqp0, outs["dq_plus"])      # inputs not modified
     return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
@@ -482,7 +510,9 @@ def check_escalate(name, st, cfg, outs, tier2=False):
                 shape=f"{name} K={K} m={m_c} n={n} fused "
                       f"iters={budgets[0]}+{budgets[1]} "
                       f"iters2={budgets[3]}+{budgets[4]} "
-                      f"refine_passes={budgets[6]}")
+                      f"refine_passes={budgets[6]} "
+                      f"ref64_passes={budgets[7]}",
+                solved_kernel=line["solved_kernel"])
 
 
 def check_hybrid_rows(name, cfg, findex, g, K=16):
@@ -510,7 +540,7 @@ def check_hybrid_rows(name, cfg, findex, g, K=16):
     out_r, take_r, kept_r = escalate_rows(A, b, lo, hi, mu, act, lam, idx,
                                           worst, findex, cfg.escalate_tol,
                                           *plain_tiers(findex, budgets),
-                                          budgets[6])
+                                          *budgets[6:8])
     rest = torch.ones(B, dtype=torch.bool, device=A.device)
     rest[idx] = False
     others = (torch.equal(out_k[rest], out_r[rest])
@@ -894,11 +924,15 @@ def dynamics_work(model, B, dr_width=0):
 
 
 def check_dynamics(name, model, B, q, dq, tau, dr_fields=(), dr_vals=(),
-                   phase="dynamics"):
+                   phase="dynamics", f64=False):
     """Phase dynamics for one model: the kernel against its plain version,
     output by output, relative to max(1, |ref|_inf).  With dr_fields
     (phase dr) the kernel built with those leaves as per-env inputs,
-    dr_vals, against the plain version on the model with them."""
+    dr_vals, against the plain version on the model with them.  With f64
+    the plain version runs in float64 on the same float32 inputs: above
+    n = 12 its float32 form inverts M with a 1e-6 jitter that the kernel
+    does not add (6e-4 of dq_star on the walker-and-box forest against
+    the kernel's host build's 1e-6, tests/test_torch_compose.py)."""
     import torch
 
     from dartenv_tpu_torch.bench.kernel_stages import device_ms
@@ -908,7 +942,11 @@ def check_dynamics(name, model, B, q, dq, tau, dr_fields=(), dr_vals=(),
     plain_model = hd.with_leaves(model, dr_fields, dr_vals)
     got = kern(q, dq, tau, *dr_vals)
     torch.cuda.synchronize()
-    ref = hd.dynamics_reference(plain_model, q, dq, tau)
+    if f64:
+        ref = hd.dynamics_reference(plain_model.to(dtype=torch.float64),
+                                    q.double(), dq.double(), tau.double())
+    else:
+        ref = hd.dynamics_reference(plain_model, q, dq, tau)
     errs, abs_errs = {}, {}
     for k, a, r in zip(DYN_TOL, got, ref):
         assert a.shape == r.shape and torch.isfinite(a).all(), k
@@ -924,7 +962,8 @@ def check_dynamics(name, model, B, q, dq, tau, dr_fields=(), dr_vals=(),
     emit(phase, kernel="dynamics", env=name, B=B, n=model.n, nb=model.nb,
          dr_fields=list(dr_fields), lane_group=kern.group,
          joint_types=joints, rel_err=errs, abs_err=abs_errs, ms=ms,
-         device_ms=dev_ms, plain_ms=plain_ms, tol_rel=DYN_TOL)
+         device_ms=dev_ms, plain_ms=plain_ms, tol_rel=DYN_TOL,
+         plain_dtype="float64" if f64 else "float32")
     bad = {k: e for k, e in errs.items() if not e <= DYN_TOL[k]}
     assert not bad, f"dynamics kernel disagrees on {name}: {bad}"
     return dict(max_abs_err=max(abs_errs.values()), ms=ms,
@@ -950,12 +989,14 @@ def random_pushes(model, task, B, gen, dev):
     return f
 
 
-def phasewise_lcp(model, q, dq, tau, lam_prev, f_ext, dyn=None):
+def phasewise_lcp(model, q, dq, tau, lam_prev, f_ext, dyn=None,
+                  servo=None):
     """The boxed LCPs of the phase-wise step, as engine/world.make_sim_step
     assembles them (plain dynamics with the external force f_ext, or the
     dynamics phase's outputs dyn = (dq_star, M, phi, R_w, p_w); collision,
-    assemble_lcp, compacted warm start).  Returns (dq_star, contacts,
-    (A, b, lo, hi, act, mu, findex, MinvJt, row_sel), lam0)."""
+    assemble_lcp with the servo targets `servo`, compacted warm start).
+    Returns (dq_star, contacts, (A, b, lo, hi, act, mu, findex, MinvJt,
+    row_sel), lam0)."""
     from dartenv_tpu_torch.collision.narrowphase import collide
     from dartenv_tpu_torch.dynamics import batched
     from dartenv_tpu_torch.engine.constraints import (
@@ -970,7 +1011,8 @@ def phasewise_lcp(model, q, dq, tau, lam_prev, f_ext, dyn=None):
     dq_star, M, phi, R_w, p_w = dyn
     contacts = collide(model, R_w, p_w)
     A, b, lo, hi, act, mu, findex, MinvJt, row_sel, _ = assemble_lcp(
-        model, build_layout(model), phi, M, q, dq, dq_star, contacts, dt)
+        model, build_layout(model), phi, M, q, dq, dq_star, contacts, dt,
+        servo_target=servo)
     lam0 = compact_lam(lam_prev, row_sel, act)
     return dq_star, contacts, (A, b, lo, hi, act, mu, findex, MinvJt,
                                row_sel), lam0
@@ -994,18 +1036,34 @@ def plain_hybrid(cfg, findex, A, b, lo, hi, mu, act, lam0):
     budgets = cfg_budgets(cfg)
     return escalate_rows(A, b, lo, hi, mu, act, lam, idx, worst, findex,
                          cfg.escalate_tol, *plain_tiers(findex, budgets),
-                         budgets[6])[0]
+                         *budgets[6:8])[0]
 
 
-def plain_phasewise_substep(model, q, dq, lam, tau, f_ext):
+def plain_solve(cfg, findex, A, b, lo, hi, mu, act, lam0):
+    """engine/constraints.run_lcp_solver through the plain versions only:
+    the BPP kernel's over the batch in the "dantzig" mode, else the plain
+    hybrid solve, or plain PGS without escalation."""
+    from dartenv_tpu_torch.lcp.hopper_bpp import bpp_solve_reference
+    from dartenv_tpu_torch.lcp.hopper_pgs import pgs_solve_reference
+
+    if cfg.solver == "dantzig":
+        return bpp_solve_reference(A, b, lo, hi, findex, mu, act, lam0=lam0)
+    if cfg.escalate_frac > 0:
+        return plain_hybrid(cfg, findex, A, b, lo, hi, mu, act, lam0)
+    return pgs_solve_reference(A, b, lo, hi, findex, mu, act,
+                               iters=cfg.pgs_iters, omega=cfg.pgs_omega,
+                               lam0=lam0)
+
+
+def plain_phasewise_substep(model, q, dq, lam, tau, f_ext, servo=None):
     """One phase-wise substep through the plain versions only, composed
     here as engine/world.make_sim_step composes the kernels: without an
-    external force the dynamics kernel's plain version, and for a model
-    with constraint rows (the solver="dantzig" mode) collision, assembly
-    and the BPP kernel's plain version over the batch with
-    lcp/dantzig.make_exact_solver's defaults; with an external force the
-    plain dynamics, collision, assembly and the plain hybrid solve.  Then
-    the position update.  Returns (q, dq, lam)."""
+    external force the dynamics kernel's plain version (in float64 above
+    n = 12, see check_dynamics), and for a model with constraint rows
+    collision, assembly (with the servo targets `servo`) and
+    `plain_solve`; with an external force the plain dynamics, collision,
+    assembly and the plain solve.  Then the position update.  Returns (q,
+    dq, lam)."""
     import torch
 
     from dartenv_tpu_torch.dynamics import batched
@@ -1013,24 +1071,25 @@ def plain_phasewise_substep(model, q, dq, lam, tau, f_ext):
     from dartenv_tpu_torch.engine.constraints import (
         build_layout, scatter_lam,
     )
-    from dartenv_tpu_torch.lcp.hopper_bpp import bpp_solve_reference
+    from dartenv_tpu_torch.math.linalg import _UNROLL_MAX
 
     m = build_layout(model).m
-    dyn = None if f_ext is not None else hd.dynamics_reference(model, q, dq,
-                                                               tau)
+    dyn = None
+    if f_ext is None and model.n > _UNROLL_MAX:
+        dyn = tuple(x.float() for x in hd.dynamics_reference(
+            model.to(dtype=torch.float64), q.double(), dq.double(),
+            tau.double()))
+    elif f_ext is None:
+        dyn = hd.dynamics_reference(model, q, dq, tau)
     if m == 0:
         dq_plus = dyn[0]
     else:
         dq_star, _, prob, lam0 = phasewise_lcp(model, q, dq, tau, lam,
-                                               f_ext, dyn)
+                                               f_ext, dyn, servo)
         A, b, lo, hi, act, mu, findex, MinvJt, row_sel = prob
-        if model.solver.solver == "dantzig":
-            assert f_ext is None
-            lam_c = bpp_solve_reference(A, b, lo, hi, findex, mu, act,
-                                        lam0=lam0)
-        else:
-            lam_c = plain_hybrid(model.solver, findex, A, b, lo, hi, mu,
-                                 act, lam0)
+        assert f_ext is None or model.solver.solver != "dantzig"
+        lam_c = plain_solve(model.solver, findex, A, b, lo, hi, mu, act,
+                            lam0)
         dq_plus = dq_star + torch.sum(MinvJt * lam_c[:, None, :], dim=-1)
         lam = scatter_lam(lam_c, row_sel, m)
     return (batched.integrate_positions(model, q, dq_plus, model.dt),
@@ -1113,25 +1172,30 @@ def compare_pgs(label, prob, iters, omega):
         shape=f"{label} B={B} m_c={m} iters={iters} residual")
 
 
-def check_pgs(dev, name, states):
+def check_pgs(dev, name, states, ref64=0):
     """Phase pgs: the PGS kernel against its plain version on the LCPs of
     the perturbed env's phase-wise step (states from its rollout, about
     half of the envs pushed): walker2d at B = 4096, humanwalker at
     B = 1024 (41 rows, two per lane); for walker2d also on random LCPs of
     m = 40 rows and the BPP kernel's core mode on the hybrid's top K.
     Then the BPP kernel's hybrid mode (with humanwalker's two refinement
-    passes) on the hybrid's top K.  Returns what the kernels line needs
-    for the PGS kernel and the hybrid mode."""
+    passes, or `ref64` passes of the mixed-precision tier) on the hybrid's
+    top K.  Returns what the kernels line needs for the PGS kernel and the
+    hybrid mode."""
+    import dataclasses
+
     import torch
 
-    from dartenv_tpu_torch.bench.kernel_stages import device_ms
     from dartenv_tpu_torch.bench.throughput import make_task
-    from dartenv_tpu_torch.lcp import hopper_bpp as hb
-    from dartenv_tpu_torch.lcp.hybrid import escalate_rows, escalation_size
+    from dartenv_tpu_torch.lcp.hybrid import escalation_size
 
     task = make_task(name, device=dev)
     model, cfg = task.model, task.model.solver
     label = name + "_perturbed"
+    if ref64:
+        # the mixed-precision tier (ES_REF64) in place of the model's own
+        cfg = dataclasses.replace(cfg, escalate_ref64=ref64)
+        label += "_ref64"
     q, dq, tau, lam_prev = states
     B = q.shape[0]
     gen = torch.Generator(device=dev)
@@ -1139,7 +1203,6 @@ def check_pgs(dev, name, states):
     f_ext = random_pushes(model, task, B, gen, dev)
     _, _, prob, lam0 = phasewise_lcp(model, q, dq, tau, lam_prev, f_ext)
     A, b, lo, hi, act, mu, findex, _, _ = prob
-    m = b.shape[1]
     lam_k, res_k, pgs = compare_pgs(
         label, (A, b, lo, hi, findex, mu, act, lam0), cfg.pgs_iters,
         cfg.pgs_omega)
@@ -1154,17 +1217,38 @@ def check_pgs(dev, name, states):
                   mu[idx], act[idx], lam_k[idx])
 
     # the hybrid mode: the whole escalation of the phase-wise solve
+    return pgs, check_hybrid_batch(label, cfg, findex, (A, b, lo, hi, mu,
+                                                       act), lam_k, worst,
+                                   idx)
+
+
+def check_hybrid_batch(label, cfg, findex, prob, lam_k, worst, idx):
+    """Phase hybrid: the BPP kernel's hybrid mode (the whole escalation of
+    a phase-wise solve, one launch, with the refinement tier of `cfg`)
+    against its plain version (lcp/hybrid.escalate_rows) on a batch's
+    LCPs `prob` = (A, b, lo, hi, mu, act), the PGS kernel's impulses lam_k
+    and the top K (worst, idx) of its residuals.  Returns what the kernels
+    line needs."""
+    import torch
+
+    from dartenv_tpu_torch.bench.kernel_stages import device_ms
+    from dartenv_tpu_torch.lcp import hopper_bpp as hb
+    from dartenv_tpu_torch.lcp.hybrid import escalate_rows
+
+    A, b, lo, hi, mu, act = prob
+    B, m = b.shape
+    K = idx.shape[0]
     budgets = cfg_budgets(cfg)
     tiers = plain_tiers(findex, budgets)
     run_k = lambda: hb.bpp_hybrid(A, b, lo, hi, mu, act, lam_k, idx, worst,
                                   findex, cfg.escalate_tol, budgets)
     run_r = lambda: escalate_rows(A, b, lo, hi, mu, act, lam_k, idx, worst,
                                   findex, cfg.escalate_tol, *tiers,
-                                  budgets[6])
+                                  *budgets[6:8])
     out_k, take_k, kept_k = run_k()
     torch.cuda.synchronize()
     out_r, take_r, kept_r = run_r()
-    rest = torch.ones(B, dtype=torch.bool, device=dev)
+    rest = torch.ones(B, dtype=torch.bool, device=A.device)
     rest[idx] = False
     others = (torch.equal(out_k[rest], out_r[rest])
               and torch.equal(out_k[rest], lam_k[rest]))
@@ -1175,14 +1259,15 @@ def check_pgs(dev, name, states):
     dev_ms = device_ms(run_k, "bpp_hybrid_kernel")
     plain_ms = time_ms(run_r, runs=5, warmup=1)
     hbb, hbf = escalate_work(K, m, budgets, m * m + 7 * m, m)
-    emit("hybrid", **line, m=m, refine_passes=budgets[6], ms=ms,
-         device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound(hbb, hbf)[0])
-    bpp = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-               bound=bound(hbb, hbf),
-               shape=f"{label} K={K} m={m} hybrid "
-                     f"iters={budgets[0]}+{budgets[1]} "
-                     f"refine_passes={budgets[6]}")
-    return pgs, bpp
+    emit("hybrid", **line, m=m, refine_passes=budgets[6],
+         ref64_passes=budgets[7], ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+         bound_ms=bound(hbb, hbf)[0])
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound=bound(hbb, hbf), solved_kernel=line["solved_kernel"],
+                shape=f"{label} K={K} m={m} hybrid "
+                      f"iters={budgets[0]}+{budgets[1]} "
+                      f"refine_passes={budgets[6]} "
+                      f"ref64_passes={budgets[7]}")
 
 
 def check_core_batch(name, dev, states):
@@ -1621,32 +1706,28 @@ def lockstep_phasewise(name, dev, states=None, perturb=False, solver=None):
             "contacts are not live"
 
 
-def drive_main_path(dev, name, perturb=False, solver=None):
+def drive_main_path(dev, name, perturb=False, solver=None, ref64=None):
     """Phase rollout: the batched rollout of one path through bench_env
-    (`solver`: the LCP solver mode, None: the task's), with every kernel's
-    launch counter and every plain-call counter set to 0 just before and
-    read just after.  Returns the launch counts."""
+    (`solver`: the LCP solver mode, None: the task's; `ref64`: passes of
+    the escalation's mixed-precision tier, a REF64_PATHS path), with every
+    kernel's launch counter and every plain-call counter set to 0 just
+    before and read just after.  Returns the launch counts."""
     import torch
 
     from dartenv_tpu_torch.bench.throughput import bench_env
-    from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
     from dartenv_tpu_torch.engine import hopper_substep as hs
-    from dartenv_tpu_torch.lcp import hopper_bpp as hb
-    from dartenv_tpu_torch.lcp import hopper_pgs as hp
 
-    B, horizon, rollouts = PATHS[(name, perturb) + ((solver,) if solver
-                                                     else ())]
-    hs.SUBSTEP_LAUNCHES = hd.DYNAMICS_LAUNCHES = hp.PGS_LAUNCHES = 0
-    hb.CORE_LAUNCHES = hb.FUSED_LAUNCHES = hb.HYBRID_LAUNCHES = 0
-    hs.PLAIN_CALLS = hb.PLAIN_CALLS = hd.PLAIN_CALLS = hp.PLAIN_CALLS = 0
+    B, horizon, rollouts = (REF64_PATHS[(name, perturb)] if ref64 else
+                            PATHS[(name, perturb) + ((solver,) if solver
+                                                     else ())])
+    zero_counters()
     t0 = time.time()
     out = bench_env(name, batch=B, horizon=horizon, iters=rollouts - 1,
                     max_episode_steps=1000, device=dev,
-                    return_state=True, perturb=perturb, solver=solver)
+                    return_state=True, perturb=perturb, solver=solver,
+                    escalate_ref64=ref64)
     seconds = time.time() - t0
-    counts = dict(substep=hs.SUBSTEP_LAUNCHES, bpp_core=hb.CORE_LAUNCHES,
-                  bpp_fused=hb.FUSED_LAUNCHES, bpp_hybrid=hb.HYBRID_LAUNCHES,
-                  dynamics=hd.DYNAMICS_LAUNCHES, pgs=hp.PGS_LAUNCHES)
+    counts = read_counters()
     plain = sum(plain_counts())
     end, task = out.pop("state"), out.pop("task")
     obs = task.obs(end.sim, end.aux)
@@ -1654,7 +1735,8 @@ def drive_main_path(dev, name, perturb=False, solver=None):
     finite = all(bool(torch.isfinite(x).all())
                  for x in (end.sim.q, end.sim.dq, obs))
     emit("rollout", **out, **{f"{k}_launches": v for k, v in counts.items()},
-         plain_calls=plain, finite_state=finite, seconds=seconds)
+         plain_calls=plain, finite_state=finite, seconds=seconds,
+         escalate_ref64=ref64)
     assert finite
     assert obs.shape[0] == B and end.sim.q.shape == (B, task.model.n)
     # (a reacher's or a snake's episode ends only at the time limit, 1000
@@ -1679,6 +1761,536 @@ def drive_main_path(dev, name, perturb=False, solver=None):
     return dict(counts, steps=steps_run)
 
 
+# ---- the multi-skeleton, servo, matrix and ref64 phases ------------------
+
+# (path) -> (batch, frame_skip, control steps): the multi-skeleton world
+# and the servo walker driven through engine/world.make_do_simulation
+SIM_PATHS = {"multiskel": (4096, 4, 100), "servo": (4096, 4, 100)}
+MATRIX_B = 1024
+MATRIX_SETTLE = ("box_box", "cylinder_side")   # settle runs, 600 substeps
+REF64 = 2          # passes of the mixed-precision tier in phase ref64
+# paths run with escalate_ref64 = REF64: (env, perturb) -> (batch,
+# horizon, rollouts)
+REF64_PATHS = {("humanwalker", False): (1024, 20, 1),
+               ("humanwalker", True): (1024, 3, 1)}
+
+
+def sim_model(name, dev):
+    """The model of a SIM_PATHS path (bench/scenes.py)."""
+    from dartenv_tpu_torch.bench import scenes
+
+    return (scenes.walker_box_world(dev) if name == "multiskel"
+            else scenes.servo_walker(dev))
+
+
+def sim_inputs(model, B, gen, dev, servo):
+    """(tau, servo commands) of one control step: random walker torques
+    U(-100, 100) N m on its 6 actuated dofs, or for the servo walker no
+    torque and random servo commands U(-2, 2) rad/s on those dofs (its
+    motors drive it).  Both packages run away in some envs on either path
+    (RUNAWAY_MAX); the servo walker under these torques as well, in about
+    1 env of 100 within 100 control steps (ROADMAP.md Queue 3 item 6)."""
+    import torch
+
+    u = lambda: torch.rand((B, 6), generator=gen, device=dev) * 2 - 1
+    tau = torch.zeros((B, model.n), device=dev)
+    cmd = None
+    if servo:
+        cmd = torch.zeros((B, model.n), device=dev)
+        cmd[:, 3:9] = 2.0 * u()
+    else:
+        tau[:, 3:9] = 100.0 * u()
+    return tau, cmd
+
+
+RUNAWAY_DQ = 1e3    # rad/s or m/s: an env beyond it has blown up
+# (path) -> the most envs of its sim_path run (B = 4096 envs, 100 control
+# steps) that may run away and be reset.  The hybrid solve's exact
+# re-solve can return a point of huge impulses on a near-singular free set
+# and keep it when its normalized residual is lower than the PGS point's;
+# the JAX package does the same.  Runaway envs of 4 x 1024 envs x 100
+# control steps, float32, the same inputs in both packages
+# (scripts/torch_rollout_blowup.py, seeds 0-3): walker-and-box world, the
+# JAX package's CPU path 11, its TPU path (Pallas kernels in interpret
+# mode) 7, the port 3; servo walker driven by its commands, 0, 2 and 1
+# (PERF.md section 6, ROADMAP.md Queue 3 item 6).  The limit is twice the
+# larger of the reference's two counts.
+RUNAWAY_MAX = {"multiskel": 22, "servo": 4}
+
+
+def runaway(st):
+    """(B,) bool: the envs of `st` whose state is non-finite or whose |dq|
+    exceeds RUNAWAY_DQ."""
+    import torch
+
+    return ~(torch.isfinite(st.q).all(1) & torch.isfinite(st.dq).all(1)
+             & (st.dq.abs().amax(1) <= RUNAWAY_DQ))
+
+
+def reset_runaway(st, st0):
+    """The runaway envs of `st` set back to `st0`, as the env layer's
+    auto-reset ends such an episode.  Returns (state, (B,) bool: the envs
+    reset).  No host sync."""
+    import torch
+
+    bad = runaway(st)
+    keep = lambda x, x0: torch.where(bad[:, None], x0, x)
+    return dataclasses.replace(st, q=keep(st.q, st0.q),
+                               dq=keep(st.dq, st0.dq),
+                               lam=keep(st.lam, st0.lam)), bad
+
+
+def sim_states(name, model, B, dev, substeps=40):
+    """(q, dq, tau, lam, servo) of B envs after `substeps` substeps of the
+    model's own phase-wise path from jittered walker poses under
+    `sim_inputs`: live contacts and warm starts.  No env is reset: a
+    runaway env here fails the phase."""
+    import torch
+
+    from dartenv_tpu_torch.engine.world import init_state, make_sim_step
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    st = init_state(model, B)
+    jit = torch.zeros_like(st.q)
+    jit[:, :9] = (torch.rand((B, 9), generator=gen, device=dev) - 0.5) * 0.1
+    st = dataclasses.replace(st, q=st.q + jit)
+    step = make_sim_step(model)
+    servo = name == "servo"
+    for _ in range(substeps):
+        tau, cmd = sim_inputs(model, B, gen, dev, servo)
+        st, _ = step(st, tau, None, cmd)
+    ran = int(runaway(st).sum())
+    assert ran == 0, f"{name}: {ran} envs ran away in the check states"
+    tau, cmd = sim_inputs(model, B, gen, dev, servo)
+    return st.q, st.dq, tau, st.lam, cmd
+
+
+def capsule_box_pairs(model, q, dq):
+    """Line cb_pairs: the walker-and-box world's 7 capsule-box cross pairs
+    collided as one `_capsule_box_pairs` call (the route of `collide`)
+    and as 7 calls of one pair: wall ms, device ms and device launches per
+    collision, outputs equal to the bit."""
+    import torch
+
+    from dartenv_tpu_torch.collision import narrowphase as nph
+    from dartenv_tpu_torch.dynamics import batched
+
+    kin = batched.bkin(model, q, dq)
+    pose = lambda g: nph._geom_pose(model, kin.R_w, kin.p_w, g)
+    run, = [r for r in nph._self_pair_runs(model)
+            if nph._is_capsule_box(model, r[0])]
+    one = lambda: nph._capsule_box_pairs(model, run, pose)
+    each = lambda: [torch.cat(x, dim=1) for x in zip(
+        *(nph._capsule_box_pairs(model, [pr], pose) for pr in run))]
+    same = all(torch.equal(a, b) for a, b in zip(one(), each()))
+    out = {}
+    for tag, fn in (("one_call", one), ("per_pair", each)):
+        wall, busy, launches = profile_calls(fn, 3)
+        out[tag] = dict(wall_ms=wall, device_ms=busy,
+                        device_launches=launches)
+    emit("cb_pairs", env="multiskel", B=q.shape[0], pairs=len(run),
+         outputs_equal=same, **out)
+    assert same
+
+
+def global_tables_kernel(model):
+    """Kernel 3 of `model` with its model tables in global memory
+    (__device__) in place of __constant__: the table-space measurement of
+    phase tables (a build of its own)."""
+    from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+
+    kern = hd.DynamicsKernel(model)
+    kern._header = "#define DY_CONST __device__\n" + kern._header
+    return kern
+
+
+def table_space(name, model, gkern, q, dq, tau):
+    """Phase tables: kernel 3's device ms with its model tables in
+    __constant__ memory (the shipped build) and in global memory
+    (`global_tables_kernel`), on the same inputs, and the two outputs
+    equal to the bit."""
+    import torch
+
+    from dartenv_tpu_torch.bench.kernel_stages import device_ms
+    from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+
+    ckern = hd.get_dynamics_kernel(model)
+    same = all(torch.equal(a, b) for a, b in zip(ckern(q, dq, tau),
+                                                 gkern(q, dq, tau)))
+    ms = {}
+    for tag, k in (("constant", ckern), ("global", gkern), ("constant2",
+                                                             ckern)):
+        ms[tag] = device_ms(lambda: k(q, dq, tau), "dynamics_kernel")
+    emit("tables", env=name, B=q.shape[0], nb=model.nb, n=model.n,
+         device_ms_constant=ms["constant"], device_ms_global=ms["global"],
+         device_ms_constant_again=ms["constant2"], outputs_equal=same)
+    assert same
+
+
+def check_phasewise_model(name, model, states):
+    """Phases dynamics, pgs and hybrid on the LCPs of a phase-wise path's
+    states (q, dq, tau, lam, servo): kernel 3 against its plain version
+    in float64 (above n = 12 the float32 one adds an inv_psd jitter; on
+    the servo walker's fast states its float32 rounding is no reference
+    either), kernel 4 and kernel 2's hybrid mode against their plain
+    versions.  Returns the three kernels' entries."""
+    import torch
+
+    from dartenv_tpu_torch.lcp.hybrid import escalation_size
+
+    q, dq, tau, lam_prev, servo = states
+    B = q.shape[0]
+    cfg = model.solver
+    dyn = check_dynamics(name, model, B, q, dq, tau, f64=True)
+    _, contacts, prob, lam0 = phasewise_lcp(model, q, dq, tau, lam_prev,
+                                            None, servo=servo)
+    A, b, lo, hi, act, mu, findex, _, _ = prob
+    emit("lcp", env=name, B=B, m=b.shape[1], findex_plain_rows=int(
+        (findex < 0).sum()), active_rows=float(act.sum()),
+         active_contact_slots=float(contacts.active.sum()),
+         max_contact_overflow=float(contacts.overflow.max()),
+         finite_two_sided_rows=int(((lo > -1e19) & (hi < 1e19)
+                                    & (lo < 0)).sum()))
+    lam_k, res_k, pgs = compare_pgs(name, (A, b, lo, hi, findex, mu, act,
+                                           lam0), cfg.pgs_iters,
+                                    cfg.pgs_omega)
+    K = escalation_size(B, cfg.escalate_frac, cfg.escalate_kmax)
+    worst, idx = torch.topk(res_k, K)
+    hyb = check_hybrid_batch(name, cfg, findex, (A, b, lo, hi, mu, act),
+                             lam_k, worst, idx)
+    return dict(dynamics=dyn, pgs=pgs, bpp_hybrid=hyb)
+
+
+def lockstep_model(name, model, states, B=1024):
+    """Phase lockstep for a SIM_PATHS model: one substep of the port's sim
+    step (kernels 3, 4 and 2) beside plain_phasewise_substep from the same
+    states, with the same torques and servo commands.  An env whose exact
+    re-solve branches on the kernels' rounding may part: BPP_MAY_DIVERGE
+    of every 128 envs beyond 1e-3, as in phase bpp_batch (the hybrid
+    solve escalates 32 of 1024 envs here; the q99 errors are printed)."""
+    import torch
+
+    from dartenv_tpu_torch.engine.world import SimState, make_sim_step
+
+    q, dq, tau, lam, servo = (None if x is None else x[:B].clone()
+                              for x in states)
+    plain_before = plain_counts()
+    sk, _ = make_sim_step(model)(SimState(q=q, dq=dq, time=q.new_zeros(B),
+                                          lam=lam), tau, None, servo)
+    assert plain_counts() == plain_before     # the kernel path took none
+    sp = plain_phasewise_substep(model, q, dq, lam, tau, None, servo)
+    rel = lambda x, y: ((x - y).abs() / y.abs().clamp(min=1.0)).max(
+        1).values
+    q_err, dq_err = rel(sk.q, sp[0]), rel(sk.dq, sp[1])
+    beyond = int(((q_err > 1e-3) | (dq_err > 1e-3)).sum())
+    may = BPP_MAY_DIVERGE * -(-B // 128)
+    same = (sk.lam > 0).eq(sp[2] > 0).all(1)
+    emit("lockstep", env=name, B=B, substeps=1,
+         same_contact_frac=float(same.float().mean()),
+         q_err_q99=float(q_err.quantile(0.99)),
+         dq_err_q99=float(dq_err.quantile(0.99)),
+         dq_err_max=float(dq_err.max()), envs_beyond_tol=beyond, tol=1e-3,
+         tol_envs_beyond=may, impulse_rows=int((sp[2] > 0).sum()))
+    assert torch.isfinite(sk.q).all() and torch.isfinite(sk.dq).all()
+    assert same.float().mean() > 0.9
+    assert beyond <= may
+
+
+def check_capture(name, model, states, B=1024):
+    """Phase capture: engine/world.make_lcp_capture on the card (cold, as
+    the validation hook runs it): A symmetric within 1e-5 of its max, and
+    the impulses of the kernel route (kernel 4, kernel 2's hybrid mode)
+    against the plain solve of the captured problems, env by env within
+    the PGS phase's bound (1e-6 + 1e-5 |plain|); BPP_MAY_DIVERGE of every
+    128 envs may part."""
+    import torch
+
+    from dartenv_tpu_torch.engine.world import SimState, make_lcp_capture
+
+    q, dq, tau, _, servo = states
+    assert servo is None                  # the capture takes no commands
+    q, dq, tau = q[:B], dq[:B], tau[:B]
+    cap = make_lcp_capture(model)(SimState(q=q, dq=dq, time=q.new_zeros(B),
+                                           lam=None), tau)
+    A = cap["A"]
+    sym = float(((A - A.transpose(1, 2)).abs().amax((1, 2))
+                 / A.abs().amax((1, 2)).clamp(min=1e-30)).max())
+    lam_r = plain_solve(model.solver, cap["findex"], A, cap["b"], cap["lo"],
+                        cap["hi"], cap["mu"], cap["active"],
+                        torch.zeros_like(cap["b"]))
+    lam_k = cap["lam"]
+    bad = ((lam_k - lam_r).abs() > 1e-6 + 1e-5 * lam_r.abs()).any(1)
+    may = BPP_MAY_DIVERGE * -(-B // 128)
+    emit("capture", env=name, B=B, m=int(A.shape[1]), A_asym_rel=sym,
+         envs_beyond_tol=int(bad.sum()), tol_envs_beyond=may,
+         lam_abs_err_same=float((lam_k - lam_r)[~bad].abs().max()),
+         dq_plus_finite=bool(torch.isfinite(cap["dq_plus"]).all()),
+         active_rows=float(cap["active"].sum()))
+    assert sym <= 1e-5
+    assert int(bad.sum()) <= may
+    assert torch.isfinite(cap["dq_plus"]).all()
+
+
+def profile_calls(fn, calls):
+    """(wall ms per call from an un-profiled pass, device-busy ms per call,
+    device launches per call) of fn on the card, counted as
+    bench/profile_step.py counts them (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy = launches = 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy += us
+            launches += ev.count
+    return wall, busy / 1e3 / calls, launches / calls
+
+
+def zero_counters():
+    from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+    from dartenv_tpu_torch.lcp import hopper_bpp as hb
+    from dartenv_tpu_torch.lcp import hopper_pgs as hp
+
+    hs.SUBSTEP_LAUNCHES = hd.DYNAMICS_LAUNCHES = hp.PGS_LAUNCHES = 0
+    hb.CORE_LAUNCHES = hb.FUSED_LAUNCHES = hb.HYBRID_LAUNCHES = 0
+    hs.PLAIN_CALLS = hb.PLAIN_CALLS = hd.PLAIN_CALLS = hp.PLAIN_CALLS = 0
+
+
+def read_counters():
+    from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+    from dartenv_tpu_torch.lcp import hopper_bpp as hb
+    from dartenv_tpu_torch.lcp import hopper_pgs as hp
+
+    return dict(substep=hs.SUBSTEP_LAUNCHES, bpp_core=hb.CORE_LAUNCHES,
+                bpp_fused=hb.FUSED_LAUNCHES, bpp_hybrid=hb.HYBRID_LAUNCHES,
+                dynamics=hd.DYNAMICS_LAUNCHES, pgs=hp.PGS_LAUNCHES)
+
+
+def drive_sim_path(name, dev):
+    """Phase sim_path: a SIM_PATHS path through make_do_simulation under
+    random torques or servo commands (`sim_inputs`), every launch and
+    plain-call counter set to 0 just before and read just after: kernels
+    3, 4 and 2 (hybrid mode) once per substep each, no plain call.  A
+    runaway env is reset after its control step (`reset_runaway`), and
+    the path fails when more than RUNAWAY_MAX[name] envs were.  Then the
+    device launches of one control step (torch.profiler).  Returns the
+    counts."""
+    import torch
+
+    from dartenv_tpu_torch.engine.world import (
+        init_state, make_do_simulation,
+    )
+
+    B, frame_skip, steps = SIM_PATHS[name]
+    model = sim_model(name, dev)
+    do_sim = make_do_simulation(model, frame_skip)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    servo = name == "servo"
+    st = st0 = init_state(model, B)
+    tau, cmd = sim_inputs(model, B, gen, dev, servo)
+    st, _ = do_sim(st, tau, None, cmd)                           # warm-up
+    torch.cuda.synchronize()
+    zero_counters()
+    overflow = torch.zeros(B, device=dev)
+    resets = torch.zeros((), device=dev)
+    t0 = time.time()
+    for _ in range(steps):
+        tau, cmd = sim_inputs(model, B, gen, dev, servo)
+        st, con = do_sim(st, tau, None, cmd)
+        st, bad = reset_runaway(st, st0)
+        overflow = torch.maximum(overflow, con.overflow)
+        resets = resets + bad.sum()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counts = read_counters()
+    plain = sum(plain_counts())
+    finite = bool(torch.isfinite(st.q).all() and torch.isfinite(st.dq).all())
+    tau, cmd = sim_inputs(model, B, gen, dev, servo)
+    wall, busy, launches = profile_calls(lambda: do_sim(st, tau, None, cmd),
+                                         2)
+    sub = steps * frame_skip
+    emit("sim_path", path=name, B=B, n=model.n, nb=model.nb,
+         frame_skip=frame_skip, control_steps=steps, seconds=seconds,
+         env_steps_per_s=B * steps / seconds,
+         **{f"{k}_launches": v for k, v in counts.items()},
+         launches_per_substep={k: v / sub for k, v in counts.items()},
+         plain_calls=plain, finite_state=finite,
+         runaway_resets=int(resets), runaway_dq=RUNAWAY_DQ,
+         runaway_max=RUNAWAY_MAX[name],
+         max_contact_overflow=float(overflow.max()),
+         wall_ms_per_control_step=wall,
+         device_busy_ms_per_control_step=busy,
+         device_busy_share=busy / wall,
+         device_launches_per_control_step=launches)
+    assert finite and plain == 0
+    assert int(resets) <= RUNAWAY_MAX[name], (name, int(resets))
+    want = dict.fromkeys(counts, 0)
+    want.update(dynamics=sub, pgs=sub, bpp_hybrid=sub)
+    assert counts == want, (counts, want)
+    return dict(counts, steps=steps)
+
+
+def check_servo_behaviour(dev, B=4096):
+    """Phase servo_behaviour: the JAX package's servo tests at batch size
+    on the card (a servo pendulum, the phase-wise path): a pinned command
+    reached within 1e-4 in 5 substeps, and a saturated servo whose
+    per-substep velocity change stays below flimit * dt / I."""
+    import torch
+
+    from dartenv_tpu_torch.engine.world import init_state, make_sim_step
+    from dartenv_tpu_torch.model import skel_model as sm
+    from dartenv_tpu_torch.model.builder import ModelBuilder, box_inertia
+
+    def pendulum(flimit):
+        b = ModelBuilder(dt=0.002)
+        b.add_body("l1", None, sm.REVOLUTE, axes=[(0, 0, 1)],
+                   cj_pos=(0, 0.5, 0), mass=1.0,
+                   inertia=box_inertia(1.0, (0.05, 0.5, 0.05)),
+                   servo_flimit=flimit)
+        return b.finalize(device=dev)
+
+    zero = torch.zeros((B, 1), device=dev)
+    model = pendulum(1e4)
+    step = make_sim_step(model)
+    st = init_state(model, B)
+    cmd = torch.full((B, 1), 1.7, device=dev)
+    for _ in range(5):
+        st, _ = step(st, zero, None, cmd)
+    track_err = float((st.dq - 1.7).abs().max())
+    flimit = 0.5
+    model = pendulum(flimit)
+    step = make_sim_step(model)
+    st = init_state(model, B)
+    I_hinge = float(model.inertia[0, 2, 2] + model.mass[0] * 0.25)
+    dv_max = flimit * model.dt / I_hinge
+    cmd = torch.full((B, 1), 50.0, device=dev)
+    dv = []
+    for _ in range(3):
+        prev = st.dq
+        st, _ = step(st, zero, None, cmd)
+        dv.append(float((st.dq - prev).max()))
+    emit("servo_behaviour", B=B, track_err=track_err, tol_track=1e-4,
+         dv_max_per_substep=max(dv), dv_bound=dv_max * 1.01,
+         dq_after=float(st.dq.max()))
+    assert track_err <= 1e-4
+    assert max(dv) <= dv_max * 1.01 + 1e-7
+    assert float(st.dq.max()) < 49.0
+
+
+def check_matrix(dev):
+    """Phase matrix: every collision-matrix scene (bench/scenes.py) at
+    B = 1024 with per-env pose jitter of the dropped body, lowered onto
+    its rest height: one phase-wise substep of the kernel route (kernel 3,
+    collision, kernel 4) against the plain route, within 1e-3 on all but
+    BPP_MAY_DIVERGE of every 128 envs; then MATRIX_SETTLE scenes settle
+    for 600 substeps on the kernel route to the JAX tests' rest heights."""
+    import torch
+
+    from dartenv_tpu_torch.bench import scenes
+    from dartenv_tpu_torch.engine.constraints import build_layout
+    from dartenv_tpu_torch.engine.world import (
+        SimState, init_state, make_sim_step,
+    )
+
+    B = MATRIX_B
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    may = BPP_MAY_DIVERGE * -(-B // 128)
+    rows = {}
+    for name in scenes.SCENES:
+        model = scenes.scene_builder(name).finalize(device=dev)
+        rest, _ = scenes.REST[name]
+        q = model.q_init.expand(B, -1).clone()
+        q[:, 1] = rest - 0.01
+        q = q + (torch.rand(q.shape, generator=gen, device=dev) - 0.5) * 0.04
+        dq = (torch.rand(q.shape, generator=gen, device=dev) - 0.5) * 0.2
+        lam = q.new_zeros((B, build_layout(model).m))
+        tau = torch.zeros_like(q)
+        plain_before = plain_counts()
+        sk, con = make_sim_step(model)(
+            SimState(q=q, dq=dq, time=q.new_zeros(B), lam=lam), tau)
+        assert plain_counts() == plain_before
+        sp = plain_phasewise_substep(model, q, dq, lam, tau, None)
+        err = ((sk.dq - sp[1]).abs() / sp[1].abs().clamp(min=1.0)).max(
+            1).values
+        rows[name] = dict(active_slots_mean=float(con.active.sum(1).mean()),
+                          dq_err_q99=float(err.quantile(0.99)),
+                          envs_beyond_tol=int((err > 1e-3).sum()))
+        assert float(con.active.sum()) > 0, name
+        assert rows[name]["envs_beyond_tol"] <= may, (name, rows[name])
+    settle = {}
+    for name in MATRIX_SETTLE:
+        model = scenes.scene_builder(name).finalize(device=dev)
+        rest, tol = scenes.REST[name]
+        step = make_sim_step(model)
+        st = init_state(model, B)
+        st = dataclasses.replace(st, q=st.q + (torch.rand(
+            st.q.shape, generator=gen, device=dev) - 0.5) * 0.02)
+        tau = torch.zeros_like(st.q)
+        for _ in range(600):
+            st, con = step(st, tau)
+        y = st.q[:, 1]
+        settle[name] = dict(rest=rest, y_err_max=float((y - rest).abs().max()),
+                            tol=tol, dq_max=float(st.dq.abs().max()),
+                            active_min=float(con.active.sum(1).min()))
+        assert settle[name]["y_err_max"] < tol, (name, settle[name])
+        assert settle[name]["dq_max"] < 1e-2, (name, settle[name])
+    emit("matrix", B=B, scenes=rows, tol=1e-3, tol_envs_beyond=may,
+         settle=settle)
+
+
+def check_ref64(dev, checks, kerns, comp_hybrid):
+    """Phase ref64: the BPP kernel's ES_REF64 builds (the mixed-precision
+    refinement tier, REF64 passes) against refine_mixed's plain version:
+    the fused mode on humanwalker's substep outputs (K = 128, m 41) and
+    the hybrid mode on perturbed humanwalker's phase-wise LCPs, with the
+    env-count rules of phases escalate and hybrid; beside each, the
+    compensated tier's solved count (< 1e-4) and device ms on the same
+    inputs (line ref64; comp_hybrid: phase pgs's compensated entry of
+    perturbed humanwalker).  Returns the two builds' entries."""
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+
+    hw = kerns["humanwalker"]
+    model = hw.model.replace(solver=dataclasses.replace(
+        hw.model.solver, escalate_ref64=REF64))
+    st64 = hs._SubStatic(model)
+    assert st64.ref_passes == (0, REF64)
+    q, dq, tau, lam = checks["humanwalker"]["states"]
+    outs = hw(q, dq, tau, lam)
+    fused = check_escalate("humanwalker_ref64", st64, model.solver, outs)
+    _, hybrid = check_pgs(dev, "humanwalker",
+                          checks["humanwalker"]["states"], ref64=REF64)
+    comp_f = checks["humanwalker"]["escalate"]
+    comp_h = comp_hybrid
+    emit("ref64", passes=REF64,
+         fused=dict(solved_f64=fused["solved_kernel"],
+                    solved_compensated=comp_f["solved_kernel"],
+                    device_ms_f64=fused["device_ms"],
+                    device_ms_compensated=comp_f["device_ms"]),
+         hybrid=dict(solved_f64=hybrid["solved_kernel"],
+                     solved_compensated=comp_h["solved_kernel"],
+                     device_ms_f64=hybrid["device_ms"],
+                     device_ms_compensated=comp_h["device_ms"]))
+    return fused, hybrid
+
+
 def main():
     import torch
 
@@ -1689,8 +2301,10 @@ def main():
 
     import dartenv_tpu_torch  # noqa: F401  (asserts full-f32 products)
     from dartenv_tpu_torch import cuda_build
+    from dartenv_tpu_torch.bench import scenes
     from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+    from dartenv_tpu_torch.engine.constraints import build_layout
     from dartenv_tpu_torch.engine import hopper_substep as hs
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
     from dartenv_tpu_torch.lcp import hopper_pgs as hp
@@ -1730,23 +2344,52 @@ def main():
     # (of the models that escalate); the core mode at walker2d's 24 rows
     # serves the solver="dantzig" path
     esc = [k for k in kerns.values() if k.st.cfg.escalate_frac > 0]
+    # the phase-wise paths of the multi-skeleton world and the servo
+    # walker, and the collision-matrix scenes: kernel 3 for each model,
+    # the hybrid mode for the first two; the ES_REF64 builds (the fused
+    # mode of humanwalker's digest with escalate_ref64, the hybrid mode
+    # at its 41 rows)
+    sim_models = {p: sim_model(p, dev) for p in SIM_PATHS}
+    matrix_models = {nm: scenes.scene_builder(nm).finalize(device=dev)
+                     for nm in scenes.SCENES}
+    hw = kerns["humanwalker"]
+    st64 = hs._SubStatic(hw.model.replace(solver=dataclasses.replace(
+        hw.model.solver, escalate_ref64=REF64)))
+
+    def solver_rows(model):
+        lay, cap = build_layout(model), int(model.solver.contact_cap)
+        ns = lay.contact_slots
+        return lay.m - 3 * ns + 3 * (min(cap, ns) if cap else ns)
+
     bpp_keys = list(dict.fromkeys(
         [(k.st.m_c, hb.header(k.st.m_c)) for k in esc]
         + [(k.st.m_c, hb.header(k.st.m_c, k.st.cfg.escalate_ref))
            for k in esc]
-        + [(k.st.m_c, k.st.escalation_header) for k in esc]))
+        + [(k.st.m_c, k.st.escalation_header) for k in esc]
+        + [(solver_rows(m), hb.header(solver_rows(m), m.solver.escalate_ref,
+                                      m.solver.escalate_ref64))
+           for m in sim_models.values()]
+        + [(st64.m_c, st64.escalation_header),
+           (st64.m_c, hb.header(st64.m_c, 0, REF64))]))
+    gkern = global_tables_kernel(sim_models["multiskel"])
+    new_dkerns = [gkern] + list({id(k): k for k in (
+        [hd.get_dynamics_kernel(m) for m in sim_models.values()]
+        + [hd.get_dynamics_kernel(m) for m in matrix_models.values()])
+        if k not in dkerns.values()}.values())
     builds = ([hb.start_build(m, h) for m, h in bpp_keys]
               + [hp.start_build()]
               + [k.start_build() for k in kerns.values()]
               + [k.start_build() for k in sunk_kerns]
               + [k.start_build() for k in dkerns.values()]
               + [k.start_build() for k in dr_kerns.values()]
-              + [k.start_build() for k in dr_dkerns.values()])
+              + [k.start_build() for k in dr_dkerns.values()]
+              + [k.start_build() for k in new_dkerns])
     for (m, h), bld in zip(bpp_keys, builds):
         hb.load(m, bld, h)
     hp.load(builds[len(bpp_keys)])
     for k in (list(kerns.values()) + sunk_kerns + list(dkerns.values())
-              + list(dr_kerns.values()) + list(dr_dkerns.values())):
+              + list(dr_kerns.values()) + list(dr_dkerns.values())
+              + new_dkerns):
         k.load()
     ptxas = {bld.tag + "/" + bld.so_path.split("/")[-2][-6:]:
              [ln.strip() for ln in cuda_build.build_log(bld).splitlines()
@@ -1776,6 +2419,11 @@ def main():
         "snake7link": (9, 48), "reacher2d": (2, 1)}
     assert not kerns["snake7link"].st.compact       # SS_COMPACT = 0
     assert (kerns["dog"].st.ns, kerns["dog"].st.cap) == (20, 8)
+    ms_model = sim_models["multiskel"]
+    assert (ms_model.n, ms_model.nb, build_layout(ms_model).contact_slots,
+            build_layout(ms_model).m, solver_rows(ms_model)) == (
+        15, 8, 39, 123, 36)
+    assert solver_rows(sim_models["servo"]) == 30
 
     # ---- 3-5. substep and BPP kernels vs their plain versions, lockstep -
     checks = {e: check_env(e, Be, dev) for e, Be in FUSED_ENVS.items()}
@@ -1819,9 +2467,26 @@ def main():
     lockstep_phasewise("walker2d", dev, checks["walker2d"]["states"],
                        solver="dantzig")
 
+    # ---- 8b. the multi-skeleton world, the servo walker, the matrix -----
+    sim_checks = {}
+    for p, model in sim_models.items():
+        states = sim_states(p, model, SIM_PATHS[p][0], dev)
+        sim_checks[p] = check_phasewise_model(p, model, states)
+        lockstep_model(p, model, states)
+        if p == "multiskel":
+            check_capture(p, model, states)
+            table_space(p, model, gkern, *states[:3])
+            capsule_box_pairs(model, *states[:2])
+    check_servo_behaviour(dev)
+    check_matrix(dev)
+    ref64 = check_ref64(dev, checks, kerns, hybrid_hw)
+
     # ---- 9. the main paths, launches counted per path -------------------
     counts = {key: drive_main_path(dev, *key) for key in PATHS}
     dantzig = ("walker2d", False, "dantzig")
+    sim_counts = {p: drive_sim_path(p, dev) for p in SIM_PATHS}
+    ref64_counts = {key: drive_main_path(dev, *key, ref64=REF64)
+                    for key in REF64_PATHS}
 
     # ---- 9b. domain randomization: the DR kernels, then their paths -----
     dr = check_dr(dev, checks, dr_kerns, dyn_models)
@@ -1870,13 +2535,26 @@ def main():
                 ("humanwalker", ("humanwalker", True), "pgs", pgs_hw),
                 ("humanwalker", ("humanwalker", True), "bpp_hybrid",
                  hybrid_hw)]
-    kernels = []
+    # (label, launch counts of its path, kernel, its check)
+    rows = []
     for e, path, key, c in entries:
-        kname, src, repl = sources[key]
-        n = dr_counts[e] if path == "dr" else counts[path]
         label = e + ("_dr" if path == "dr" else
                      "_perturbed" if path[1] else
                      f"_{path[2]}" if len(path) > 2 else "")
+        rows.append((label, dr_counts[e] if path == "dr" else counts[path],
+                     key, c))
+    # the slice's paths
+    rows += [(p, sim_counts[p], key, sim_checks[p][key])
+             for p in SIM_PATHS for key in ("dynamics", "pgs", "bpp_hybrid")]
+    hw_ref64 = ref64_counts[("humanwalker", False)]
+    rows += [("humanwalker_ref64", hw_ref64, "substep",
+              checks["humanwalker"]["substep"]),
+             ("humanwalker_ref64", hw_ref64, "bpp_fused", ref64[0]),
+             ("humanwalker_perturbed_ref64",
+              ref64_counts[("humanwalker", True)], "bpp_hybrid", ref64[1])]
+    kernels = []
+    for label, n, key, c in rows:
+        kname, src, repl = sources[key]
         kernels.append({
             "name": f"{kname}[{label}]", "route": "cuda", "source": src,
             "replaces": repl, "launches": n[key],
@@ -1885,7 +2563,7 @@ def main():
             "bound_by": c["bound"][1], "library_ms": None,
             "launches_per_control_step": n[key] / n["steps"],
             "device_ms": c.get("device_ms"), "shape": c["shape"]})
-        if key == "dynamics" and path == ("cartpole", False):
+        if key == "dynamics" and label == "cartpole":
             w = dyn["walker2d"]
             kernels[-1].update(walker2d_states_device_ms=w["device_ms"],
                                walker2d_states_ms=w["ms"],

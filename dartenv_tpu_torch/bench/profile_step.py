@@ -3,7 +3,8 @@
     python -m dartenv_tpu_torch.bench.profile_step [--env walker2d]
         (any name of bench/throughput._TASKS: walker3d, humanwalker, ...)
         [--batch 4096] [--steps 20] [--perturb | --dr]
-        [--solver pgs|dantzig] [--out out/profile.json]
+        [--solver pgs|dantzig] [--escalate_ref64 N]
+        [--out out/profile.json]
 
 Steps a batched env under the random policy for `--steps` control steps
 inside torch.profiler and prints one JSON object: host wall time per
@@ -12,7 +13,9 @@ and its share of the wall time, device launches per control step, and the
 kernels that take the most device time.  `--perturb` turns on the task's
 random pushes (the phase-wise path with external forces); `--solver`
 overrides the task's LCP solver ("dantzig": the phase-wise path with the
-exact block-pivoting solve over the whole batch).  `--dr` profiles
+exact block-pivoting solve over the whole batch); `--escalate_ref64 N`
+sets the passes of the escalation's mixed-precision refinement tier.
+`--dr` profiles
 bench/throughput.bench_dr's step instead: a domain-randomized batch (the
 bench's spec), frame_skip randomized sim steps per control step under
 fixed random torques (no env step around them).  Needs a GPU (it
@@ -61,15 +64,16 @@ def _control_step(task, batch, gen, dr):
 
 
 def profile(env="walker2d", batch=4096, steps=20, top=12, perturb=False,
-            dr=False, solver=None):
+            dr=False, solver=None, escalate_ref64=None):
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.bench.throughput import make_task, ref64_kw
 
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
     dev = torch.device("cuda")
-    task = make_task(env, device=dev, lcp_solver=solver)
+    task = make_task(env, device=dev, lcp_solver=solver,
+                     **ref64_kw(escalate_ref64))
     task.add_perturbation = perturb
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -130,10 +134,14 @@ def main():
     ap.add_argument("--dr", action="store_true")
     ap.add_argument("--solver", default=None, choices=["pgs", "dantzig"],
                     help="override the task's LCP solver")
+    ap.add_argument("--escalate_ref64", type=int, default=None,
+                    help="passes of the escalation's mixed-precision "
+                         "(float64 residual) refinement tier")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     res = profile(args.env, args.batch, args.steps, perturb=args.perturb,
-                  dr=args.dr, solver=args.solver)
+                  dr=args.dr, solver=args.solver,
+                  escalate_ref64=args.escalate_ref64)
     text = json.dumps(res, indent=1)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

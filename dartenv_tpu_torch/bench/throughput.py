@@ -60,21 +60,31 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def ref64_kw(escalate_ref64):
+    """make_task's solver override for an escalate_ref64 option (None:
+    none)."""
+    return {} if escalate_ref64 is None else dict(
+        escalate_ref64=int(escalate_ref64))
+
+
 def bench_env(name: str = "walker2d", batch: int = 4096,
               horizon: int = 100, iters: int = 5,
               max_episode_steps: int = 1000, device="cuda", seed: int = 0,
               return_state: bool = False, perturb: bool = False,
-              solver=None):
+              solver=None, escalate_ref64=None):
     """Returns a dict with env-steps/s and timing detail of `iters`
     rollouts of `horizon` control steps after one warm-up rollout (which
     also builds the kernels); with iters=0 the rate is the warm-up's.
     `perturb` turns on the task's random perturbation pushes; `solver`
-    ("pgs" or "dantzig", None: the task's own) picks the LCP solver."""
+    ("pgs" or "dantzig", None: the task's own) picks the LCP solver;
+    `escalate_ref64` (None: the task's own) sets the passes of the
+    escalation's mixed-precision refinement tier."""
     from dartenv_tpu_torch.parallel.rollout import make_rollout
     from dartenv_tpu_torch.parallel.vec_env import VecEnv
 
     device = torch.device(device)
-    task = make_task(name, device=device, lcp_solver=solver)
+    task = make_task(name, device=device, lcp_solver=solver,
+                     **ref64_kw(escalate_ref64))
     task.add_perturbation = perturb
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -209,7 +219,8 @@ def bench_dr(name: str = "walker2d", batch: int = 4096, substeps: int = 400,
 def main():
     """python -m dartenv_tpu_torch.bench.throughput [--env walker2d]
     [--batch 4096 ...] [--horizon 100] [--iters 3] [--repeat 1]
-    [--perturb] [--solver pgs|dantzig] [--device cuda]: one JSON line
+    [--perturb] [--solver pgs|dantzig] [--escalate_ref64 N]
+    [--device cuda]: one JSON line
     per (batch, repeat) with the card's name and power limit beside the
     rate.  The horizon
     defaults to 1000 for cartpole, 100 otherwise.  --dr measures bench_dr
@@ -228,6 +239,9 @@ def main():
     ap.add_argument("--perturb", action="store_true")
     ap.add_argument("--solver", default=None, choices=["pgs", "dantzig"],
                     help="override the task's LCP solver")
+    ap.add_argument("--escalate_ref64", type=int, default=None,
+                    help="passes of the escalation's mixed-precision "
+                         "(float64 residual) refinement tier")
     ap.add_argument("--dr", action="store_true")
     ap.add_argument("--dr_phasewise", action="store_true")
     ap.add_argument("--substeps", type=int, default=400)
@@ -251,7 +265,8 @@ def main():
                 out = bench_env(args.env, batch=batch, horizon=horizon,
                                 iters=args.iters, device=args.device,
                                 seed=rep, perturb=args.perturb,
-                                solver=args.solver)
+                                solver=args.solver,
+                                escalate_ref64=args.escalate_ref64)
             print(json.dumps({"card": card, "repeat": rep, **out}),
                   flush=True)
 

@@ -43,14 +43,17 @@
 //          reads rows idx[k] of the substep kernel's packed `esc` itself,
 //          rebuilds the operator in shared memory (escalate_body.h), runs
 //          tier 1 warm and tier 2 cold, ranks by residual, keeps the best,
-//          runs ES_REFC passes of the compensated refinement tier on the
-//          kept point when the header asks (escalate_body.h es_refine_tier)
+//          runs the header's refinement tier on the kept point when it
+//          asks: ES_REFC passes of the compensated tier, or ES_REF64
+//          passes of the mixed-precision (float64 residual) tier
+//          (escalate_body.h es_refine_tier)
 //          and writes the delta patches of dq_plus / lam_full in place
 //          (the wrapper hands in copies);
 //   hybrid (bpp_hybrid_launch): reads rows idx[k] of a phase-wise batch's
 //          A, vectors and PGS lam, same tiers and keep-best, the same
-//          es_refine_tier when the header defines ES_REFC > 0 (one build
-//          per (m, passes)), writes lam rows in place (into a copy).
+//          es_refine_tier when the header defines ES_REFC or ES_REF64 > 0
+//          (one build per (m, tier, passes)), writes lam rows in place
+//          (into a copy).
 //
 // Built with -fmad=false: products and sums round separately, like the
 // plain PyTorch versions (lcp/hopper_bpp.bpp_solve_reference,
@@ -385,8 +388,9 @@ bpp_hybrid_kernel(const float* __restrict__ A_g,
     bp_tiers(As, vec, fs, xs, scr, worst_g[k], tol, iters1, refine1,
              polish1, iters2, refine2, polish2, take, kept, lane);
 #endif
-#if ES_REFC > 0
-    es_refine_tier(As, vec, fs, xs, tol, ES_REFC, scr, take, kept, lane);
+#if ES_REF_PASSES > 0
+    es_refine_tier(As, vec, fs, xs, tol, ES_REF_PASSES, scr, take, kept,
+                   lane);
 #endif
     if (take) LANE_FOR(i, 0, ES_M) out_g[off + i] = xs[i];
     if (lane == 0) {
@@ -401,7 +405,7 @@ bpp_hybrid_kernel(const float* __restrict__ A_g,
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 constexpr int solve_work() { return ES_M <= 32 ? 0 : bp_tiers_scratch(); }
 constexpr int refine_work() {
-    return ES_REFC > 0 ? ES_M + es_refine_scratch() : 0;
+    return ES_REF_PASSES > 0 ? es_tier_scratch() : 0;
 }
 
 #ifdef ES_N
@@ -462,8 +466,9 @@ bpp_fused_kernel(const float* __restrict__ esc_g,
     bp_tiers(As, vec, fs, xs, work, worst_g[k], tol, iters1, refine1,
              polish1, iters2, refine2, polish2, take, kept, lane);
 #endif
-#if ES_REFC > 0
-    es_refine_tier(As, vec, fs, xs, tol, ES_REFC, work, take, kept, lane);
+#if ES_REF_PASSES > 0
+    es_refine_tier(As, vec, fs, xs, tol, ES_REF_PASSES, work, take, kept,
+                   lane);
 #endif
     if (lane == 0) {
         take_g[k] = take;
@@ -489,6 +494,9 @@ extern "C" int bpp_rows() { return ES_M; }
 
 // Passes of the compensated refinement tier the fused and hybrid modes run
 extern "C" int bpp_ref_passes() { return ES_REFC; }
+
+// Passes of the mixed-precision refinement tier they run
+extern "C" int bpp_ref64_passes() { return ES_REF64; }
 
 // The fused mode's stage cycles summed over envs since the last call
 // (cleared); returns the number of stages, or 0 without ES_STAMPS.
@@ -560,8 +568,8 @@ extern "C" int bpp_hybrid_launch(const float* A, const float* b,
 #ifdef ES_N
 extern "C" int bpp_fused_dims(int* out) {
     out[0] = ES_N; out[1] = ES_M; out[2] = ES_MFULL; out[3] = ES_W;
-    out[4] = ES_REFC;
-    return 5;
+    out[4] = ES_REFC; out[5] = ES_REF64;
+    return 6;
 }
 
 // Dynamic shared memory of one fused-mode block (one env), in bytes.

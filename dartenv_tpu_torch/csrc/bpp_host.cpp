@@ -1,9 +1,11 @@
 // Host build of the escalation kernel's core mode above 32 rows
 // (bpp_body.h: the solve with the lanes over rows and the working matrix
 // in shared memory), of its hybrid mode's per-env work (the tiers, then
-// ES_REFC passes of the compensated refinement tier), and of the
-// refinement's arithmetic, as one lane in a loop over the problems.  Build with
-// a C++ compiler and -ffp-contract=off (like the kernel's -fmad=false).
+// the build's refinement tier: ES_REFC passes of the compensated one or
+// ES_REF64 passes of the mixed-precision one), and of the two
+// refinements' arithmetic, as one lane in a loop over the problems.  Build
+// with a C++ compiler and -ffp-contract=off (like the kernel's
+// -fmad=false).
 // For tests on machines without a GPU; nothing on the main path calls it.
 #include <string.h>
 
@@ -70,16 +72,41 @@ extern "C" int refine_host(const float* A_g, const float* b_g,
     return 0;
 }
 
+// The mixed-precision refinement tier's arithmetic (escalate_body.h
+// es_refine64, es_residual64) on K problems: x (K, ES_M) in, the refined
+// points out (K, ES_M); res64 (K, 2): the float64 residual of the input
+// point and of the refined one.
+extern "C" int refine64_host(const float* A_g, const float* b_g,
+                             const float* lo_g, const float* hi_g,
+                             const float* mu_g, const float* act_g,
+                             const float* x_g, const int* findex, int passes,
+                             float* x_out, double* res64, int K) {
+    static float A[ES_M * ES_LD], vec[5 * ES_M], x[ES_M],
+        scr[es_refine64_scratch()];
+    static double xd[ES_M];
+    for (int k = 0; k < K; ++k) {
+        const size_t off = (size_t)k * ES_M;
+        load_problem(A_g, b_g, lo_g, hi_g, mu_g, act_g, k, A, vec);
+        memcpy(x, x_g + off, ES_M * sizeof(float));
+        for (int i = 0; i < ES_M; ++i) xd[i] = x[i];
+        res64[2 * k] = es_residual64(A, vec, findex, xd, 0);
+        es_refine64(A, vec, findex, x, passes, scr, 0);
+        for (int i = 0; i < ES_M; ++i) xd[i] = x[i];
+        res64[2 * k + 1] = es_residual64(A, vec, findex, xd, 0);
+        memcpy(x_out + off, x, ES_M * sizeof(float));
+    }
+    return 0;
+}
+
 constexpr int hybrid_work() {
-    return bp_tiers_scratch() > ES_M + es_refine_scratch()
-               ? bp_tiers_scratch()
-               : ES_M + es_refine_scratch();
+    return bp_tiers_scratch() > es_tier_scratch() ? bp_tiers_scratch()
+                                                  : es_tier_scratch();
 }
 
 // The hybrid mode's per-env work on K gathered problems (A (K, ES_M,
 // ES_M), vectors and PGS impulses lam (K, ES_M), PGS residuals worst
-// (K)): bp_tiers, then ES_REFC passes of es_refine_tier when the header
-// asks for them, as bpp_hybrid_kernel runs them above 32 rows.  Writes
+// (K)): bp_tiers, then the build's es_refine_tier when the header asks
+// for one, as bpp_hybrid_kernel runs them above 32 rows.  Writes
 // the kept points (K, ES_M; lam where none was taken), take (K) and the
 // kept point's residual (K).
 extern "C" int hybrid_host(const float* A_g, const float* b_g,
@@ -100,9 +127,9 @@ extern "C" int hybrid_host(const float* A_g, const float* b_g,
         float kept;
         bp_tiers(A, vec, findex, x, scr, worst[k], tol, iters1, refine1,
                  polish1, iters2, refine2, polish2, take, kept, 0);
-        if (ES_REFC > 0)
-            es_refine_tier(A, vec, findex, x, tol, ES_REFC, scr, take, kept,
-                           0);
+        if (ES_REF_PASSES > 0)
+            es_refine_tier(A, vec, findex, x, tol, ES_REF_PASSES, scr, take,
+                           kept, 0);
         memcpy(x_out + off, x, ES_M * sizeof(float));
         take_out[k] = take;
         res_out[k] = kept;

@@ -9,14 +9,30 @@
 // over the substep kernel's packed `esc` rows, ES_N (dofs), ES_CAP
 // (contact cap), ES_NS (contact slots), ES_MFULL (rows of lam_full), ES_CFM,
 // and the offsets ES_O_* of `esc`'s blocks (engine/hopper_substep.
-// _esc_layout), row width ES_W, and ES_REFC, the passes of the
-// compensated refinement tier (0: none).  Matrices are row-major with the
+// _esc_layout), row width ES_W; and at most one refinement tier after the
+// exact tiers: ES_REFC, the passes of the compensated (double-float)
+// tier, or ES_REF64, the passes of the mixed-precision tier (float64
+// residuals, float32 correction solve).  Matrices are row-major with the
 // odd row stride ES_LD, so lanes that walk down a column hit distinct
 // banks.
 #pragma once
 
+#include <stdint.h>
+
 #include "linalg_body.h"
 #include "pgs_row.h"
+
+#ifndef ES_REFC
+#define ES_REFC 0
+#endif
+#ifndef ES_REF64
+#define ES_REF64 0
+#endif
+#if ES_REFC > 0 && ES_REF64 > 0
+#error "one refinement tier per build: ES_REFC or ES_REF64"
+#endif
+// passes of the build's refinement tier (0: none)
+#define ES_REF_PASSES (ES_REF64 > 0 ? ES_REF64 : ES_REFC)
 
 #ifdef __CUDACC__
 #define ES_FN __device__
@@ -210,18 +226,165 @@ ES_FN void es_refine(const float* A, const float* vec, const int* fidx,
     LANE_SYNC();
 }
 
+// ---- the mixed-precision refinement tier ----------------------------------
+// lcp/dantzig.refine_mixed: the point, its bounds, the free-set residual
+// and the keep-best residual in double (each row's sum over the columns in
+// order, from 0, then + b), the correction solve on the float32 masked
+// operator.  A candidate is judged after it is rounded to float, as the
+// caller only ever sees the rounded point.  -fmad=false (the kernels) and
+// -ffp-contract=off (the host builds) apply to the double products too.
+
+// Max of every lane's partial max of a double (exact in any order).
+ES_FN double es_lanes_max64(double v) {
+#ifdef __CUDACC__
+    for (int o = 16; o > 0; o >>= 1)
+        v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
+#endif
+    return v;
+}
+
+// A_i . x in double, columns in order from 0 (math/linalg.seq_mv)
+ES_FN double es_row64(const float* Ai, const double* x) {
+    double w = 0.0;
+    for (int j = 0; j < ES_M; ++j) w = w + (double)Ai[j] * x[j];
+    return w;
+}
+
+// lcp/hybrid.comp_residual of x in double (seq=True); every lane returns
+// it.
+ES_FN double es_residual64(const float* A, const float* vec, const int* fidx,
+                           const double* x, int lane) {
+    const float *b = vec, *lo = vec + ES_M, *hi = vec + 2 * ES_M,
+                *mu = vec + 3 * ES_M, *act = vec + 4 * ES_M;
+    double amax = 0.0;
+    LANE_FOR(i, 0, ES_M) amax = fmax(amax, fabs(x[i]));
+    const double scale = fmax(1.0, es_lanes_max64(amax));
+    const double eps = 1e-6 * scale + 1e-9;
+    double res = 0.0;
+    LANE_FOR(i, 0, ES_M) {
+        const double w = es_row64(A + i * ES_LD, x) + (double)b[i];
+        const int f = fidx[i];
+        const double bd = f >= 0 ? (double)mu[i] * fabs(x[f]) : 1e20;
+        const double l = fmax((double)lo[i], -bd);
+        const double h = fmin((double)hi[i], bd);
+        const double xi = x[i];
+        const bool at_lo = xi <= l + eps;
+        const bool at_hi = xi >= h - eps;
+        double r = (at_lo && at_hi) ? 0.0
+                   : (at_lo ? -w : (at_hi ? w : fabs(w)));
+        r = fmax(r, fmax(l - xi, xi - h));
+        if (act[i] > 0.5f) res = fmax(res, r);
+    }
+    return es_lanes_max64(res) / scale;
+}
+
+// scratch floats of es_refine64: 8-byte alignment slack, seven double
+// vectors (the iterate, the best point, lo_e, hi_e, the free mask, x_a,
+// the rounded candidate), the float rhs and correction, the masked
+// operator and la_solve_psd's scratch
+constexpr int es_refine64_scratch() {
+    return 2 + 14 * ES_M + 2 * ES_M + ES_M * ES_LD + la_solve_scratch(ES_M);
+}
+
+// refine_mixed of the point x (ES_M floats, overwritten by the best point,
+// rounded to float) for `passes` passes.
+ES_FN void es_refine64(const float* A, const float* vec, const int* fidx,
+                       float* x, int passes, float* scr, int lane) {
+    const float *b = vec, *lo = vec + ES_M, *hi = vec + 2 * ES_M,
+                *mu = vec + 3 * ES_M, *act = vec + 4 * ES_M;
+    double* xc = reinterpret_cast<double*>(
+        (reinterpret_cast<uintptr_t>(scr) + 7) & ~(uintptr_t)7);
+    double* best = xc + ES_M;
+    double* loe = best + ES_M;
+    double* hie = loe + ES_M;
+    double* fm = hie + ES_M;
+    double* xa = fm + ES_M;
+    double* cand = xa + ES_M;
+    float* r = reinterpret_cast<float*>(cand + ES_M);
+    float* d = r + ES_M;
+    float* Am = d + ES_M;
+    float* lscr = Am + ES_M * ES_LD;
+    LANE_FOR(i, 0, ES_M) {
+        xc[i] = (double)x[i];
+        best[i] = xc[i];
+    }
+    LANE_SYNC();
+    double best_r = es_residual64(A, vec, fidx, xc, lane);
+    for (int p = 0; p < passes; ++p) {
+        double amax = 0.0;
+        LANE_FOR(i, 0, ES_M) amax = fmax(amax, fabs(xc[i]));
+        const double eps = 1e-6 * fmax(1.0, es_lanes_max64(amax));
+        LANE_FOR(i, 0, ES_M) {
+            const int f = fidx[i];
+            const double bd = f >= 0 ? (double)mu[i] * fabs(xc[f]) : 1e20;
+            const double a = (double)act[i];
+            const double l = fmax((double)lo[i], -bd) * a;
+            const double h = fmin((double)hi[i], bd) * a;
+            const bool at_lo = xc[i] <= l + eps;
+            const bool at_hi = xc[i] >= h - eps;
+            const double f_i = (act[i] > 0.5f && !at_lo && !at_hi) ? 1.0
+                                                                   : 0.0;
+            const double xf = (at_hi ? h : (at_lo ? l : 0.0)) * a
+                              * (1.0 - f_i);
+            loe[i] = l;
+            hie[i] = h;
+            fm[i] = f_i;
+            xa[i] = xc[i] * f_i + xf;
+        }
+        LANE_SYNC();
+        LANE_FOR(i, 0, ES_M) {
+            const double ri = -((double)b[i] + es_row64(A + i * ES_LD, xa))
+                              * fm[i];
+            r[i] = (float)ri;
+            const float fi = (float)fm[i];
+            for (int j = 0; j < ES_M; ++j) {
+                float v = A[i * ES_LD + j] * fi * (float)fm[j];
+                if (i == j) v = v + (1.0f - (float)fm[j]);
+                Am[i * ES_LD + j] = v;
+            }
+        }
+        LANE_SYNC();
+        la_solve_psd<ES_M>(Am, ES_LD, r, d, lscr, 1e-12f, lane);
+        LANE_FOR(i, 0, ES_M) {
+            const double di = (double)(d[i] * (float)fm[i]);
+            xc[i] = fmin(fmax(xa[i] + di, loe[i]), hie[i]);
+            cand[i] = (double)(float)xc[i];    // the iterate, rounded
+        }
+        LANE_SYNC();
+        const double r_new = es_residual64(A, vec, fidx, cand, lane);
+        if (r_new < best_r) {            // the same in every lane
+            LANE_FOR(i, 0, ES_M) best[i] = cand[i];
+            best_r = r_new;
+        }
+        LANE_SYNC();
+    }
+    LANE_FOR(i, 0, ES_M) x[i] = (float)best[i];
+    LANE_SYNC();
+}
+
+// scratch floats of the build's refinement tier (es_refine_tier)
+constexpr int es_tier_scratch() {
+    return ES_M + (ES_REF64 > 0 ? es_refine64_scratch()
+                                : es_refine_scratch());
+}
+
 // The refinement tier of engine/pallas_substep.escalate_batch after the
-// exact tiers: lam (ES_M, in shared memory) is the kept point and `kept`
-// its residual (the PGS residual where no tier took); the refined point
-// replaces it where kept > tol and its residual (es_residual) is lower.
-// `take` and `kept` are updated; the same in every lane.
+// exact tiers, the build's (ES_REF64: mixed-precision, else compensated):
+// lam (ES_M, in shared memory) is the kept point and `kept` its residual
+// (the PGS residual where no tier took); the refined point replaces it
+// where kept > tol and its residual (es_residual) is lower.  `take` and
+// `kept` are updated; the same in every lane.
 ES_FN void es_refine_tier(const float* A, const float* vec, const int* fidx,
                           float* lam, float tol, int passes, float* scr,
                           bool& take, float& kept, int lane) {
     float* xr = scr;                           // ES_M
     LANE_FOR(i, 0, ES_M) xr[i] = lam[i];
     LANE_SYNC();
+#if ES_REF64 > 0
+    es_refine64(A, vec, fidx, xr, passes, scr + ES_M, lane);
+#else
     es_refine(A, vec, fidx, xr, passes, scr + ES_M, lane);
+#endif
     const float *b = vec;
     const float rr = es_residual(A, b, b + ES_M, b + 2 * ES_M, b + 3 * ES_M,
                                  b + 4 * ES_M, xr, fidx, lane);

@@ -1,6 +1,6 @@
 // Host build of the escalation stage's per-env arithmetic outside the
 // solves (escalate_body.h: operator rebuild, residuals, keep-best, the
-// compensated refinement tier, delta patches), as one lane in a loop over
+// refinement tier of the build, delta patches), as one lane in a loop over
 // the escalated envs, with the exact tiers' impulses handed in instead of
 // solved.  Build with a C++ compiler and -ffp-contract=off (no a*b+c
 // contraction, like the kernel's -fmad=false).  For tests on machines
@@ -14,16 +14,15 @@
 #include "escalate_body.h"
 
 constexpr int host_work() {
-    return es_rebuild_scratch() > ES_M + es_refine_scratch()
-               ? es_rebuild_scratch()
-               : ES_M + es_refine_scratch();
+    return es_rebuild_scratch() > es_tier_scratch() ? es_rebuild_scratch()
+                                                    : es_tier_scratch();
 }
 
 // esc_rows (K, ES_W), dqp_rows (K, ES_N), lamf_rows (K, ES_MFULL): the
 // escalated envs' rows; worst (K); lam1, lam2 (K, ES_M) the tiers' points
 // (lam2 may be null: no tier 2).  Writes A (K, ES_M, ES_M), MiJ (K, ES_M,
 // ES_N), res (K, 3): the two tiers' points' residuals and the kept point's
-// (after the refinement tier, when ES_REFC > 0), take (K), the patched
+// (after the refinement tier, when the build has one), take (K), the patched
 // rows.
 extern "C" int escalate_host(const float* esc_rows, const float* dqp_rows,
                              const float* lamf_rows, const float* worst,
@@ -63,8 +62,8 @@ extern "C" int escalate_host(const float* esc_rows, const float* dqp_rows,
                 take = true;
             }
         }
-        if (ES_REFC > 0)
-            es_refine_tier(A, vec, findex, lam, tol, ES_REFC, work, take,
+        if (ES_REF_PASSES > 0)
+            es_refine_tier(A, vec, findex, lam, tol, ES_REF_PASSES, work, take,
                            kept, 0);
         res_out[3 * k + 2] = kept;
         take_out[k] = take;

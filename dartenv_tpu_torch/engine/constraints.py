@@ -11,8 +11,11 @@ engine/constraints.py):
 * joint-limit row per limited dof, sign-flipped into ">=0, lam>=0" form,
   activated on violation;
 * Coulomb joint-friction row per dof with dof_friction > 0:
-  |impulse| <= friction_force * dt.
-Servo-motor rows are not ported yet.
+  |impulse| <= friction_force * dt;
+* servo-motor row per dof with servo_flimit > 0: drive dq toward the
+  commanded velocity, |impulse| <= servo_flimit * dt (findex -1).
+Robot-robot contact slots (self pairs, cross-skeleton pairs) take the
+relative velocity: their columns are J(body_a) - J(body_b).
 """
 from __future__ import annotations
 
@@ -21,9 +24,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from dartenv_tpu_torch.collision.narrowphase import (
-    Contacts, slot_layout, topk_stable,
-)
+from dartenv_tpu_torch.collision.narrowphase import Contacts, slot_layout
+from dartenv_tpu_torch.collision.primitives import topk_stable
 from dartenv_tpu_torch.math import spatial as sp
 from dartenv_tpu_torch.math.linalg import (
     _UNROLL_MAX, _pmm, chol, chol_solve, inv_psd,
@@ -49,18 +51,24 @@ class RowLayout:
     """Static structure of the LCP (host-side, built once per model).
 
     Row order: [3 per contact slot (n, t1, t2)] ++ [limit rows] ++
-    [dof friction rows].
+    [dof friction rows] ++ [servo motor rows].
     """
 
     m: int
     contact_slots: int
     limit_dofs: tuple
     friction_dofs: tuple
+    servo_dofs: tuple
     findex: np.ndarray       # (m,)
     slot_body: tuple         # body_a per slot
-    slot_mask: np.ndarray    # (ns, n) ancestor mask of each slot's body
+    slot_mask: np.ndarray    # (ns, n) SIGNED ancestor mask per slot:
+                             # +mask(body_a) - mask(body_b); world slots
+                             # have no body_b; the common ancestors of a
+                             # robot-robot pair cancel exactly (they move
+                             # both bodies with the same twist)
     lim_onehot: np.ndarray   # (nl, n)
     fr_onehot: np.ndarray    # (nf, n)
+    sv_onehot: np.ndarray    # (nsv, n)
 
 
 def has_servo_rows(model: SkelModel) -> bool:
@@ -69,34 +77,40 @@ def has_servo_rows(model: SkelModel) -> bool:
             and float(model.servo_flimit.max()) > 0.0)
 
 
+def _onehot_rows(dofs, n):
+    out = np.zeros((len(dofs), n))
+    out[np.arange(len(dofs)), np.asarray(dofs, dtype=np.int64)] = 1.0
+    return out
+
+
 def build_layout(model: SkelModel) -> RowLayout:
-    if has_servo_rows(model):
-        raise NotImplementedError("servo-motor rows are not ported yet")
-    slot_body, _slot_body_b, _ = slot_layout(model)
+    slot_body, slot_body_b, _ = slot_layout(model)
     ns = len(slot_body)
     n = model.n
-    limit_dofs = tuple(int(d) for d in
-                       np.nonzero(model.host("limited") > 0.5)[0])
-    friction_dofs = tuple(int(d) for d in
-                          np.nonzero(model.host("dof_friction") > 0.0)[0])
-    m = 3 * ns + len(limit_dofs) + len(friction_dofs)
+    dofs = lambda x: tuple(int(d) for d in np.nonzero(x)[0])
+    limit_dofs = dofs(model.host("limited") > 0.5)
+    friction_dofs = dofs(model.host("dof_friction") > 0.0)
+    servo_dofs = (dofs(model.host("servo_flimit") > 0.0)
+                  if model.servo_flimit is not None else ())
+    m = 3 * ns + len(limit_dofs) + len(friction_dofs) + len(servo_dofs)
     findex = -np.ones(m, dtype=np.int64)
     for s in range(ns):
         findex[3 * s + 1] = 3 * s
         findex[3 * s + 2] = 3 * s
     amask = model.host("ancestor_mask")
-    slot_mask = (amask[np.asarray(slot_body, dtype=np.int64)].copy()
-                 if ns else np.zeros((0, n)))
-    lim_onehot = np.zeros((len(limit_dofs), n))
-    for i, d in enumerate(limit_dofs):
-        lim_onehot[i, d] = 1.0
-    fr_onehot = np.zeros((len(friction_dofs), n))
-    for i, d in enumerate(friction_dofs):
-        fr_onehot[i, d] = 1.0
+    slot_mask = np.zeros((ns, n))
+    if ns:
+        slot_mask = amask[np.asarray(slot_body, dtype=np.int64)].copy()
+        for s, bb in enumerate(slot_body_b):
+            if bb >= 0:
+                slot_mask[s] -= amask[bb]
     return RowLayout(
         m=m, contact_slots=ns, limit_dofs=limit_dofs,
-        friction_dofs=friction_dofs, findex=findex, slot_body=slot_body,
-        slot_mask=slot_mask, lim_onehot=lim_onehot, fr_onehot=fr_onehot,
+        friction_dofs=friction_dofs, servo_dofs=servo_dofs, findex=findex,
+        slot_body=slot_body, slot_mask=slot_mask,
+        lim_onehot=_onehot_rows(limit_dofs, n),
+        fr_onehot=_onehot_rows(friction_dofs, n),
+        sv_onehot=_onehot_rows(servo_dofs, n),
     )
 
 
@@ -112,8 +126,11 @@ def compacted_findex(layout: RowLayout, cap: int) -> np.ndarray:
 
 
 def assemble_rows(model: SkelModel, layout: RowLayout, phi, q,
-                  dq_before, dq_star, contacts: Contacts, dt):
-    """(J (B, m, n), b, lo, hi, active, mu (B, m)) for the full row stack."""
+                  dq_before, dq_star, contacts: Contacts, dt,
+                  servo_target=None):
+    """(J (B, m, n), b, lo, hi, active, mu (B, m)) for the full row stack.
+    servo_target: (B, n) commanded dof velocities of the servo rows, or
+    None for zero commands."""
     n = model.n
     B = dq_star.shape[0]
     dtype, device = dq_star.dtype, dq_star.device
@@ -184,12 +201,27 @@ def assemble_rows(model: SkelModel, layout: RowLayout, phi, q,
         acts.append(torch.ones((B, nf), dtype=dtype, device=device))
         mus.append(torch.zeros((B, nf), dtype=dtype, device=device))
 
+    nsv = len(layout.servo_dofs)
+    if nsv:
+        # servo motor rows: drive dq[d] to the commanded velocity, the
+        # impulse boxed to +-servo_flimit * dt
+        sd = list(layout.servo_dofs)
+        sbound = (model.servo_flimit[sd] * dt).expand(B, nsv)
+        cmd = 0.0 if servo_target is None else servo_target[:, sd]
+        Js.append(t(layout.sv_onehot).expand(B, nsv, n))
+        bs.append(dq_star[:, sd] - cmd)
+        los.append(-sbound)
+        his.append(sbound)
+        acts.append(torch.ones((B, nsv), dtype=dtype, device=device))
+        mus.append(torch.zeros((B, nsv), dtype=dtype, device=device))
+
     cat = lambda xs: torch.cat(xs, dim=1)
     return cat(Js), cat(bs), cat(los), cat(his), cat(acts), cat(mus)
 
 
 def assemble_lcp(model: SkelModel, layout: RowLayout, phi,
-                 M, q, dq_before, dq_star, contacts: Contacts, dt):
+                 M, q, dq_before, dq_star, contacts: Contacts, dt,
+                 servo_target=None):
     """Assemble the per-env boxed LCP as the solver sees it.
 
     Returns (A, b, lo, hi, active, mu, findex, MinvJt, row_sel, J) where
@@ -201,7 +233,8 @@ def assemble_lcp(model: SkelModel, layout: RowLayout, phi,
     cfg = model.solver
 
     J, b, lo, hi, active, mu = assemble_rows(
-        model, layout, phi, q, dq_before, dq_star, contacts, dt)
+        model, layout, phi, q, dq_before, dq_star, contacts, dt,
+        servo_target=servo_target)
 
     # ---- active-set compaction (contact_cap) ----------------------------
     # keep the best `cap` slots (active first, then deepest; ties to the
@@ -291,13 +324,15 @@ def run_lcp_solver(cfg, findex, A, b, lo, hi, mu, active, lam0):
 
 def solve_constraints(model: SkelModel, layout: RowLayout, phi,
                       M, q, dq_before, dq_star, contacts: Contacts, dt,
-                      lam_prev=None):
+                      lam_prev=None, servo_target=None):
     """Assemble + solve the per-env boxed LCP (run_lcp_solver); returns
-    (dq_plus, lam) with lam on the full row stack."""
+    (dq_plus, lam) with lam on the full row stack.  servo_target: (B, n)
+    servo commands, or None for zero commands."""
     if layout.m == 0:
         return dq_star, dq_star.new_zeros((dq_star.shape[0], 0))
     A, b, lo, hi, active, mu, findex, MinvJt, row_sel, _ = assemble_lcp(
-        model, layout, phi, M, q, dq_before, dq_star, contacts, dt)
+        model, layout, phi, M, q, dq_before, dq_star, contacts, dt,
+        servo_target=servo_target)
     lam0 = (compact_lam(lam_prev, row_sel, active)
             if lam_prev is not None else None)
     lam = run_lcp_solver(model.solver, findex, A, b, lo, hi, mu, active,

@@ -18,9 +18,9 @@ One substep of a batch is
 Scope of the fused path (as in the JAX package): world pairs of sphere /
 capsule / box against a halfspace, no self pairs, no servo rows, at least
 one constraint row.  The CUDA kernel takes all ten joint types.  The
-escalation runs the exact tiers and, with SolverConfig.escalate_ref > 0,
-the compensated refinement tier (lcp/dantzig.refine_compensated);
-escalate_ref64 (the mixed-precision tier) is not ported and raises.
+escalation runs the exact tiers and then, with SolverConfig.escalate_ref64
+> 0, the mixed-precision refinement tier (lcp/dantzig.refine_mixed), else
+with escalate_ref > 0 the compensated one (lcp/dantzig.refine_compensated).
 
 Domain randomization: with `dr_fields` (a subset of DR_FIELDS_SUB) those
 model leaves are per-env inputs, (B, ...) values passed after tau; the
@@ -148,21 +148,30 @@ class _SubStatic:
         (csrc/bpp.cu + escalate_body.h) for this digest: the sizes, cfm
         and the offsets of `esc`'s blocks (`_esc_layout`) as constants."""
         tab, width = _esc_layout(self)
+        refc, ref64 = self.ref_passes
         defs = dict(ES_M=self.m_c, ES_N=self.n, ES_CAP=self.cap,
                     ES_NS=self.ns, ES_MFULL=self.layout.m,
                     ES_CFM=c_float(self.cfg.cfm), ES_W=width,
-                    ES_REFC=int(self.cfg.escalate_ref))
+                    ES_REFC=refc, ES_REF64=ref64)
         names = dict(b="B", lo="LO", hi="HI", mu="MU", act="ACT",
                      lam_c="LAM", sel_slots="SEL", M="M", Jc="JC")
         defs.update({f"ES_O_{names[k]}": a for k, (a, _) in tab.items()})
         return "".join(f"#define {k} {v}\n" for k, v in defs.items())
 
     @property
+    def ref_passes(self):
+        """(compensated, mixed-precision) refinement passes of the
+        escalation: SolverConfig.escalate_ref and escalate_ref64, the
+        latter winning where both are set."""
+        return hopper_bpp.ref_tiers(self.cfg.escalate_ref,
+                                    self.cfg.escalate_ref64)
+
+    @property
     def escalation_dims(self):
-        """(n, m_c, m, esc width, refinement passes), as
+        """(n, m_c, m, esc width, compensated passes, float64 passes), as
         lcp/hopper_bpp.bpp_fused takes them."""
         return (self.n, self.m_c, self.layout.m, _esc_layout(self)[1],
-                int(self.cfg.escalate_ref))
+                *self.ref_passes)
 
 
 def _esc_layout(st: _SubStatic):
@@ -528,8 +537,8 @@ def escalate_reference(st: _SubStatic, cfg, outs, dq_plus, lam_full,
     """The plain version of the escalation kernel's fused mode, as torch
     ops: top-K by residual, one gather of `esc`, operator rebuild, warm
     tier-1 (+ optional cold tier-2) exact re-solve by `exact1` / `exact2`,
-    keep-best by residual, the compensated refinement tier when
-    cfg.escalate_ref > 0, and DELTA-form `index_add` patches of dq_plus
+    keep-best by residual, the refinement tier of cfg.escalate_ref64 /
+    cfg.escalate_ref, and DELTA-form `index_add` patches of dq_plus
     and lam_full (envs outside the top K, and escalated envs whose
     re-solve is no better, keep their values bit for bit).  Returns new
     (dq_plus, lam_full), the top-K idx, take (K,) bool and the residual
@@ -541,7 +550,7 @@ def escalate_reference(st: _SubStatic, cfg, outs, dq_plus, lam_full,
     prob = (g["A"], g["b"], g["lo"], g["hi"], g["mu"], g["act"])
     lam_new, take, res_kept = keep_best(prob, st.findex_c, worst, lamk,
                                         cfg.escalate_tol, exact1, exact2,
-                                        cfg.escalate_ref)
+                                        *st.ref_passes)
     dlam = torch.where(take[:, None], lam_new - lamk,
                        torch.zeros_like(lamk))
     dqp_delta = seq_mv(g["MinvJt"], dlam)
@@ -576,17 +585,20 @@ def escalate_batch(st: _SubStatic, cfg, outs, dq_plus, lam_full,
     """The hybrid exact-escalation stage over the substep's outputs.  A
     float32 CUDA batch runs `escalate_fused` with the tiers that `exact1` /
     `exact2` carry (solvers of hopper_bpp.tier_solvers; others raise) and
-    cfg.escalate_ref refinement passes; any other batch runs
-    `escalate_reference` with `exact1` / `exact2`.  The inputs are not
-    modified.  Returns new (dq_plus, lam_full)."""
-    if cfg.escalate_ref64 > 0:
-        raise NotImplementedError(
-            "the escalate_ref64 (mixed-precision) refinement tier is not "
-            "ported yet")
+    the refinement passes of st.ref_passes; any other batch runs
+    `escalate_reference` with `exact1` / `exact2`.  A cfg whose refinement
+    tier is not the digest's (st.ref_passes) is refused.  The inputs are
+    not modified.  Returns new (dq_plus, lam_full)."""
+    asked = hopper_bpp.ref_tiers(cfg.escalate_ref, cfg.escalate_ref64)
+    if asked != st.ref_passes:
+        raise ValueError(
+            f"escalate_batch: refinement passes {asked} (escalate_ref, "
+            f"escalate_ref64) asked, the digest is built for "
+            f"{st.ref_passes}")
     if cuda_build.use_kernel(dq_plus):
         return escalate_fused(st, cfg, outs, dq_plus, lam_full,
                               hopper_bpp.solver_budgets(
-                                  exact1, exact2, cfg.escalate_ref))[:2]
+                                  exact1, exact2, *st.ref_passes))[:2]
     return escalate_reference(st, cfg, outs, dq_plus, lam_full, exact1,
                               exact2)[:2]
 
@@ -649,7 +661,7 @@ def make_substep_phase(model: SkelModel, dr_fields=()):
         exact1, exact2 = hopper_bpp.tier_solvers(
             st.findex_c, hopper_bpp.tier_budgets(
                 cfg.escalate_iters, cfg.escalate_refine,
-                cfg.escalate_iters2, cfg.escalate_ref))
+                cfg.escalate_iters2, *st.ref_passes))
     kernel: List[Optional[SubstepKernel]] = [None]
     slot_consts = {}      # (device, dtype) -> static per-slot contact data
 

@@ -11,11 +11,13 @@ Op order of one substep (the reference engine's World::step):
 
 Models inside the fused path's scope run steps 1-5 through
 engine/hopper_substep.make_substep_phase (the CUDA kernels on a float32
-CUDA batch); other models, the solver="dantzig" mode, and every step
-given an external force, run the phase-wise composition below: step 1-2
-through dynamics/hopper_dynamics.make_dynamics_phase (the dynamics kernel
-on a float32 CUDA batch) unless an external force is given, which takes
-the plain dynamics/batched path; step 4 through
+CUDA batch); other models (self and cross-skeleton pairs, servo rows,
+cylinder / ellipsoid / mesh geoms), the solver="dantzig" mode, and every
+step given an external force or a servo target, run the phase-wise
+composition below: step 1-2 through
+dynamics/hopper_dynamics.make_dynamics_phase (the dynamics kernel on a
+float32 CUDA batch) unless an external force is given, which takes the
+plain dynamics/batched path; step 4 through
 engine/constraints.solve_constraints (on a float32 CUDA batch the PGS
 kernel and the BPP kernel for escalation, or in the "dantzig" mode the
 BPP kernel over the whole batch).
@@ -31,7 +33,8 @@ from dartenv_tpu_torch.collision.narrowphase import collide
 from dartenv_tpu_torch.dynamics import batched
 from dartenv_tpu_torch.dynamics.hopper_dynamics import make_dynamics_phase
 from dartenv_tpu_torch.engine.constraints import (
-    build_layout, solve_constraints,
+    assemble_lcp, build_layout, compact_lam, run_lcp_solver,
+    solve_constraints,
 )
 from dartenv_tpu_torch.engine.hopper_substep import make_substep_phase
 from dartenv_tpu_torch.model.skel_model import SkelModel
@@ -66,12 +69,13 @@ def init_state(model: SkelModel, batch: int, warm_start: bool = True
 
 
 def phasewise_substep(model: SkelModel, layout, state: SimState, tau,
-                      dyn=None, f_ext_world=None):
+                      dyn=None, f_ext_world=None, servo_target=None):
     """Steps 1-5 of one substep as separate phases: the dynamics phase
     `dyn(q, dq, tau)` (or, when dyn is None, the plain dynamics/batched
     path with the external force `f_ext_world`), collision,
-    solve_constraints, the position update.  `model` may carry per-env
-    leaves (domain randomization) that the plain stages read.  Returns
+    solve_constraints (with the servo commands `servo_target`, (B, n) or
+    None), the position update.  `model` may carry per-env leaves
+    (domain randomization) that the plain stages read.  Returns
     (q_new, dq_plus, lam, Contacts)."""
     q, dq, dt = state.q, state.dq, model.dt
     if dyn is not None:
@@ -85,7 +89,7 @@ def phasewise_substep(model: SkelModel, layout, state: SimState, tau,
     contacts = collide(model, R_w, p_w)
     dq_plus, lam = solve_constraints(
         model, layout, phi, M, q, dq, dq_star, contacts, dt,
-        lam_prev=state.lam)
+        lam_prev=state.lam, servo_target=servo_target)
     q_new = batched.integrate_positions(model, q, dq_plus, dt)
     return q_new, dq_plus, lam, contacts
 
@@ -93,25 +97,29 @@ def phasewise_substep(model: SkelModel, layout, state: SimState, tau,
 def make_sim_step(model: SkelModel, return_impulses: bool = False
                   ) -> Callable:
     """Build the single-substep function of a model:
-    step(state, tau, f_ext_world=None) -> (state', Contacts), or
-    (state', (Contacts, lam)) with `return_impulses`.  tau: (B, n)
-    generalized forces; f_ext_world: optional (B, nb, 6) [torque; force]
-    in world coordinates at each body origin."""
+    step(state, tau, f_ext_world=None, servo_target=None) -> (state',
+    Contacts), or (state', (Contacts, lam)) with `return_impulses`.
+    tau: (B, n) generalized forces; f_ext_world: optional (B, nb, 6)
+    [torque; force] in world coordinates at each body origin;
+    servo_target: optional (B, n) commanded dof velocities of the servo
+    rows (None: zero commands).  A step given either takes the phase-wise
+    path; only an external force bypasses the dynamics phase."""
     layout = build_layout(model)
     dt = model.dt
     sub_phase = make_substep_phase(model)
     dyn_phase = make_dynamics_phase(model)
 
-    def step(state: SimState, tau, f_ext_world=None):
+    def step(state: SimState, tau, f_ext_world=None, servo_target=None):
         q, dq = state.q, state.dq
-        if sub_phase is not None and f_ext_world is None:
+        if (sub_phase is not None and f_ext_world is None
+                and servo_target is None):
             lam_prev = (state.lam if state.lam is not None
                         else q.new_zeros((q.shape[0], layout.m)))
             q_new, dq_plus, lam, contacts = sub_phase(q, dq, lam_prev, tau)
         else:
             dyn = dyn_phase if f_ext_world is None else None
             q_new, dq_plus, lam, contacts = phasewise_substep(
-                model, layout, state, tau, dyn, f_ext_world)
+                model, layout, state, tau, dyn, f_ext_world, servo_target)
         out = (contacts, lam) if return_impulses else contacts
         lam_carry = lam if state.lam is not None else None
         return SimState(q=q_new, dq=dq_plus, time=state.time + dt,
@@ -154,18 +162,50 @@ def make_dr_sim_step(model: SkelModel, dr_fields,
     return step
 
 
+def make_lcp_capture(model: SkelModel) -> Callable:
+    """Validation hook: capture(state, tau) -> dict with the exact boxed
+    LCPs of a batch's substep as the solver sees them (after the active-set
+    compaction), and the engine's own solution: A (B, m, m), b, lo, hi,
+    active, mu (B, m), findex (m,) numpy, lam (B, m), dq_star and dq_plus
+    (B, n).  The LCPs are built from the plain dynamics; `lam` comes from
+    engine/constraints.run_lcp_solver, the production solve (on a float32
+    CUDA batch the PGS kernel and the BPP kernel's hybrid mode, or its
+    core mode in the "dantzig" mode)."""
+    layout = build_layout(model)
+    dt = model.dt
+
+    def capture(state: SimState, tau):
+        q, dq = state.q, state.dq
+        kin = batched.bkin(model, q, dq)
+        ddq, M = batched.forward_dynamics(model, kin, q, dq, tau, dt, None)
+        dq_star = dq + dt * ddq
+        contacts = collide(model, kin.R_w, kin.p_w)
+        A, b, lo, hi, active, mu, findex, MinvJt, row_sel, _ = assemble_lcp(
+            model, layout, kin.phi, M, q, dq, dq_star, contacts, dt)
+        lam0 = (compact_lam(state.lam, row_sel, active)
+                if state.lam is not None else None)
+        lam = run_lcp_solver(model.solver, findex, A, b, lo, hi, mu, active,
+                             lam0)
+        return dict(A=A, b=b, lo=lo, hi=hi, active=active, mu=mu,
+                    findex=findex, lam=lam, dq_star=dq_star,
+                    dq_plus=dq_star + torch.sum(MinvJt * lam[:, None, :],
+                                                dim=-1))
+
+    return capture
+
+
 def make_do_simulation(model: SkelModel, frame_skip: int,
                        return_impulses: bool = False) -> Callable:
-    """frame_skip substeps with the same tau (and the same external force,
-    if any).  The returned contacts are the last substep's, with
-    `overflow` the max over the substeps (the last substep alone could
-    mask a mid-step overflow)."""
+    """frame_skip substeps with the same tau (and the same external force
+    and servo target, if any).  The returned contacts are the last
+    substep's, with `overflow` the max over the substeps (the last substep
+    alone could mask a mid-step overflow)."""
     step = make_sim_step(model, return_impulses=return_impulses)
 
-    def do_sim(state: SimState, tau, f_ext_world=None):
+    def do_sim(state: SimState, tau, f_ext_world=None, servo_target=None):
         overflow = None
         for _ in range(frame_skip):
-            state, out = step(state, tau, f_ext_world)
+            state, out = step(state, tau, f_ext_world, servo_target)
             c = out[0] if return_impulses else out
             overflow = (c.overflow if overflow is None
                         else torch.maximum(overflow, c.overflow))

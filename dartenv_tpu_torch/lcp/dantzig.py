@@ -15,10 +15,10 @@ calls, and what the solver="dantzig" mode runs over the whole batch
 (engine/constraints.run_lcp_solver): a float32 CUDA batch goes to the
 hand-written block-pivoting kernel (lcp/hopper_bpp.py, its core mode),
 anything else to that kernel's plain version.
-`refine_compensated` is the escalation's double-float refinement tier
-(the plain version of that tier in the escalation kernel's fused mode,
-csrc/escalate_body.h); the mixed-precision tier `refine_mixed` is not
-ported yet.
+`refine_compensated` is the escalation's double-float refinement tier and
+`refine_mixed` its mixed-precision (float64 residual) tier: the plain
+versions of the escalation kernel's two refinement builds
+(csrc/escalate_body.h es_refine, es_refine64).
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from dartenv_tpu_torch.lcp.pgs import findex_tensors, pgs_solve
-from dartenv_tpu_torch.math.linalg import solve_psd
+from dartenv_tpu_torch.math.linalg import seq_mv, solve_psd
 
 # set labels
 _FREE = 0
@@ -258,3 +258,62 @@ def refine_compensated(A, b, lo, hi, findex, mu, active, x,
         best_x = torch.where(better[..., None], x, best_x)
         best_r = torch.minimum(r_new, best_r)
     return best_x
+
+
+def refine_mixed(A, b, lo, hi, findex, mu, active, x, passes: int = 2):
+    """Mixed-precision iterative refinement of a boxed-LCP point at its own
+    friction-bound fixed sets: float64 RESIDUAL, working-precision
+    correction SOLVE.  Per pass: the free set of the float64 iterate at its
+    own friction bounds, the residual -(b + A x) of the free-set system in
+    float64, the correction solved on the SAME masked operator in A's
+    dtype (math/linalg.solve_psd), a clip to the bounds in float64; the
+    iterate rounded to A's dtype is kept only where its float64 residual
+    (lcp/hybrid.comp_residual) is lower than the best so far — the caller
+    only ever sees the rounded point.  A: (K, m, m), vectors (K, m).  Every
+    sum runs in the escalation kernel's order (math/linalg.seq_mv: the
+    columns in order from 0, then + b); this is the plain version of its
+    ES_REF64 build.  Returns the best point (K, m) in A's dtype."""
+    from dartenv_tpu_torch.lcp.hybrid import comp_residual
+
+    f64 = torch.float64
+    dtype = A.dtype
+    fidx, has_f = findex_tensors(findex, x.device)
+    has_f = has_f.to(f64)
+    A64, b64, lo64, hi64, mu64, act64 = (
+        t.to(f64) for t in (A, b, lo, hi, mu, active))
+    actb = act64 > 0.5
+    x64 = x.to(f64)
+    eye = torch.eye(A.shape[-1], dtype=dtype, device=A.device)
+    zero = torch.zeros_like(x64)
+
+    def resid(xx):
+        return comp_residual(A64, b64, xx, lo64, hi64, findex, mu64, act64,
+                             seq=True)
+
+    best_x = x64
+    best_r = resid(x64)
+    for _ in range(passes):
+        bd = mu64 * torch.abs(x64[..., fidx]) * has_f + 1e20 * (1.0 - has_f)
+        lo_e = torch.maximum(lo64, -bd) * act64
+        hi_e = torch.minimum(hi64, bd) * act64
+        scale = torch.clamp(torch.amax(torch.abs(x64), dim=-1, keepdim=True),
+                            min=1.0)
+        eps = 1e-6 * scale
+        at_lo = x64 <= lo_e + eps
+        at_hi = x64 >= hi_e - eps
+        fm = (actb & ~at_lo & ~at_hi).to(f64)
+        x_fix = torch.where(at_hi, hi_e, torch.where(at_lo, lo_e, zero)) \
+            * act64 * (1 - fm)
+        xa = x64 * fm + x_fix
+        r = -(b64 + seq_mv(A64, xa)) * fm
+        fmw = fm.to(dtype)
+        Am = (A * fmw[..., :, None] * fmw[..., None, :]
+              + eye * (1.0 - fmw)[..., None, :])
+        d = solve_psd(Am, r.to(dtype), eps=1e-12, seq=True) * fmw
+        x64 = torch.minimum(torch.maximum(xa + d.to(f64), lo_e), hi_e)
+        cand = x64.to(dtype).to(f64)
+        r_new = resid(cand)
+        better = r_new < best_r
+        best_x = torch.where(better[..., None], cand, best_x)
+        best_r = torch.minimum(r_new, best_r)
+    return best_x.to(dtype)

@@ -14,15 +14,15 @@ NotImplementedError naming m.  Its three modes, each a wrapper here:
   * `bpp_fused`: the substep path's escalation stage
     (engine/hopper_substep.escalate_batch) in one launch: it reads its
     envs' rows of the substep kernel's packed `esc`, rebuilds the
-    operator, solves warm (and cold), runs the compensated refinement
-    tier when the digest asks for it, keeps the best by residual and
-    patches copies of dq_plus and lam_full.  Its build carries the substep
+    operator, solves warm (and cold), runs the digest's refinement tier
+    when it asks for one, keeps the best by residual and patches copies of
+    dq_plus and lam_full.  Its build carries the substep
     digest (engine/hopper_substep.escalation_header).
   * `bpp_hybrid`: the phase-wise hybrid solver's escalation
     (lcp/hybrid.make_hybrid_solver) in one launch: rows idx of the batch's
-    LCPs, the same tiers and keep-best, the compensated refinement tier
-    when its build asks for it (one build per (m, passes): `header`), lam
-    rows patched in a copy.
+    LCPs, the same tiers and keep-best, a refinement tier when its build
+    asks for one (one build per (m, tier, passes): `header`), lam rows
+    patched in a copy.
 
 `bpp_fused` and `bpp_hybrid` take float32 CUDA tensors only (their plain
 versions are the torch compositions in hopper_substep and hybrid, which
@@ -32,10 +32,18 @@ launches the kernel or raises — none falls back.  `CORE_LAUNCHES`,
 nothing else.
 
 The escalation's tier policy has one source, `tier_budgets`: the fused and
-hybrid modes take its tuple as their launch arguments (its last entry, the
-compensated refinement passes, is also in the fused and hybrid builds'
-headers and must agree with it), and `tier_solvers` builds the plain compositions'
-exact solvers from the same tuple.
+hybrid modes take its tuple as their launch arguments (its last two
+entries, the passes of the compensated and of the mixed-precision
+refinement tier, at most one of them non-zero, are also in the fused and
+hybrid builds' headers and must agree with them), and `tier_solvers`
+builds the plain compositions' exact solvers from the same tuple.
+
+The two refinement tiers: ES_REFC, the compensated (double-float) tier
+(lcp/dantzig.refine_compensated), and ES_REF64, the mixed-precision tier
+(lcp/dantzig.refine_mixed: float64 residuals on the card's float64 units,
+float32 correction solves).  The mixed-precision tier wins where both are
+asked for, as in the reference; unlike the reference, whose tier is inert
+without a float64 switch, it always runs when asked.
 
 Iteration structure (shared with lcp/dantzig.dantzig_solve): warm
 partition from lam0, `iters` damped pivots, `refine_iters` undamped pivots
@@ -65,7 +73,7 @@ MAX_ROWS = 64         # one warp per env: one or two rows per lane
 TIER_POLISH = (3, 6)  # PGS polish sweeps after tier 1 (warm), tier 2 (cold)
 _DEPS = ("bpp_body.h", "escalate_body.h", "linalg_body.h", "pgs_row.h")
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# fused header -> (n, m_c, m, width, refinement passes)
+# fused header -> (n, m_c, m, width, compensated passes, float64 passes)
 _FUSED_DIMS: Dict[str, tuple] = {}
 
 
@@ -77,12 +85,15 @@ def check_rows(m: int):
             f"and takes m <= {MAX_ROWS} rows; this problem has m = {m}")
 
 
-def header(m: int, ref_passes: int = 0) -> str:
+def header(m: int, ref_passes: int = 0, ref64_passes: int = 0) -> str:
     """The generated header of the core and hybrid modes' build for m rows;
-    ref_passes > 0: the hybrid mode runs that many passes of the
-    compensated refinement tier (ES_REFC) after its exact tiers."""
+    ref64_passes > 0: the hybrid mode runs that many passes of the
+    mixed-precision refinement tier (ES_REF64) after its exact tiers, else
+    ref_passes > 0: that many of the compensated tier (ES_REFC)."""
     text = f"#define ES_M {int(m)}\n"
-    if ref_passes > 0:
+    if ref64_passes > 0:
+        text += f"#define ES_REF64 {int(ref64_passes)}\n"
+    elif ref_passes > 0:
         text += f"#define ES_REFC {int(ref_passes)}\n"
     return text
 
@@ -106,7 +117,8 @@ def load(m: int = 24, build=None, header_text=None):
         lib.bpp_core_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp]
         lib.bpp_hybrid_launch.argtypes = ([vp] * 13 + [ci, cf] + [ci] * 6
                                           + [vp])
-        fns = [lib.bpp_core_launch, lib.bpp_hybrid_launch]
+        fns = [lib.bpp_core_launch, lib.bpp_hybrid_launch,
+               lib.bpp_ref_passes, lib.bpp_ref64_passes]
         if "ES_N" in text:
             lib.bpp_fused_launch.argtypes = ([vp] * 10 + [ci, cf] + [ci] * 6
                                              + [vp])
@@ -119,22 +131,32 @@ def load(m: int = 24, build=None, header_text=None):
                                f"rows, asked for {m}")
         if "ES_N" in text:
             lib.bpp_fused_dims.argtypes = [vp]
-            dims = (ctypes.c_int * 5)()
+            dims = (ctypes.c_int * 6)()
             lib.bpp_fused_dims(dims)
             _FUSED_DIMS[text] = tuple(dims)
         _LIBS[text] = lib
     return _LIBS[text]
 
 
-def tier_budgets(iters: int, refine: int, iters2: int, ref_passes: int = 0):
-    """(iters1, refine1, polish1, iters2, refine2, polish2, ref_passes) of
-    the escalation's tiers (refine < 0: the default count; iters2 = 0: no
-    tier 2, and its refine and polish are 0; ref_passes: passes of the
-    compensated refinement tier after them, SolverConfig.escalate_ref)."""
+def ref_tiers(ref_passes, ref64_passes):
+    """(compensated, mixed-precision) passes: the mixed-precision tier wins
+    where both are asked for."""
+    ref64 = max(0, int(ref64_passes))
+    return (0 if ref64 > 0 else int(ref_passes)), ref64
+
+
+def tier_budgets(iters: int, refine: int, iters2: int, ref_passes: int = 0,
+                 ref64_passes: int = 0):
+    """(iters1, refine1, polish1, iters2, refine2, polish2, ref_passes,
+    ref64_passes) of the escalation's tiers (refine < 0: the default count;
+    iters2 = 0: no tier 2, and its refine and polish are 0; ref_passes:
+    passes of the compensated refinement tier after them,
+    SolverConfig.escalate_ref; ref64_passes: of the mixed-precision tier,
+    SolverConfig.escalate_ref64, which wins where both are set)."""
     tier2 = ((int(iters2), _refine_count(iters2, None), TIER_POLISH[1])
              if iters2 > 0 else (0, 0, 0))
     return (int(iters), _refine_count(iters, None if refine < 0 else refine),
-            TIER_POLISH[0]) + tier2 + (int(ref_passes),)
+            TIER_POLISH[0]) + tier2 + ref_tiers(ref_passes, ref64_passes)
 
 
 def tier_solvers(findex, budgets):
@@ -155,18 +177,19 @@ def tier_solvers(findex, budgets):
     return make(*budgets[:3]), exact2
 
 
-def solver_budgets(exact1, exact2=None, ref_passes: int = 0):
-    """The `tier_budgets` tuple of solvers made by `tier_solvers` and
-    `ref_passes` refinement passes; a solver made otherwise has no budget
-    the kernel could run and is refused."""
+def solver_budgets(exact1, exact2=None, ref_passes: int = 0,
+                   ref64_passes: int = 0):
+    """The `tier_budgets` tuple of solvers made by `tier_solvers` and the
+    refinement passes of the two tiers; a solver made otherwise has no
+    budget the kernel could run and is refused."""
     for s in (exact1, exact2):
         if s is not None and not hasattr(s, "budget"):
             raise TypeError(
                 "the escalation kernel runs the tiers of solvers made by "
                 f"hopper_bpp.tier_solvers; {s!r} carries no budget")
     return tuple(exact1.budget) + (
-        (0, 0, 0) if exact2 is None else tuple(exact2.budget)) + (
-        int(ref_passes),)
+        (0, 0, 0) if exact2 is None else tuple(exact2.budget)) + ref_tiers(
+        ref_passes, ref64_passes)
 
 
 def _refine_count(iters, refine_iters):
@@ -367,8 +390,9 @@ def bpp_hybrid(A, b, lo, hi, mu, active, lam, idx, worst, findex,
     idx (K,) int64 and worst (K,): the top K of the PGS residuals;
     budgets: `tier_budgets(...)`.  Tier 1 re-solves rows idx warm from
     lam[idx], tier 2 cold, keep-best against worst and tol, then
-    budgets[6] passes of the compensated refinement tier on the kept point
-    (a build of `header(m, budgets[6])`), kept by the same rule.  Returns
+    budgets[6] passes of the compensated refinement tier, or budgets[7] of
+    the mixed-precision one, on the kept point (a build of `header(m,
+    budgets[6], budgets[7])`), kept by the same rule.  Returns
     (lam with rows idx patched, a copy; take (K,) bool; residual of the
     kept point (K,))."""
     global HYBRID_LAUNCHES
@@ -385,10 +409,11 @@ def bpp_hybrid(A, b, lo, hi, mu, active, lam, idx, worst, findex,
     res = torch.empty((K,), dtype=lam.dtype, device=lam.device)
     if K == 0 or m == 0:
         return out, take.bool(), worst.clone()
-    lib = load(m, header_text=header(m, budgets[6]))
-    if lib.bpp_ref_passes() != budgets[6]:
-        raise ValueError(f"bpp_hybrid: {budgets[6]} refinement passes asked, "
-                         f"the build runs {lib.bpp_ref_passes()}")
+    lib = load(m, header_text=header(m, *budgets[6:8]))
+    built = (lib.bpp_ref_passes(), lib.bpp_ref64_passes())
+    if built != tuple(budgets[6:8]):
+        raise ValueError(f"bpp_hybrid: refinement passes {budgets[6:8]} "
+                         f"asked, the build runs {built}")
     ins = [x.contiguous() for x in (A, b, lo, hi, mu, active, lam, idx,
                                     worst)]
     fidx = findex_i32(findex, A.device)
@@ -408,18 +433,19 @@ def bpp_fused(header_text: str, dims, esc, dq_plus, lam_full, idx, worst,
     only).
 
     header_text: engine/hopper_substep.escalation_header of the digest;
-    dims: (n, m_c, m, esc width, refinement passes); esc (B, width),
+    dims: (n, m_c, m, esc width, compensated and float64 refinement
+    passes); esc (B, width),
     dq_plus (B, n), lam_full
     (B, m): the substep's outputs; idx (K,) int64 and worst (K,): the top K
     of its residuals.  Returns (dq_plus and lam_full with the taken rows
     patched, copies; take (K,) bool; residual of the kept point (K,))."""
     global FUSED_LAUNCHES
-    n, m_c, m, width, passes = dims
+    n, m_c, m, width = dims[:4]
     B, K = esc.shape[0], idx.shape[0]
     check_rows(m_c)
-    if budgets[6] != passes:
-        raise ValueError(f"bpp_fused: {budgets[6]} refinement passes asked, "
-                         f"the digest's build runs {passes}")
+    if tuple(budgets[6:8]) != tuple(dims[4:6]):
+        raise ValueError(f"bpp_fused: refinement passes {budgets[6:8]} "
+                         f"asked, the digest's build runs {dims[4:6]}")
     _check_cuda("bpp_fused",
                 [("esc", esc), ("dq_plus", dq_plus), ("lam_full", lam_full),
                  ("worst", worst)],
@@ -530,10 +556,32 @@ def refine_host(A, b, lo, hi, findex, mu, active, x, passes: int):
     return out, res[:, 0], res[:, 1]
 
 
+def refine64_host(A, b, lo, hi, findex, mu, active, x, passes: int):
+    """The mixed-precision refinement tier's arithmetic (csrc/escalate_body.h
+    es_refine64, es_residual64) built with the host C++ compiler and run as
+    one lane on float32 CPU tensors: (the refined points (K, m) float32, the
+    float64 residual of the input points (K,), of the refined ones (K,)).
+    For tests on machines without a GPU."""
+    B, m = b.shape
+    lib = cuda_build.build_host(
+        "dartenv_bpp_host", "bpp_host.cpp", header_text=header(m),
+        header_name="bpp_model.h", deps=_DEPS)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.refine64_host.argtypes = [vp] * 8 + [ci] + [vp] * 2 + [ci]
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    ins = [f32(t) for t in (A, b, lo, hi, mu, active, x)]
+    fidx = torch.as_tensor(np.asarray(findex, dtype=np.int32))
+    out = torch.zeros((B, m), dtype=torch.float32)
+    res = torch.zeros((B, 2), dtype=torch.float64)
+    lib.refine64_host(*[t.data_ptr() for t in ins], fidx.data_ptr(),
+                      int(passes), out.data_ptr(), res.data_ptr(), B)
+    return out, res[:, 0], res[:, 1]
+
+
 def hybrid_host(A, b, lo, hi, findex, mu, active, lam, worst, tol: float,
                 budgets):
     """The hybrid mode's per-env work above 32 rows (csrc/bpp_body.h
-    bp_tiers, then budgets[6] passes of csrc/escalate_body.h
+    bp_tiers, then the refinement tier of budgets[6:8], csrc/escalate_body.h
     es_refine_tier) built with the host C++ compiler and run as one lane
     on float32 CPU tensors of K gathered problems, with their PGS
     impulses lam and residuals worst.  Returns (the kept points (K, m),
@@ -542,7 +590,7 @@ def hybrid_host(A, b, lo, hi, findex, mu, active, lam, worst, tol: float,
     K, m = b.shape
     lib = cuda_build.build_host(
         "dartenv_bpp_host", "bpp_host.cpp",
-        header_text=header(m, budgets[6]), header_name="bpp_model.h",
+        header_text=header(m, *budgets[6:8]), header_name="bpp_model.h",
         deps=_DEPS)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.hybrid_host.argtypes = ([vp] * 9 + [ctypes.c_float] + [ci] * 6

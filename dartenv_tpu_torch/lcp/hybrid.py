@@ -11,9 +11,10 @@ After the batched PGS solve,
      batch), with an optional cold tier-2,
   4. `keep_best`: a re-solved point replaces the PGS one only where the
      PGS residual exceeded `escalate_tol` and the new residual is lower;
-     with `escalate_ref` > 0 the compensated refinement tier
-     (lcp/dantzig.refine_compensated) then refines the kept point, and
-     its result is kept by the same rule,
+     with `escalate_ref64` > 0 the mixed-precision refinement tier
+     (lcp/dantzig.refine_mixed), else with `escalate_ref` > 0 the
+     compensated one (lcp/dantzig.refine_compensated), then refines the
+     kept point, and its result is kept by the same rule,
   5. scatter back: envs outside the top K keep their PGS impulses bit for
      bit.
 
@@ -32,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dartenv_tpu_torch.lcp.dantzig import refine_compensated
+from dartenv_tpu_torch.lcp.dantzig import refine_compensated, refine_mixed
 from dartenv_tpu_torch.lcp.pgs import findex_tensors
 from dartenv_tpu_torch.math.linalg import seq_mv
 
@@ -70,17 +71,18 @@ def escalation_size(B: int, frac: float, kmax: int) -> int:
 
 
 def keep_best(prob, findex, worst, lamk, tol, exact1, exact2=None,
-              ref_passes: int = 0):
+              ref_passes: int = 0, ref64_passes: int = 0):
     """The escalation's keep-best rule over K gathered problems.
 
     prob: (A, b, lo, hi, mu, active) of the K envs; worst: their PGS
     residuals; lamk: their PGS impulses.  Tier 1 re-solves warm from lamk,
     the optional tier 2 cold; a point is taken only where the residual it
-    replaces exceeds `tol` and its own is lower.  With ref_passes > 0 the
-    compensated refinement tier then refines the kept point
-    (lcp/dantzig.refine_compensated, ref_passes passes) and its result is
-    taken by the same rule against the kept point's residual (the JAX
-    package's order: its res_cur is that point's residual).  Returns
+    replaces exceeds `tol` and its own is lower.  Then a refinement tier
+    refines the kept point — with ref64_passes > 0 the mixed-precision one
+    (lcp/dantzig.refine_mixed), else with ref_passes > 0 the compensated
+    one (lcp/dantzig.refine_compensated) — and its result is taken by the
+    same rule against the kept point's residual (the JAX package's order:
+    its res_cur is that point's residual).  Returns
     (lam_new, take, res_kept) with take (K,) bool: which envs changed, and
     res_kept (K,): the residual of the point kept (`worst` where none was
     taken).  The residuals sum in the kernels' order (it is the plain
@@ -105,9 +107,10 @@ def keep_best(prob, findex, worst, lamk, tol, exact1, exact2=None,
         lam_new, res_kept = take_where(take2, lam_c2, res_c2, lam_new,
                                        res_kept)
         take = take | take2
-    if ref_passes > 0:
-        lam_r = refine_compensated(A, b, lo, hi, findex, mu, act, lam_new,
-                                   passes=ref_passes)
+    if ref64_passes > 0 or ref_passes > 0:
+        refine, passes = ((refine_mixed, ref64_passes) if ref64_passes > 0
+                          else (refine_compensated, ref_passes))
+        lam_r = refine(A, b, lo, hi, findex, mu, act, lam_new, passes=passes)
         res_r = resid(lam_r)
         take_r = (res_kept > tol) & (res_r < res_kept)
         lam_new, res_kept = take_where(take_r, lam_r, res_r, lam_new,
@@ -117,10 +120,11 @@ def keep_best(prob, findex, worst, lamk, tol, exact1, exact2=None,
 
 
 def escalate_rows(A, b, lo, hi, mu, active, lam, idx, worst, findex, tol,
-                  exact1, exact2=None, ref_passes: int = 0):
+                  exact1, exact2=None, ref_passes: int = 0,
+                  ref64_passes: int = 0):
     """The plain version of the escalation kernel's hybrid mode: ONE
-    packed gather of rows idx, `keep_best` (with ref_passes passes of the
-    compensated refinement tier), and the rows written back into a copy of
+    packed gather of rows idx, `keep_best` (with its refinement tier), and
+    the rows written back into a copy of
     lam (envs outside idx keep their impulses bit for bit).  Returns (lam,
     take, res_kept)."""
     m = b.shape[1]
@@ -129,7 +133,8 @@ def escalate_rows(A, b, lo, hi, mu, active, lam, idx, worst, findex, tol,
     bk, lok, hik, muk, actk, lamk = pk.split(m, dim=1)
     prob = (A[idx], bk, lok, hik, muk, actk)
     lam_new, take, res_kept = keep_best(prob, findex, worst, lamk, tol,
-                                        exact1, exact2, ref_passes)
+                                        exact1, exact2, ref_passes,
+                                        ref64_passes)
     return lam.index_copy(0, idx, lam_new), take, res_kept
 
 
@@ -144,23 +149,21 @@ def make_hybrid_solver(findex, iters: int, omega: float = 1.0,
                        escalate_ref: int = 0):
     """Batched boxed-LCP solver: solve(A, b, lo, hi, mu, active, lam0) ->
     lam (B, m), PGS with exact re-solve of the worst envs when
-    escalate_frac > 0 (plain PGS otherwise), and escalate_ref passes of the
-    compensated refinement tier on the re-solved envs.  A float32 CUDA
-    batch runs the PGS kernel with its fused residual and the escalation
-    kernel's hybrid mode; a CPU or float64 batch runs their plain
-    versions.  escalate_ref64 (the mixed-precision tier) is not ported and
-    raises."""
+    escalate_frac > 0 (plain PGS otherwise), and a refinement tier on the
+    re-solved envs: escalate_ref64 passes of the mixed-precision one, else
+    escalate_ref passes of the compensated one.  A float32 CUDA batch runs
+    the PGS kernel with its fused residual and the escalation kernel's
+    hybrid mode; a CPU or float64 batch runs their plain versions.  The
+    mixed-precision tier always runs when it is asked for (the reference's
+    is inert unless its float64 switch is on)."""
     from dartenv_tpu_torch.cuda_build import use_kernel
     from dartenv_tpu_torch.lcp import hopper_bpp
     from dartenv_tpu_torch.lcp.hopper_pgs import pgs_solve_batch
 
-    if escalate_ref64 > 0:
-        raise NotImplementedError(
-            "the escalate_ref64 (mixed-precision) refinement tier is not "
-            "ported yet")
     findex = np.asarray(findex)
     budgets = hopper_bpp.tier_budgets(escalate_iters, escalate_refine,
-                                      escalate_iters2, escalate_ref)
+                                      escalate_iters2, escalate_ref,
+                                      escalate_ref64)
     exact1, exact2 = hopper_bpp.tier_solvers(findex, budgets)
 
     def solve(A, b, lo, hi, mu, active, lam0):
@@ -180,6 +183,6 @@ def make_hybrid_solver(findex, iters: int, omega: float = 1.0,
                                          budgets)[0]
         return escalate_rows(A, b, lo, hi, mu, active, lam, idx, worst,
                              findex, escalate_tol, exact1, exact2,
-                             escalate_ref)[0]
+                             *budgets[6:8])[0]
 
     return solve

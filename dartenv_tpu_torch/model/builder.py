@@ -3,7 +3,7 @@
 Host-side (offline) model assembly in numpy float64; the numeric leaves
 are cast ONCE to the requested dtype and device in `finalize` (through
 model/convert.model_from_numpy).  Used directly by tests/envs and by the
-.skel XML parser (`skel_parser.py`).  Mesh geoms are not ported yet.
+.skel XML parser (`skel_parser.py`).
 """
 from __future__ import annotations
 
@@ -14,8 +14,36 @@ import torch
 
 from dartenv_tpu_torch.model.convert import model_from_numpy
 from dartenv_tpu_torch.model.skel_model import (
-    JOINT_NDOF, SCREW, SkelModel, SolverConfig, ancestor_mask_np,
+    GEOM_MESH, JOINT_NDOF, SCREW, SkelModel, SolverConfig, ancestor_mask_np,
 )
+
+
+def _pad_meshes(meshes):
+    """Pad a list of (V_i, 3) vertex arrays to (n_mesh, Vmax, 3) + mask.
+    Padding repeats the first vertex (world-transform math stays finite);
+    the mask excludes pad slots from manifold selection.  At least 4 slots:
+    the manifold takes the 4 deepest vertices."""
+    vmax = max(4, max(v.shape[0] for v in meshes))
+    verts = np.stack([
+        np.concatenate([v, np.repeat(v[:1], vmax - v.shape[0], axis=0)])
+        for v in meshes
+    ])
+    mask = np.stack([
+        np.concatenate([np.ones(v.shape[0]), np.zeros(vmax - v.shape[0])])
+        for v in meshes
+    ])
+    return verts, mask
+
+
+def mesh_inertia(mass, verts):
+    """Inertia of a convex vertex cloud, approximated by the exact inertia
+    of the uniform-density axis-aligned bounding box of the vertices,
+    about the box CENTER: the mesh is assumed modeled with its COM at the
+    body-frame inertia origin (no parallel-axis term).  Pass an explicit
+    inertia for off-center meshes."""
+    verts = np.asarray(verts, dtype=np.float64).reshape(-1, 3)
+    half = 0.5 * (verts.max(axis=0) - verts.min(axis=0))
+    return box_inertia(mass, np.maximum(half, 1e-9))
 
 
 def rpy_to_mat(r, p, y):
@@ -92,6 +120,7 @@ class ModelBuilder:
         self._geoms = []
         self._wgeoms = []
         self._self_pairs = []
+        self._meshes = []       # list of (V_i, 3) vertex arrays
         self._name_to_idx = {}
 
     # -- bodies/joints ----------------------------------------------------
@@ -178,6 +207,22 @@ class ModelBuilder:
         ))
         return len(self._geoms) - 1
 
+    def add_mesh_geom(self, body: str, verts, pos=(0, 0, 0), rot=None,
+                      friction: float = 1.0, restitution: float = 0.0,
+                      collide: bool = True) -> int:
+        """Convex-mesh collision geom from a (V, 3) vertex cloud in the
+        body frame, collided as a convex vertex cloud.  Interior vertices
+        are harmless, so a hull need not be computed first."""
+        verts = np.asarray(verts, dtype=np.float64).reshape(-1, 3)
+        if verts.shape[0] < 1:
+            raise ValueError("mesh needs at least one vertex")
+        gi = self.add_geom(body, GEOM_MESH, (0.0, 0.0, 0.0), pos=pos,
+                           rot=rot, friction=friction,
+                           restitution=restitution, collide=collide)
+        self._geoms[gi]["mesh"] = len(self._meshes)
+        self._meshes.append(verts)
+        return gi
+
     def add_self_pair(self, geom_a: int, geom_b: int):
         """Register a robot-geom-vs-robot-geom collision pair (reference:
         Skeleton::enableSelfCollisionCheck † — here pairs are explicit so
@@ -241,6 +286,7 @@ class ModelBuilder:
             dt=self.dt, name=self.name, solver=self.solver,
             geom_body=tuple(g["body"] for g in self._geoms),
             geom_type=tuple(g["type"] for g in self._geoms),
+            geom_mesh=tuple(g.get("mesh", -1) for g in self._geoms),
         )
         gstack = lambda key, shape: (
             np.stack([g[key] for g in self._geoms]) if ng
@@ -278,4 +324,7 @@ class ModelBuilder:
             wg_restitution=wlist("restitution"),
             gravity=self.gravity,
         )
+        if self._meshes:
+            arrays["mesh_verts"], arrays["mesh_vmask"] = _pad_meshes(
+                self._meshes)
         return model_from_numpy(static, arrays, device=device, dtype=dtype)

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from dartenv_tpu_torch.model.skel_model import (
-    FLOAT_LEAVES, STATIC_FIELDS, SkelModel, SolverConfig,
+    FLOAT_LEAVES, MESH_LEAVES, STATIC_FIELDS, SkelModel, SolverConfig,
 )
 
 
@@ -44,9 +44,11 @@ def model_from_numpy(static: Dict[str, Any], arrays: Dict[str, np.ndarray],
 
     static: nb, n, parent, joint_type, q_start, ndof, body_names,
     joint_names, world_pairs, self_pairs, dt, name, solver (a SolverConfig
-    or an object with its attribute names).  `geom_body` / `geom_type` may sit in
-    either dict (integer arrays become static tuples).
-    arrays: every FLOAT_LEAVES entry (None / missing stays None).
+    or an object with its attribute names), and optionally skel_ranges.
+    `geom_body` / `geom_type` / `geom_mesh` may sit in either dict (integer
+    arrays become static tuples; a missing geom_mesh means no mesh geoms).
+    arrays: every FLOAT_LEAVES entry, and the MESH_LEAVES where the model
+    has mesh geoms (None / missing stays None).
     """
     kw: Dict[str, Any] = {}
     for f in STATIC_FIELDS:
@@ -55,7 +57,7 @@ def model_from_numpy(static: Dict[str, Any], arrays: Dict[str, np.ndarray],
             continue
         v = src[f]
         if f in ("parent", "joint_type", "q_start", "ndof", "geom_body",
-                 "geom_type"):
+                 "geom_type", "geom_mesh"):
             v = _tuple_of_ints(v)
         elif f in ("world_pairs", "self_pairs"):
             v = _pairs(v)
@@ -67,10 +69,12 @@ def model_from_numpy(static: Dict[str, Any], arrays: Dict[str, np.ndarray],
             v = float(v)
         elif f == "solver":
             v = solver_from_attrs(v)
+        elif f == "skel_ranges":
+            v = tuple((str(r[0]),) + tuple(int(x) for x in r[1:]) for r in v)
         kw[f] = v
-    if arrays.get("mesh_verts") is not None:
-        raise NotImplementedError("mesh geoms are not ported yet")
-    for f in FLOAT_LEAVES:
+    if "geom_mesh" not in kw and "geom_type" in kw:
+        kw["geom_mesh"] = (-1,) * len(kw["geom_type"])
+    for f in FLOAT_LEAVES + MESH_LEAVES:
         v = arrays.get(f)
         if v is None:
             continue

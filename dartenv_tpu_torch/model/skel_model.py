@@ -43,7 +43,7 @@ GEOM_CAPSULE = 1    # size = (radius, half_length, 0); axis = local z
 GEOM_BOX = 2        # size = half extents (3,)
 GEOM_CYLINDER = 3   # size = (radius, half_height, 0); axis = local z
 GEOM_ELLIPSOID = 4  # size = semi-axes (3,) along local axes
-GEOM_MESH = 5       # convex vertex cloud (not ported yet)
+GEOM_MESH = 5       # convex vertex cloud (mesh_verts[geom_mesh[g]])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +71,9 @@ class SolverConfig:
     escalate_kmax: int = 128
     escalate_refine: int = -1      # -1 = max(iters // 3, 6)
     escalate_iters2: int = 0       # > 0: cold tier-2 re-solve budget
-    escalate_ref64: int = 0        # mixed-precision refinement (not ported)
+    escalate_ref64: int = 0        # > 0: passes of the mixed-precision
+                                   # (float64 residual) refinement tier;
+                                   # wins over escalate_ref
     escalate_ref: int = 0          # > 0: passes of the compensated
                                    # (double-float) refinement tier
 
@@ -89,8 +91,10 @@ FLOAT_LEAVES = (
 STATIC_FIELDS = (
     "nb", "n", "parent", "joint_type", "q_start", "ndof", "body_names",
     "joint_names", "world_pairs", "self_pairs", "dt", "name", "solver",
-    "geom_body", "geom_type",
+    "geom_body", "geom_type", "geom_mesh", "skel_ranges",
 )
+# the mesh store (float tensors; None without mesh geoms), moved by `to`
+MESH_LEAVES = ("mesh_verts", "mesh_vmask")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +122,11 @@ class SkelModel:
     solver: SolverConfig = SolverConfig()
     geom_body: Tuple[int, ...] = ()     # (ng,) body index per geom
     geom_type: Tuple[int, ...] = ()     # (ng,)
+    # per geom its mesh index in mesh_verts (-1: not a mesh)
+    geom_mesh: Tuple[int, ...] = ()
+    # multi-skeleton worlds (model/compose.py): per source skeleton
+    # (name, body_start, nb, dof_start, n); () = a single skeleton
+    skel_ranges: Tuple = ()
 
     # ---- joint frames: T_rel = T_pj o JointT(q) o inv(T_cj) ----
     pj_rot: Any = None   # (nb, 3, 3)
@@ -150,6 +159,8 @@ class SkelModel:
     geom_pos: Any = None    # (ng, 3)
     geom_friction: Any = None
     geom_restitution: Any = None
+    mesh_verts: Any = None  # (n_mesh, Vmax, 3) body-frame vertices, padded
+    mesh_vmask: Any = None  # (n_mesh, Vmax) {0, 1} valid-vertex mask
 
     # ---- static world geoms: halfspaces ----
     wg_normal: Any = None   # (nw, 3)
@@ -184,7 +195,7 @@ class SkelModel:
     def to(self, device=None, dtype=None) -> "SkelModel":
         """Move / cast every numeric leaf at once."""
         kw = {}
-        for f in FLOAT_LEAVES:
+        for f in FLOAT_LEAVES + MESH_LEAVES:
             v = getattr(self, f)
             if v is not None:
                 kw[f] = v.to(device=device, dtype=dtype)

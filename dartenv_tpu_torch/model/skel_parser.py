@@ -25,9 +25,9 @@ import torch
 from dartenv_tpu_torch.model import skel_model as sm
 from dartenv_tpu_torch.model.builder import (
     ModelBuilder, box_inertia, capsule_inertia, cylinder_inertia,
-    ellipsoid_inertia,
-    sphere_inertia,
+    ellipsoid_inertia, mesh_inertia, sphere_inertia,
 )
+from dartenv_tpu_torch.model.mesh_loader import load_mesh
 
 _JOINT_TYPES = {
     "weld": sm.WELD,
@@ -97,14 +97,15 @@ def _t_inv(T):
 
 
 class ParsedShape:
-    def __init__(self, gtype, size, T, inertia_fn):
+    def __init__(self, gtype, size, T, inertia_fn, verts=None):
         self.gtype = gtype
         self.size = size
         self.T = T
         self.inertia_fn = inertia_fn
+        self.verts = verts  # (V, 3) for GEOM_MESH
 
 
-def _parse_shape(shape_elem):
+def _parse_shape(shape_elem, base_dir=None):
     """<collision_shape>/<visualization_shape> -> ParsedShape or None."""
     T = _transform(shape_elem.find("transformation"))
     geom = shape_elem.find("geometry")
@@ -133,8 +134,21 @@ def _parse_shape(shape_elem):
         h = float(cyl.find("height").text)
         return ParsedShape(sm.GEOM_CYLINDER, np.array([r, h / 2.0, 0]), T,
                            lambda m, r=r, h=h: cylinder_inertia(m, r, h))
-    if geom.find("mesh") is not None:
-        raise NotImplementedError("mesh geoms are not ported yet")
+    mesh = geom.find("mesh")
+    if mesh is not None:
+        fn_el = mesh.find("file_name")
+        if fn_el is None or not fn_el.text:
+            return None
+        fn = fn_el.text.strip()
+        sc_el = mesh.find("scale")
+        scale = _floats(sc_el.text) if sc_el is not None else np.ones(3)
+        path = fn
+        if base_dir is not None and not os.path.isabs(fn):
+            path = os.path.join(base_dir, fn)
+        verts = load_mesh(path, scale=scale)
+        return ParsedShape(sm.GEOM_MESH, np.zeros(3), T,
+                           lambda m, v=verts: mesh_inertia(m, v),
+                           verts=verts)
     ell = geom.find("ellipsoid")
     if ell is not None:
         full = _floats(ell.find("size").text)   # DART <size> = diameters ‡
@@ -156,6 +170,14 @@ class ParsedWorld:
     @property
     def robot(self) -> sm.SkelModel:
         return self.skeletons[-1]
+
+    @property
+    def combined(self) -> sm.SkelModel:
+        """ALL mobile skeletons composed into one block-diagonal model
+        (model/compose.py); equals `robot` for a single-skeleton world."""
+        from dartenv_tpu_torch.model.compose import compose_models
+
+        return compose_models(self.skeletons)
 
 
 def parse_skel(path: str, dtype=torch.float32,
@@ -209,7 +231,8 @@ def parse_skel(path: str, dtype=torch.float32,
     for skel in mobile_skels:
         models.append(
             _build_skeleton(skel, dt, gravity, halfspaces, dtype, solver,
-                            device)
+                            device,
+                            base_dir=os.path.dirname(os.path.abspath(path)))
         )
     return ParsedWorld(dt, gravity, models)
 
@@ -257,7 +280,8 @@ def _axis_dynamics(joint, axis_names=("axis", "axis2", "axis3")):
     return axes, lowers, uppers, dampings, stiffs, frictions, limited
 
 
-def _build_skeleton(skel, dt, gravity, halfspaces, dtype, solver, device):
+def _build_skeleton(skel, dt, gravity, halfspaces, dtype, solver, device,
+                    base_dir=None):
     name = skel.get("name", "skeleton")
     T_skel = _transform(skel.find("transformation"))
 
@@ -365,12 +389,12 @@ def _build_skeleton(skel, dt, gravity, halfspaces, dtype, solver, device):
 
         shapes = []
         for cs in body.findall("collision_shape"):
-            s = _parse_shape(cs)
+            s = _parse_shape(cs, base_dir)
             if s is not None:
                 shapes.append((s, True))
         if not shapes:
             for vs in body.findall("visualization_shape"):
-                s = _parse_shape(vs)
+                s = _parse_shape(vs, base_dir)
                 if s is not None:
                     shapes.append((s, False))
         if moi is None:
@@ -404,7 +428,10 @@ def _build_skeleton(skel, dt, gravity, halfspaces, dtype, solver, device):
                    if joint.find("thread_pitch") is not None else 0.0),
         )
         for s, _col in shapes:
-            if _col:
+            if _col and s.gtype == sm.GEOM_MESH:
+                b.add_mesh_geom(bname, s.verts, pos=s.T[1], rot=s.T[0],
+                                friction=1.0)
+            elif _col:
                 b.add_geom(bname, s.gtype, s.size, pos=s.T[1],
                            rot=s.T[0], friction=1.0)
 

@@ -79,8 +79,8 @@ def test_escalate_batch_refuses_unported_tiers():
 
     jm = jax_make_task("hopper", dtype=jnp.float64).model
     tm = port_model(jm)
-    # the compensated tier (escalate_ref) is ported; the mixed-precision
-    # one still raises, before it touches any input
+    # both refinement tiers are ported; a tier that the digest was not
+    # built for is refused before any input is touched
     cfg = dataclasses.replace(tm.solver, escalate_ref64=2)
-    with pytest.raises(NotImplementedError, match="escalate_ref64"):
+    with pytest.raises(ValueError, match="refinement passes"):
         ths.escalate_batch(ths._SubStatic(tm), cfg, {}, None, None, None)

@@ -3,7 +3,7 @@ tier (escalate_ref > 0, which DartHumanWalker sets):
   (a) lcp/hybrid.make_hybrid_solver(escalate_ref=2) against the JAX
       make_hybrid_solver on the same seeded boxed LCPs, float64, CPU:
       impulses within 1e-9, the refinement tier having changed the point
-      of some escalated envs; escalate_ref64 still raises;
+      of some escalated envs; escalate_ref64 wins where both are set;
   (b) the hybrid mode of the BPP kernel above 32 rows with ES_REFC = 2
       (csrc/bpp_body.h bp_tiers, then csrc/escalate_body.h
       es_refine_tier), built with the host C++ compiler and run as one
@@ -63,8 +63,11 @@ def test_hybrid_refinement_tier_matches_jax_f64():
     res = lambda x: comp_residual(*args[:2], x, *args[2:4], findex,
                                   *args[4:6])
     assert bool((res(lam_t)[moved] < res(lam_0)[moved]).all())
-    with pytest.raises(NotImplementedError, match="escalate_ref64"):
-        make_hybrid_solver(findex, escalate_ref64=1, **SOLVER)
+    # escalate_ref64 (tests/test_torch_refine_mixed.py) wins over it
+    lam_64 = make_hybrid_solver(findex, escalate_ref=2, escalate_ref64=1,
+                                **SOLVER)(*args)
+    assert torch.equal(lam_64, make_hybrid_solver(
+        findex, escalate_ref64=1, **SOLVER)(*args))
 
 
 def test_hybrid_mode_host_build_with_refinement_equals_plain_to_the_bit():
