@@ -88,7 +88,22 @@ float32:
     20 control steps, and perturbed, 3), counters zeroed just before each;
   * the device launches of one eager walker2d control step at B = 4096,
     counted by torch.profiler as dartenv_tpu_torch/bench/profile_step.py
-    counts them (line `launches`).
+    counts them (line `launches`);
+  * the gym surface at B = 1: every registered id made on the card
+    (`dartenv_tpu_torch.make`), 50 control steps of a seeded action
+    sequence with the launch counters zeroed just before, each step in
+    lockstep with the same env class on the CPU in float64, the wall ms
+    and device launches per env.step, and each kernel of the path at
+    B = 1 against its plain version (phase gym; an obs_type="image"
+    hopper against its CPU frame); the pydart2 facade on walker2d (its
+    views, a force staged by add_ext_force: kernels 4 and 2; the servo
+    walker's commands staged by set_commands: kernels 3, 4 and 2; phase
+    facade); the checked step at B = 4096 (checked); a 200-substep trace
+    on the card beside the CPU's (trace, not gated); a walker2d VecEnv
+    at B = 4096 saved and restored with its generator, equal to the bit
+    (resume); the JAX residual harness's protocol at B = 1 for walker2d,
+    hopper, walker3d, dog and humanwalker (harness_envelope, gated for
+    walker2d).
 
 Each phase prints one JSON line; any failing phase raises, and without a
 GPU the script exits non-zero before printing a result.  The last line is
@@ -96,6 +111,7 @@ GPU the script exits non-zero before printing a result.  The last line is
 """
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -855,6 +871,7 @@ def residual_envelope(name, dev, states, control_steps=25):
          within_jax_bounds=[g <= b for g, b in zip(got, bounds)],
          finite_state=finite)
     assert finite
+    return got
 
 
 def joint_chains(dev):
@@ -2291,6 +2308,602 @@ def check_ref64(dev, checks, kerns, comp_hybrid):
     return fused, hybrid
 
 
+
+# ---- the gym surface: single envs (B = 1) ---------------------------------
+
+GYM_STEPS = 50        # control steps of each registered id in phase gym
+# The float64 CPU twin of the 3D ids takes about a second (walker3d, dog)
+# to six (humanwalker) per control step on one CPU core (the plain
+# versions at 18 and 29 dofs), so their lockstep runs on every k-th step
+# of the 50 (the card env steps all 50).
+GYM_LOCK_EVERY = {"DartWalker3d-v1": 5, "DartDog-v1": 5,
+                  "DartHumanWalker-v1": 10}
+# the JAX harness's torques: env -> N m per unit action
+HARNESS = {"walker2d": 100.0, "hopper": 200.0, "walker3d": 100.0,
+           "dog": 60.0, "humanwalker": 100.0}
+RESUME_B = 4096
+
+
+def to_device(tree, device, dtype):
+    """A copy of a tree of dataclasses / dicts / tuples of tensors on
+    `device`, its floating tensors cast to `dtype`."""
+    import torch
+
+    if torch.is_tensor(tree):
+        return tree.to(device=device, dtype=dtype if tree.is_floating_point()
+                       else tree.dtype, copy=True)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: to_device(getattr(tree, f.name), device, dtype)
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: to_device(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_device(x, device, dtype) for x in tree)
+    return tree
+
+
+def impulse_pattern(model, lam):
+    """(1, rows) bool: which normal and limit rows of a (1, m) impulse
+    vector carry an impulse (the contact set of phase lockstep), or None
+    without constraint rows."""
+    from dartenv_tpu_torch.engine.constraints import build_layout
+
+    if lam is None:
+        return None
+    lay = build_layout(model)
+    rows = list(range(0, 3 * lay.contact_slots, 3)) + list(
+        range(3 * lay.contact_slots, lay.m))
+    return (lam[:, rows] > 0).cpu()
+
+
+def check_substep_b1(label, model, kern, candidates):
+    """The substep kernel at B = 1 against its plain version (in float64
+    above n = 12, see plain64), block by block at hold_substep's bounds,
+    on the first of `candidates` ((q, dq, tau, lam) of one env) whose
+    discrete blocks agree.  Returns what the kernels line needs."""
+    import torch
+
+    from dartenv_tpu_torch.bench.kernel_stages import device_ms
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+
+    st, m64 = kern.st, plain64(model)
+    for tried, ins in enumerate(candidates, 1):
+        got_b = hs.output_blocks(st, kern(*ins))
+        ref_b = hs.output_blocks(st, hs.substep_reference(model, st, *ins))
+        ref_c = ref_b
+        if m64 is not None:
+            ref64 = hs.substep_reference(m64[0], m64[1],
+                                         *(x.double() for x in ins))
+            ref_c = {k: v.float()
+                     for k, v in hs.output_blocks(st, ref64).items()}
+        if all(torch.equal(got_b[f], ref_b[f])
+               and torch.equal(ref_c[f], ref_b[f]) for f in DISCRETE):
+            break
+    else:
+        raise AssertionError(f"{label}: the discrete blocks differ on all "
+                             f"{len(candidates)} states")
+    errs, abs_errs, unequal = {}, {}, {}
+    for f in got_b:
+        a, r = got_b[f], ref_c[f]
+        assert torch.isfinite(a).all(), f
+        if f in EXACT_BLOCKS:
+            unequal[f] = int((a != ref_b[f]).sum())
+        elif a.numel():
+            abs_errs[f] = float((a - r).abs().max())
+            errs[f] = abs_errs[f] / max(1.0, float(r.abs().max()))
+    run = lambda: kern(*ins)
+    ms, dev_ms = time_ms(run), device_ms(run, "substep_kernel")
+    plain_ms = time_ms(lambda: hs.substep_reference(model, st, *ins),
+                       runs=5, warmup=1)
+    bnd = bound(*substep_work(st, 1))
+    tol = lambda f: 2e-2 if m64 is not None and f in AFTER_SWEEPS else 1e-4
+    emit("b1", kernel="substep", env=label, B=1, states_tried=tried,
+         rel_err=errs, abs_err=abs_errs, unequal_entries=unequal,
+         active_rows=float(ref_b["act"].sum()),
+         plain_dtype="float32" if m64 is None else "float64", ms=ms,
+         device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bnd[0],
+         envs_per_block=kern.shape[0], tol_rel=1e-4,
+         tol_rel_after_sweeps=tol("res"))
+    assert not any(unequal.values()), f"copied blocks differ: {unequal}"
+    bad = {f: e for f, e in errs.items() if not e <= tol(f)}
+    assert not bad, f"substep kernel disagrees at B = 1: {bad}"
+    return dict(max_abs_err=max(abs_errs.values()), ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound=bnd,
+                shape=f"{label} B=1 n={st.n} m={st.layout.m} m_c={st.m_c} "
+                      f"envs_per_block={kern.shape[0]}")
+
+
+def drive_gym(env_id, dev):
+    """Phase gym for one registered id: make(env_id) on the card (float32),
+    seed(0), reset(), GYM_STEPS control steps of a seeded action sequence,
+    every launch counter set to 0 just before and read just after.  After
+    each step (each GYM_LOCK_EVERY-th for the 3D ids) a one-step lockstep:
+    the same env class on the CPU in float64 is given the card env's
+    pre-step state (q, dq, warm-start impulses, task state) and stepped
+    with the same action; obs and reward are held to 1e-3 of
+    max(1, |twin|) (phase lockstep's bound; the 3D twins run the float64
+    plain versions, as PERF.md sets out) when the contact sets agree, at
+    most LOCK_MAY_DIVERGE steps beyond it.  Then the device launches per
+    env.step (torch.profiler) and each kernel at B = 1 against its plain
+    version on the path's own states.  Returns the counts and the
+    kernels' entries."""
+    import numpy as np
+    import torch
+
+    import dartenv_tpu_torch as gym
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+
+    env = gym.make(env_id)
+    u = env.unwrapped
+    twin = gym.make(env_id, device="cpu", dtype=torch.float64).unwrapped
+    task, model = u.task, u.model
+    assert model.device.type == "cuda" and model.dtype == torch.float32
+    env.seed(0)
+    env.reset()
+    twin.seed(0)
+    twin.reset()
+    rng = np.random.default_rng(11)
+    lo, hi = env.action_space.low, env.action_space.high
+    every = GYM_LOCK_EVERY.get(env_id, 1)
+    ms, locks, records, resets = [], [], [], 0
+    zero_counters()
+    for k in range(GYM_STEPS):
+        a = rng.uniform(lo, hi)
+        pre = u._state
+        records.append((pre, a))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obs, r, d, _ = env.step(a)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if k % every == 0:
+            twin._state = to_device(pre, "cpu", torch.float64)
+            tobs, tr, td, _ = twin.step(a)
+            pk = impulse_pattern(model, u._state.sim.lam)
+            pt = impulse_pattern(model, twin._state.sim.lam)
+            same = pk is None or bool(torch.equal(pk, pt))
+            locks.append((float(np.abs(obs - tobs).max()
+                                / max(1.0, float(np.abs(tobs).max()))),
+                          abs(r - tr) / max(1.0, abs(tr)), d == td, same))
+        if d:
+            env.reset()
+            resets += 1
+    counts = read_counters()
+    sub = task.frame_skip * GYM_STEPS
+    want = dict.fromkeys(counts, 0)
+    fused = hs.in_fused_scope(model)
+    if fused:
+        want.update(substep=sub)
+        if model.solver.escalate_frac > 0:
+            want.update(bpp_fused=sub)
+    else:
+        want.update(dynamics=sub)
+    a = np.zeros(env.action_space.shape)
+    wall, busy, launches = profile_calls(lambda: env.step(a), 10)
+    held = [x for x in locks if x[3]]
+    obs_err = max((x[0] for x in held), default=0.0)
+    rew_err = max((x[1] for x in held), default=0.0)
+    beyond = sum(1 for x in held if x[0] > 1e-3 or x[1] > 1e-3)
+    emit("gym", env=env_id, B=1, steps=GYM_STEPS, resets=resets,
+         ms_per_step_median=statistics.median(ms[1:]),
+         ms_per_step_max=max(ms[1:]), steps_per_s=1e3 / statistics.median(
+             ms[1:]), profiled_wall_ms_per_step=wall,
+         device_busy_ms_per_step=busy, device_launches_per_step=launches,
+         launches={k: v for k, v in counts.items() if v},
+         lockstep_steps=len(locks), lockstep_same_contacts=len(held),
+         obs_rel_err=obs_err, reward_rel_err=rew_err,
+         done_equal=sum(1 for x in held if x[2]), steps_beyond_tol=beyond,
+         obs_rel_err_all=max(x[0] for x in locks), tol=1e-3,
+         tol_steps_beyond=(max(LOCK_MAY_DIVERGE, len(held) // 2)
+                           if plain64(model) is not None
+                           else LOCK_MAY_DIVERGE))
+    assert counts == want, (env_id, counts, want)
+    if fused:
+        assert counts["substep"] > 0, f"{env_id}: no kernel 1 launch"
+    else:
+        assert counts["dynamics"] > 0, f"{env_id}: no kernel 3 launch"
+    assert len(held) >= 0.8 * len(locks), (env_id, len(held), len(locks))
+    # Above n = 12 phase lockstep holds only the envs that neither path
+    # escalated: on these operators the exact re-solve branches on the
+    # float32 rounding of its inputs.  A single env is the top K = 1 of
+    # its batch on every substep, so here every step escalates, and half
+    # of the held steps may part (PERF.md section 6).
+    may = (max(LOCK_MAY_DIVERGE, len(held) // 2)
+           if plain64(model) is not None else LOCK_MAY_DIVERGE)
+    assert beyond <= may, (env_id, beyond, may)
+    assert all(x[2] for x in held), f"{env_id}: done differs"
+
+    # each kernel at B = 1 on the path's own pre-step states
+    def ins_of(i):
+        st, a = records[i]
+        at = torch.as_tensor(a[None], dtype=torch.float32, device=dev)
+        return (st.sim.q, st.sim.dq, task.action_to_tau(at, st.aux),
+                st.sim.lam)
+
+    label = "gym_" + env_id.split("-")[0][4:].lower()
+    order = list(range(GYM_STEPS // 2, GYM_STEPS)) + list(
+        range(GYM_STEPS // 2))
+    entries = {}
+    if fused:
+        kern = hs.get_substep_kernel(model)
+        entries["substep"] = check_substep_b1(
+            label, model, kern, [ins_of(i) for i in order[:8]])
+        if model.solver.escalate_frac > 0:
+            outs = kern(*ins_of(order[0]))
+            entries["bpp_fused"] = check_escalate(label, kern.st,
+                                                  model.solver, outs)
+    else:
+        q, dq, tau, _ = ins_of(order[0])
+        entries["dynamics"] = check_dynamics(label, model, 1, q, dq, tau)
+    return dict(counts, steps=GYM_STEPS), entries, label
+
+
+def check_image(dev):
+    """Phase gym, obs_type="image": a hopper DartEnv on the card returns
+    frames at its screen size; the frame after three steps is held to the
+    frame the float64 CPU env renders from the same state (at most 1% of
+    the pixels may differ: float32 against float64 poses move primitive
+    edges by a pixel)."""
+    import numpy as np
+    import torch
+
+    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs import DartEnv
+
+    env = DartEnv(make_task("hopper", device=dev), obs_type="image",
+                  screen_width=80, screen_height=45)
+    twin = DartEnv(make_task("hopper", device="cpu", dtype=torch.float64))
+    env.seed(0)
+    f = env.reset()
+    assert f.shape == (45, 80, 3) and f.dtype == np.uint8
+    t0 = time.perf_counter()
+    for _ in range(3):
+        f, r, d, _ = env.step(np.full(3, 0.3))
+    ms = (time.perf_counter() - t0) * 1e3 / 3
+    twin.seed(0)
+    twin.reset()
+    twin._state = to_device(env._state, "cpu", torch.float64)
+    ref = twin._render(mode="rgb_array", width=80, height=45)
+    diff = float((f != ref).any(-1).mean())
+    emit("gym", check="image", env="DartHopper-v1", shape=list(f.shape),
+         pixels_differing_frac=diff, ms_per_step=ms, tol_frac=0.01)
+    assert diff <= 0.01
+
+
+def held_states(env, twin):
+    """Rel errors (to max(1, |twin|)) of the card env's and the float64
+    twin's state vectors."""
+    import numpy as np
+
+    a, b = env.state_vector(), twin.state_vector()
+    return float(np.abs(a - b).max() / max(1.0, float(np.abs(b).max())))
+
+
+def check_facade(dev):
+    """Phase facade on walker2d: the pydart2 views on the card against the
+    float64 CPU env in the same state (q, dq, M, c, com, every body's
+    com: 1e-4 of max(1, |ref|)); world.collision_result after a step with
+    ground contact (one world.step(), forces from its impulses); one
+    do_simulation with a force staged by add_ext_force
+    (kernels 4 and 2's hybrid mode, nothing else), and the servo walker of
+    bench/scenes.py driven by commands staged by set_commands (kernels 3,
+    4 and 2), each held to the twin at 1e-3 and its kernels at B = 1
+    against their plain versions.  Returns the counts and entries."""
+    import numpy as np
+    import torch
+
+    import dartenv_tpu_torch as gym
+    from dartenv_tpu_torch.bench import scenes
+    from dartenv_tpu_torch.envs import DartEnv
+    from dartenv_tpu_torch.envs.walker2d import Walker2dTask
+    from dartenv_tpu_torch.lcp.hybrid import escalation_size
+
+    env = gym.make("DartWalker2d-v1").unwrapped
+    twin = gym.make("DartWalker2d-v1", device="cpu",
+                    dtype=torch.float64).unwrapped
+    env.seed(1)
+    env.reset()
+    twin.seed(1)
+    twin.reset()
+    rng = np.random.default_rng(5)
+    for _ in range(40):                       # settle onto the ground
+        env.step(rng.uniform(-0.3, 0.3, 6))
+        if env.world.collision_result.num_contacts() >= 2:
+            break
+    pre = env._state
+    twin._state = to_device(pre, "cpu", torch.float64)
+    sk, st = env.robot_skeleton, twin.robot_skeleton
+    rel = lambda x, y: float(np.abs(x - y).max()
+                             / max(1.0, float(np.abs(y).max())))
+    views = dict(q=rel(sk.q, st.q), dq=rel(sk.dq, st.dq), M=rel(sk.M, st.M),
+                 c=rel(sk.c, st.c), com=rel(sk.com(), st.com()),
+                 body_com=max(rel(b.com(), tb.com()) for b, tb in
+                              zip(sk.bodynodes, st.bodynodes)))
+    # one physics substep (world.step: do_simulation of one frame, which
+    # keeps the manifold and the impulses behind collision_result)
+    env.world.step()
+    twin.world.step()
+    cr, tcr = env.world.collision_result, twin.world.collision_result
+    key = lambda c: (c.bodynode_id, float(c.point[0]))
+    cs, ts = sorted(cr.contacts, key=key), sorted(tcr.contacts, key=key)
+    contact = dict(contacts=len(cs), twin_contacts=len(ts))
+    if len(cs) == len(ts):
+        contact.update(
+            bodies_equal=[c.bodynode_id for c in cs]
+            == [c.bodynode_id for c in ts],
+            point_err=max(float(np.abs(c.point - t.point).max())
+                          for c, t in zip(cs, ts)),
+            force_rel_err=max(rel(c.force, t.force) for c, t in zip(cs, ts)))
+
+    # a force staged by add_ext_force: the phase-wise step without kernel 3
+    pre = env._state
+    twin._state = to_device(pre, "cpu", torch.float64)
+    force, offset = [300.0, 0.0, 40.0], [0.0, 0.1, 0.0]
+    for e in (env, twin):
+        e.robot_skeleton.bodynodes[0].add_ext_force(force, offset)
+    f_ext = torch.as_tensor(env._pending_fext[None], dtype=torch.float32,
+                            device=dev)
+    zero_counters()
+    env.do_simulation(np.zeros(9), 1)
+    ext_counts = dict(read_counters(), steps=1)
+    twin.do_simulation(np.zeros(9), 1)
+    ext_err = held_states(env, twin)
+    model, cfg = env.model, env.model.solver
+    zero_tau = torch.zeros((1, 9), device=dev)
+    _, _, prob, lam0 = phasewise_lcp(model, pre.sim.q, pre.sim.dq, zero_tau,
+                                     pre.sim.lam, f_ext)
+    A, b, lo, hi, act, mu, findex, _, _ = prob
+    lam_k, res_k, pgs = compare_pgs("facade_ext_force", (
+        A, b, lo, hi, findex, mu, act, lam0), cfg.pgs_iters, cfg.pgs_omega)
+    worst, idx = torch.topk(res_k, escalation_size(1, cfg.escalate_frac,
+                                                   cfg.escalate_kmax))
+    hyb = check_hybrid_batch("facade_ext_force", cfg, findex,
+                             (A, b, lo, hi, mu, act), lam_k, worst, idx)
+
+    # servo commands staged by set_commands
+    senv = DartEnv(Walker2dTask(scenes.servo_walker(dev)))
+    stwin = DartEnv(Walker2dTask(scenes.servo_walker("cpu", torch.float64)))
+    senv.seed(2)
+    senv.reset()
+    stwin.seed(2)
+    stwin.reset()
+    stwin._state = to_device(senv._state, "cpu", torch.float64)
+    cmd = np.zeros(9)
+    cmd[3:] = rng.uniform(-2.0, 2.0, 6)
+    for e in (senv, stwin):
+        e.robot_skeleton.set_commands(cmd)
+    pre = senv._state
+    zero_counters()
+    senv.do_simulation(np.zeros(9), 4)
+    servo_counts = dict(read_counters(), steps=1)
+    stwin.do_simulation(np.zeros(9), 4)
+    servo_err = held_states(senv, stwin)
+    servo = torch.as_tensor(cmd[None], dtype=torch.float32, device=dev)
+    servo_entries = check_phasewise_model(
+        "facade_servo", senv.model, (pre.sim.q, pre.sim.dq, zero_tau,
+                                     pre.sim.lam, servo))
+    emit("facade", env="DartWalker2d-v1", views_rel_err=views,
+         collision_result=contact, ext_force_state_rel_err=ext_err,
+         ext_force_launches={k: v for k, v in ext_counts.items() if v},
+         servo_state_rel_err=servo_err,
+         servo_launches={k: v for k, v in servo_counts.items() if v},
+         tol_views=1e-4, tol_state=1e-3)
+    assert max(views.values()) <= 1e-4, views
+    assert contact["contacts"] > 0 and len(cs) == len(ts)
+    assert contact["bodies_equal"] and contact["point_err"] <= 1e-3
+    assert ext_err <= 1e-3 and servo_err <= 1e-3
+    assert ext_counts == dict.fromkeys(ext_counts, 0) | dict(
+        pgs=1, bpp_hybrid=1, steps=1), ext_counts
+    assert servo_counts == dict.fromkeys(servo_counts, 0) | dict(
+        dynamics=4, pgs=4, bpp_hybrid=4, steps=1), servo_counts
+    return (ext_counts, dict(pgs=pgs, bpp_hybrid=hyb)), (servo_counts,
+                                                         servo_entries)
+
+
+def check_checked(dev, states):
+    """Phase checked: engine/debug.make_checked_sim_step on walker2d at
+    B = 4096 (the check states of phase substep): a clean substep of the
+    envs whose contacts fit the cap gives err.get() None; a NaN written
+    into env 17's tau gives the non-finite tau message naming env 17; the
+    ms per substep checked (with and without err.get()) and unchecked."""
+    import torch
+
+    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.engine import debug
+    from dartenv_tpu_torch.engine.world import SimState, make_sim_step
+
+    model = make_task("walker2d", device=dev).model
+    q, dq, tau, lam = states
+    B = q.shape[0]
+    state = SimState(q=q, dq=dq, time=q.new_zeros(B), lam=lam)
+    step = make_sim_step(model)
+    checked = debug.make_checked_sim_step(model)
+    err, (_, contacts) = checked(state, tau)
+    first = err.get()
+    fit = contacts.overflow <= 0
+    sub = SimState(q=q[fit], dq=dq[fit], time=q.new_zeros(int(fit.sum())),
+                   lam=lam[fit])
+    clean = checked(sub, tau[fit])[0].get()
+    bad = tau.clone()
+    bad[17, 4] = float("nan")
+    msg = checked(state, bad)[0].get()
+    ms_checked = time_ms(lambda: checked(state, tau))
+    ms_get = time_ms(lambda: checked(state, tau)[0].get())
+    ms_plain = time_ms(lambda: step(state, tau))
+    emit("checked", env="walker2d", B=B, overflow_envs=int((~fit).sum()),
+         first_message=first, clean_envs=int(fit.sum()), clean_message=clean,
+         nan_message=msg, ms_per_substep_checked=ms_checked,
+         ms_per_substep_checked_get=ms_get, ms_per_substep=ms_plain,
+         overhead=ms_get / ms_plain - 1.0)
+    assert clean is None, clean
+    assert msg == f"{debug.MSG_TAU_IN} (env 17)", msg
+    assert first is None or first.startswith(debug.MSG_OVERFLOW), first
+
+
+def check_trace(dev):
+    """Phase trace: validation/trace.capture_trace of walker2d (the task's
+    model) for 200 substeps of seeded torques from the default pose, on
+    the card in float32 (kernels 1 and 2 at B = 1, counters zeroed just
+    before) and on the CPU in float64; the compare_traces report is
+    printed, not gated."""
+    import numpy as np
+    import torch
+
+    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.validation import capture_trace, compare_traces
+
+    T = 200
+    models = {d: make_task("walker2d", device=d, dtype=t).model
+              for d, t in ((dev, torch.float32), ("cpu", torch.float64))}
+    n = models["cpu"].n
+    tau = np.zeros((T, n))
+    tau[:, 3:] = np.random.default_rng(0).uniform(-100.0, 100.0, (T, 6))
+    q0 = models["cpu"].host("q_init")
+    zero_counters()
+    t0 = time.perf_counter()
+    card = capture_trace(models[dev], q0, np.zeros(n), tau)
+    ms = (time.perf_counter() - t0) * 1e3 / T
+    counts = read_counters()
+    ref = capture_trace(models["cpu"], q0, np.zeros(n), tau)
+    rep = compare_traces(ref, card, atol=1e-3, rtol=1e-2)
+    emit("trace", env="walker2d", substeps=T, report=rep,
+         ms_per_substep=ms, launches={k: v for k, v in counts.items() if v},
+         atol=1e-3, rtol=1e-2)
+    assert np.isfinite(card.q).all() and np.isfinite(card.dq).all()
+    assert counts["substep"] == T and counts["bpp_fused"] == T
+
+
+def check_resume(dev, root):
+    """Phase resume: walker2d at B = RESUME_B through VecEnv (kernels 1 and
+    2), 6 control steps, save_pytree of the state and the generator, 8
+    steps live; then a VecEnv and a torch.Generator built anew, restored
+    by load_pytree, 8 steps: obs, reward and done equal to the bit.
+    Returns the live run's launch counts."""
+    import os
+
+    import torch
+
+    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.parallel.vec_env import VecEnv
+    from dartenv_tpu_torch.utils import checkpoint as ckpt
+
+    task = make_task("walker2d", device=dev)
+    B = RESUME_B
+    agen = torch.Generator(device=dev)
+    agen.manual_seed(6)
+    acts = [(torch.rand((B, 6), generator=agen, device=dev) * 2 - 1)
+            for _ in range(14)]
+
+    def run(vec, state):
+        out = []
+        for a in acts[6:]:
+            state, obs, r, d, _ = vec.step(state, a)
+            out += [obs, r, d]
+        return out
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    vec = VecEnv(task, B, max_episode_steps=1000, generator=gen)
+    state, _ = vec.reset()
+    for a in acts[:6]:
+        state, *_ = vec.step(state, a)
+    path = os.path.join(root, "build", "chip_smoke_resume", "ckpt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    ckpt.save_pytree(path, (state, gen))
+    zero_counters()
+    live = run(vec, state)
+    counts = dict(read_counters(), steps=8)
+    gen2 = torch.Generator(device=dev)
+    vec2 = VecEnv(task, B, max_episode_steps=1000, generator=gen2)
+    template, _ = vec2.reset()
+    state2, g = ckpt.load_pytree(path, (template, gen2))
+    resumed = run(vec2, state2)
+    equal = all(torch.equal(x, y) for x, y in zip(live, resumed))
+    dones = int(sum(int(x.sum()) for x in live[2::3]))
+    emit("resume", env="walker2d", B=B, steps_before=6, steps_after=8,
+         bit_equal=equal, auto_resets=dones,
+         launches={k: v for k, v in counts.items() if v})
+    assert g is gen2 and equal
+    assert counts["substep"] == 32 and counts["bpp_fused"] == 32
+    return counts
+
+
+def comp_residual_np(A, b, x, lo, hi, findex, mu, active):
+    """The JAX harness's residual (tests/test_pgs_residuals.py): max
+    complementarity violation of one boxed LCP at the solver's friction
+    bounds, float64 numpy."""
+    import numpy as np
+
+    lo, hi = lo.copy(), hi.copy()
+    fmask = findex >= 0
+    if fmask.any():
+        bd = mu[fmask] * np.abs(x[findex[fmask]])
+        lo[fmask] = np.maximum(lo[fmask], -bd)
+        hi[fmask] = np.minimum(hi[fmask], bd)
+    w = A @ x + b
+    at_lo = x <= lo + 1e-9
+    at_hi = x >= hi - 1e-9
+    res = np.where(at_lo & at_hi, 0.0,
+                   np.where(at_lo, -w, np.where(at_hi, w, np.abs(w))))
+    res = np.maximum(res, np.maximum(lo - x, x - hi))
+    res = np.where(active > 0.5, res, 0.0)
+    return float(res.max(initial=0.0))
+
+
+def harness_envelope(name, dev, envelope):
+    """Phase harness_envelope: the JAX harness's own protocol through the
+    port on the card: B = 1, 160 substeps, its seeded torques, the
+    normalized residual of every LCP of engine/world.make_lcp_capture that
+    carries an impulse; median, p95 and max beside the JAX bounds and
+    beside phase envelope's line for the model (`envelope`).  Gated for
+    walker2d (its CPU run does not fit the suite's time per test; the
+    hopper is gated there)."""
+    import numpy as np
+    import torch
+
+    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.engine.world import (
+        init_state, make_lcp_capture, make_sim_step,
+    )
+
+    task = make_task(name, device=dev)
+    model = task.model
+    step, capture = make_sim_step(model), make_lcp_capture(model)
+    state = init_state(model, 1, warm_start=True)
+    rng = np.random.default_rng(0)
+    res = []
+    t0 = time.perf_counter()
+    for k in range(160):
+        if k % task.frame_skip == 0:
+            a = rng.uniform(-1.0, 1.0, model.n - 3)
+            tau = torch.zeros((1, model.n), device=dev)
+            tau[0, 3:] = torch.as_tensor(a, dtype=torch.float32,
+                                         device=dev) * HARNESS[name]
+        p = capture(state, tau)
+        h = {k: v[0].double().cpu().numpy() for k, v in p.items()
+             if torch.is_tensor(v)}
+        if np.abs(h["lam"]).max() > 1e-9:
+            act = h["active"] > 0.5
+            res.append(comp_residual_np(
+                h["A"], h["b"], h["lam"], np.where(act, h["lo"], 0.0),
+                np.where(act, h["hi"], 0.0), np.asarray(p["findex"]),
+                h["mu"], act.astype(np.float64))
+                / max(1.0, np.abs(h["lam"]).max()))
+        state, _ = step(state, tau)
+    r = np.asarray(res)
+    got = [float(np.median(r)), float(np.percentile(r, 95)), float(r.max())]
+    bounds = JAX_ENVELOPE[name]
+    within = [g < b for g, b in zip(got, bounds)]
+    emit("harness_envelope", env=name, B=1, substeps=160, lcps=len(r),
+         median_p95_max=got, jax_bounds_tpu=list(bounds),
+         within_jax_bounds=within, envelope_phase_median_p95_max=envelope,
+         seconds=time.perf_counter() - t0,
+         finite_state=bool(torch.isfinite(state.q).all()))
+    assert len(r) > 20, f"{name}: the rollout never made contact"
+    if name == "walker2d":
+        assert all(within), got
+
+
 def main():
     import torch
 
@@ -2427,8 +3040,8 @@ def main():
 
     # ---- 3-5. substep and BPP kernels vs their plain versions, lockstep -
     checks = {e: check_env(e, Be, dev) for e, Be in FUSED_ENVS.items()}
-    for e in JAX_ENVELOPE:
-        residual_envelope(e, dev, checks[e]["states"])
+    envelopes = {e: residual_envelope(e, dev, checks[e]["states"])
+                 for e in JAX_ENVELOPE}
 
     # ---- 6. dynamics kernel vs its plain version ------------------------
     dyn = {}
@@ -2504,6 +3117,21 @@ def main():
          top_device_kernels=prof["top_device_kernels"], limit=700)
     assert prof["device_launches_per_control_step"] <= 700
 
+    # ---- 12. the gym surface: single envs (B = 1) -----------------------
+    import dartenv_tpu_torch as gym
+
+    gym_runs = [drive_gym(i, dev)
+                for i in sorted(s.id for s in gym.registry.all())]
+    check_image(dev)
+    (ext_counts, ext_entries), (servo_counts, servo_entries) = \
+        check_facade(dev)
+    check_checked(dev, checks["walker2d"]["states"])
+    check_trace(dev)
+    resume_counts = check_resume(dev, os.path.dirname(
+        os.path.abspath(__file__)))
+    for e in HARNESS:
+        harness_envelope(e, dev, envelopes[e])
+
     # ---- 11. the kernels line -------------------------------------------
     sources = {
         "substep": ("fused_substep", "dartenv_tpu_torch/csrc/substep.cu",
@@ -2552,6 +3180,17 @@ def main():
              ("humanwalker_ref64", hw_ref64, "bpp_fused", ref64[0]),
              ("humanwalker_perturbed_ref64",
               ref64_counts[("humanwalker", True)], "bpp_hybrid", ref64[1])]
+    # the gym surface's paths: each id's DartEnv at B = 1, the facade's
+    # staged force and servo commands, the VecEnv resume
+    rows += [(label, cnt, key, c) for cnt, ents, label in gym_runs
+             for key, c in ents.items()]
+    rows += [("facade_ext_force", ext_counts, key, c)
+             for key, c in ext_entries.items()]
+    rows += [("facade_servo", servo_counts, key, servo_entries[key])
+             for key in ("dynamics", "pgs", "bpp_hybrid")]
+    rows += [("walker2d_resume", resume_counts, key, checks["walker2d"][ph])
+             for key, ph in (("substep", "substep"),
+                             ("bpp_fused", "escalate"))]
     kernels = []
     for label, n, key, c in rows:
         kname, src, repl = sources[key]

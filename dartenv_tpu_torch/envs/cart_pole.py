@@ -14,8 +14,9 @@ import numpy as np
 import torch
 
 from dartenv_tpu_torch.engine.world import SimState
-from dartenv_tpu_torch.envs.base import Task, with_solver
+from dartenv_tpu_torch.envs.base import DartEnv, Task, with_solver
 from dartenv_tpu_torch.model.skel_parser import asset_path, parse_skel
+from dartenv_tpu_torch.utils.ezpickle import EzPickle
 
 
 class CartPoleTask(Task):
@@ -55,6 +56,11 @@ class CartPoleSwingUpTask(CartPoleTask):
         q[:, 1] += math.pi
         return SimState(q=q, dq=sim.dq, time=sim.time, lam=sim.lam)
 
+    def np_reset_sim(self, np_random):
+        q, dq = super().np_reset_sim(np_random)
+        q[1] += np.pi
+        return q, dq
+
     def reward(self, sim_prev, sim, a, contacts, aux):
         return torch.cos(sim.q[:, 1]) - 1e-3 * torch.sum(a * a, dim=-1)
 
@@ -77,3 +83,15 @@ def make_cartpole_swingup_task(dtype=torch.float32, lcp_solver=None,
                        device=device)
     return CartPoleSwingUpTask(
         with_solver(world.robot, lcp_solver, **solver_kw))
+
+
+class DartCartPoleEnv(DartEnv, EzPickle):
+    def __init__(self, device="cuda", dtype=torch.float32):
+        EzPickle.__init__(self, device=device, dtype=dtype)
+        super().__init__(make_cartpole_task(dtype=dtype, device=device))
+
+
+class DartCartPoleSwingUpEnv(DartEnv, EzPickle):
+    def __init__(self, device="cuda", dtype=torch.float32):
+        EzPickle.__init__(self, device=device, dtype=dtype)
+        super().__init__(make_cartpole_swingup_task(dtype=dtype, device=device))

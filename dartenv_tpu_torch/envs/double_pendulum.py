@@ -11,8 +11,9 @@ import numpy as np
 import torch
 
 from dartenv_tpu_torch.dynamics.algorithms import body_point_world
-from dartenv_tpu_torch.envs.base import Task, with_solver
+from dartenv_tpu_torch.envs.base import DartEnv, Task, with_solver
 from dartenv_tpu_torch.model.skel_parser import asset_path, parse_skel
+from dartenv_tpu_torch.utils.ezpickle import EzPickle
 
 # pole half-length: the tip is this far above pole2's origin (see asset)
 _TIP_OFFSET = (0.0, 0.3, 0.0)
@@ -59,3 +60,9 @@ def make_double_pendulum_task(dtype=torch.float32, lcp_solver=None,
                        device=device)
     return DoubleInvertedPendulumTask(
         with_solver(world.robot, lcp_solver, **solver_kw))
+
+
+class DartDoubleInvertedPendulumEnv(DartEnv, EzPickle):
+    def __init__(self, device="cuda", dtype=torch.float32):
+        EzPickle.__init__(self, device=device, dtype=dtype)
+        super().__init__(make_double_pendulum_task(dtype=dtype, device=device))

@@ -11,9 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dartenv_tpu_torch.envs.base import with_solver
+from dartenv_tpu_torch.envs.base import DartEnv, with_solver
 from dartenv_tpu_torch.envs.walker2d import Walker2dTask
 from dartenv_tpu_torch.model.skel_parser import asset_path, parse_skel
+from dartenv_tpu_torch.utils.ezpickle import EzPickle
 
 
 class HopperTask(Walker2dTask):
@@ -54,3 +55,9 @@ def make_hopper_task(dtype=torch.float32, lcp_solver=None, device="cuda",
               escalate_tol=1e-5, escalate_iters=4, escalate_refine=2)
     kw.update(solver_kw)           # caller overrides beat the task defaults
     return HopperTask(with_solver(world.robot, lcp_solver, **kw))
+
+
+class DartHopperEnv(DartEnv, EzPickle):
+    def __init__(self, device="cuda", dtype=torch.float32):
+        EzPickle.__init__(self, device=device, dtype=dtype)
+        super().__init__(make_hopper_task(dtype=dtype, device=device))

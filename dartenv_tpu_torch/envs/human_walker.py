@@ -13,8 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dartenv_tpu_torch.envs.base import Task, with_solver
+from dartenv_tpu_torch.envs.base import DartEnv, Task, with_solver
 from dartenv_tpu_torch.model.skel_parser import asset_path, parse_skel
+from dartenv_tpu_torch.utils.ezpickle import EzPickle
 
 # actuated dofs 6..29: spine(3), hipR(3), kneeR, ankleR(2),
 # hipL(3), kneeL, ankleL(2), shoulderR(3), elbowR, shoulderL(3), elbowL
@@ -80,3 +81,9 @@ def make_humanwalker_task(dtype=torch.float32, lcp_solver=None,
               escalate_tol=1e-5, escalate_iters=16, escalate_ref=2)
     kw.update(solver_kw)           # caller overrides beat the task defaults
     return HumanWalkerTask(with_solver(world.robot, lcp_solver, **kw))
+
+
+class DartHumanWalkerEnv(DartEnv, EzPickle):
+    def __init__(self, device="cuda", dtype=torch.float32):
+        EzPickle.__init__(self, device=device, dtype=dtype)
+        super().__init__(make_humanwalker_task(dtype=dtype, device=device))

@@ -14,8 +14,9 @@ import numpy as np
 import torch
 
 from dartenv_tpu_torch.dynamics.algorithms import body_point_world
-from dartenv_tpu_torch.envs.base import Task, with_solver
+from dartenv_tpu_torch.envs.base import DartEnv, Task, with_solver
 from dartenv_tpu_torch.model.skel_parser import asset_path, parse_skel
+from dartenv_tpu_torch.utils.ezpickle import EzPickle
 
 _FINGERTIP_OFFSET = (0.2, 0.0, 0.0)  # in link2 body frame
 _TARGET_R_MIN = 0.25
@@ -53,6 +54,18 @@ class Reacher2dTask(Task):
         return dict(aux, target=r[:, None] * torch.stack(
             [torch.cos(angle), torch.sin(angle)], dim=-1))
 
+    def np_reset_aux(self, np_random, aux):
+        """The single-env target, in the reference reset_model's draw
+        order: rejection-sample a point of the cube [-0.75, 0.75]^2 until it
+        lies in the shell 0.25 <= r <= 0.75."""
+        while True:
+            t = np_random.uniform(low=-_TARGET_R_MAX, high=_TARGET_R_MAX,
+                                  size=2)
+            if _TARGET_R_MIN <= np.linalg.norm(t) <= _TARGET_R_MAX:
+                break
+        return dict(aux, target=torch.as_tensor(
+            t[None], dtype=self.model.dtype, device=self.model.device))
+
     def obs(self, sim, aux):
         target = aux["target"]
         vec = self.fingertip(sim.q) - target
@@ -76,3 +89,9 @@ def make_reacher2d_task(dtype=torch.float32, lcp_solver=None,
     kw = dict(pgs_iters=10)
     kw.update(solver_kw)           # caller overrides beat the task defaults
     return Reacher2dTask(with_solver(world.robot, lcp_solver, **kw))
+
+
+class DartReacher2dEnv(DartEnv, EzPickle):
+    def __init__(self, device="cuda", dtype=torch.float32):
+        EzPickle.__init__(self, device=device, dtype=dtype)
+        super().__init__(make_reacher2d_task(dtype=dtype, device=device))

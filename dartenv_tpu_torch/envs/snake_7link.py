@@ -11,8 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dartenv_tpu_torch.envs.base import Task, with_solver
+from dartenv_tpu_torch.envs.base import DartEnv, Task, with_solver
 from dartenv_tpu_torch.model.skel_parser import asset_path, parse_skel
+from dartenv_tpu_torch.utils.ezpickle import EzPickle
 
 
 class Snake7LinkTask(Task):
@@ -54,3 +55,9 @@ def make_snake7link_task(dtype=torch.float32, lcp_solver=None,
     kw = dict(pgs_iters=10)
     kw.update(solver_kw)           # caller overrides beat the task defaults
     return Snake7LinkTask(with_solver(world.robot, lcp_solver, **kw))
+
+
+class DartSnake7LinkEnv(DartEnv, EzPickle):
+    def __init__(self, device="cuda", dtype=torch.float32):
+        EzPickle.__init__(self, device=device, dtype=dtype)
+        super().__init__(make_snake7link_task(dtype=dtype, device=device))

@@ -12,9 +12,10 @@ import numpy as np
 import torch
 
 from dartenv_tpu_torch.dynamics.algorithms import fk_positions
-from dartenv_tpu_torch.envs.base import Task, with_solver
+from dartenv_tpu_torch.envs.base import DartEnv, Task, with_solver
 from dartenv_tpu_torch.math.spatial import mv
 from dartenv_tpu_torch.model.skel_parser import asset_path, parse_skel
+from dartenv_tpu_torch.utils.ezpickle import EzPickle
 
 
 class Walker3dTask(Task):
@@ -71,3 +72,9 @@ def make_walker3d_task(dtype=torch.float32, lcp_solver=None, device="cuda",
               escalate_tol=1e-5, escalate_iters=8, escalate_refine=2)
     kw.update(solver_kw)           # caller overrides beat the task defaults
     return Walker3dTask(with_solver(world.robot, lcp_solver, **kw))
+
+
+class DartWalker3dEnv(DartEnv, EzPickle):
+    def __init__(self, device="cuda", dtype=torch.float32):
+        EzPickle.__init__(self, device=device, dtype=dtype)
+        super().__init__(make_walker3d_task(dtype=dtype, device=device))
