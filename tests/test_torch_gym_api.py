@@ -149,3 +149,69 @@ def test_pickle_roundtrip(env_id):
                                                0.5))[:2])
         for x, y in zip(*outs):
             np.testing.assert_array_equal(x, y)
+
+
+def test_scoreboard_scores_like_jax(tmp_path):
+    """Three monitored cartpole episodes driven to one side, scored
+    locally by each package's scoreboard against the same benchmark: the
+    same episodes and score."""
+    from dartenv_tpu.api import benchmarks as jbench
+    from dartenv_tpu.api import scoreboard as jscore
+    from dartenv_tpu_torch.api import benchmarks, scoreboard
+
+    evs = []
+    for tag, mk, Mon, bench, score in (
+            ("jax", jgym.make, JMonitor, jbench, jscore),
+            ("port", gym.make, Monitor, benchmarks, scoreboard)):
+        kw = {} if tag == "jax" else dict(device="cpu", dtype=torch.float64)
+        d = str(tmp_path / tag)
+        env = Mon(mk("DartCartPole-v1", **kw), d, force=True,
+                  video_callable=False)
+        env.seed(0)
+        for _ in range(3):
+            env.reset()
+            for _ in range(500):
+                if env.step(env.action_space.high)[2]:
+                    break
+        env.close()
+        bid = "GymPortCartPole-v0"
+        if bid not in bench.registry.benchmarks:
+            bench.register_benchmark(
+                id=bid, scorer=bench.ClipTo01ThenAverage(),
+                tasks=[dict(env_id="DartCartPole-v1", trials=3,
+                            reward_floor=0.0, reward_ceiling=1000.0)])
+        evs.append(score.upload(d, algorithm_id="constant",
+                                benchmark_id=bid))
+    got, ref = (e["envs"]["DartCartPole-v1"] for e in evs[::-1])
+    assert got["episodes"] == ref["episodes"] == 3
+    assert got["benchmark_score"] == ref["benchmark_score"]
+    with pytest.raises(gym.error.Error):
+        scoreboard.upload(str(tmp_path / "empty"))
+
+
+def test_perturbation_dice_follow_the_seed():
+    """A task with random pushes: the DartEnv's torch.Generator (on the
+    model's device) is seeded by seed(), so a seed replays its pushes;
+    from the same reset, another generator seed pushes otherwise."""
+    from dartenv_tpu_torch.envs import DartEnv
+    from dartenv_tpu_torch.envs.hopper import make_hopper_task
+
+    task = make_hopper_task(dtype=torch.float64, device="cpu")
+    task.add_perturbation = True
+    task.perturbation_parameters = (0.5, 30.0, 0, 5)
+    env = DartEnv(task)
+    assert env._generator.device == torch.device("cpu")
+    runs = []
+    for gseed in (4, 4, 5):
+        env.seed(4)
+        o = [env.reset()]
+        env._generator.manual_seed(gseed)
+        for _ in range(3):
+            o.append(env.step(np.zeros(3))[0])
+        runs.append(np.stack(o))
+    env.seed(4)
+    assert torch.equal(env._generator.get_state(),
+                       torch.Generator().manual_seed(4).get_state())
+    np.testing.assert_array_equal(runs[0], runs[1])
+    np.testing.assert_array_equal(runs[0][0], runs[2][0])
+    assert not np.array_equal(runs[0][1:], runs[2][1:])
