@@ -43,16 +43,18 @@ ES_STAGES = ("load", "rebuild", "tiers", "patch")
 PG_STAGES = ("load", "sweeps", "residual", "stores")
 DY_STAGES = ("load", "joint_kinematics", "tree_composition", "phi",
              "mass_matrix", "bias_forces", "solve", "stores")
+# torch.profiler at times reports no device event for all launches of a
+# profile (seen on one-block launches late in chip_smoke.py's run, not
+# alone), so device_ms takes up to this many profiles.
+PROFILE_TRIES = 3
 
 
-def device_ms(fn, name, runs=20, tries=3):
+def device_ms(fn, name, runs=20):
     """Mean device time of the kernel whose name contains `name`, or None
-    when none of `tries` profiles caught it (torch.profiler at times
-    reports no device event for all launches of a profile: seen on
-    one-block launches late in chip_smoke.py's run, not alone)."""
+    when none of PROFILE_TRIES profiles caught it."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
+    for _ in range(PROFILE_TRIES):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
