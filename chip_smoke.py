@@ -103,7 +103,19 @@ float32:
     at B = 4096 saved and restored with its generator, equal to the bit
     (resume); the JAX residual harness's protocol at B = 1 for walker2d,
     hopper, walker3d, dog and humanwalker (harness_envelope, gated for
-    walker2d).
+    walker2d);
+  * the learner (phase learn): parallel/train.make_train_step on walker2d
+    at B = 4096 inside an NCCL process group of one rank, three REINFORCE
+    steps of horizon 16, kernel 1 and the BPP kernel's fused mode on every
+    substep and no plain call, the third update held to the float64 CPU
+    update; the URDF and SDF loaders (phase loaders): the URDF double
+    pendulum and floating block and the SDF pendulum-and-crate world at
+    B = 4096 through make_sim_step, the route and kernels of each, the
+    kernels against their plain versions and a lockstep substep, and
+    DartEnv([a .urdf]) for 20 control steps; the C++ golden engines
+    (phase golden): the dynamics kernel's accelerations on walker2d and
+    humanwalker states against native.aba, the BPP kernel's core mode on
+    captured walker2d LCPs against native.lcp_solve by residual.
 
 Each phase prints one JSON line; any failing phase raises, and without a
 GPU the script exits non-zero before printing a result.  The last line is
@@ -2871,6 +2883,346 @@ def harness_envelope(name, dev, envelope):
         assert all(within), got
 
 
+# ---- the learner, the loaders and the golden engines (PR 10) -------------
+
+LEARN = (4096, 16, 3)      # envs, horizon, train steps of phase learn
+LEARN_LR, LEARN_GAMMA = 3e-4, 0.99
+LOADER_B = 4096            # envs of each world of phase loaders
+LOADER_SUBSTEPS = 10       # substeps of each world's counted drive
+GOLDEN_ENVS = 64           # states / LCPs of phase golden per model
+GOLDEN_ACC_TOL = 2e-4      # kernel 3's ddq vs the golden, of max(1, |ddq|)
+GOLDEN_RES_TOL = 1e-4      # kernel 2's normalized residual (solved)
+
+
+def check_learn(dev, smi):
+    """Phase learn: the learner on the card.  distributed_init with NCCL
+    at world size 1 (a file:// store in a temporary directory), then
+    parallel/train.make_train_step on walker2d at B = 4096, horizon 16,
+    three REINFORCE steps (collect, then update), every kernel counter
+    set to 0 just before and read just after: kernel 1 and kernel 2's
+    fused mode once a substep, no plain call.  The loss and parameters
+    stay finite and every parameter moves; the third step's update is
+    held to reinforce_update run on the CPU in float64 on the same
+    parameters and trajectory: per tensor within one float32 ulp of
+    max |p| (the card's parameters are float32) plus 1e-4 of the largest
+    update.  Returns the launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.parallel.sharding import distributed_init
+    from dartenv_tpu_torch.parallel.train import (
+        make_train_step, reinforce_update,
+    )
+
+    B, H, steps = LEARN
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_learn_")
+    group = distributed_init("cuda", "file://" + os.path.join(tmp, "store"),
+                             world_size=1, rank=0)
+    try:
+        backend = dist.get_backend(group)
+        task = make_task("walker2d", device=dev)
+        init_fn, train_step = make_train_step(task, B, H, group=group,
+                                              lr=LEARN_LR, gamma=LEARN_GAMMA)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params, state = init_fn(gen)
+        first = {k: v.detach().clone() for k, v in params.items()}
+        torch.cuda.synchronize()
+        zero_counters()
+        wall, losses = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, stats, traj = train_step.collect(params, state, gen)
+            new, loss = train_step.update(params, traj)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            held = (params, traj, new)
+            params = new
+        counts = read_counters()
+        plain = sum(plain_counts())
+        episodes = float(stats.episodes)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    p0, traj, p1 = held
+    p0_64 = {k: v.detach().double().cpu().requires_grad_()
+             for k, v in p0.items()}
+    traj64 = tuple(x.double().cpu() if x.is_floating_point() else x.cpu()
+                   for x in traj)
+    p1_64, loss64 = reinforce_update(p0_64, traj64, LEARN_LR, LEARN_GAMMA)
+    held_err, held_tol = {}, {}
+    for k, v in p1_64.items():
+        v = v.detach()
+        held_err[k] = float((p1[k].detach().double().cpu() - v).abs().max())
+        held_tol[k] = (2.0 ** -23 * float(v.abs().max())
+                       + 1e-4 * float((v - p0_64[k].detach()).abs().max()))
+    med = statistics.median(wall)
+    sub = steps * H * task.frame_skip
+    emit("learn", env="walker2d", B=B, horizon=H, train_steps=steps,
+         backend=backend, world_size=1, nvidia_smi=smi,
+         wall_ms_per_train_step=wall, median_wall_ms=med,
+         train_env_steps_per_s=B * H / (med / 1e3), losses=losses,
+         loss_float64=float(loss64), episodes_last=episodes,
+         **{f"{k}_launches": v for k, v in counts.items()},
+         plain_calls=plain, held_abs_err=held_err, held_tol=held_tol)
+    assert backend == "nccl", backend
+    assert all(map(lambda x: x == x and abs(x) < float("inf"), losses))
+    for k, v in params.items():
+        assert torch.isfinite(v).all(), k
+        assert not torch.equal(v.detach(), first[k]), f"{k} did not move"
+    want = dict.fromkeys(counts, 0)
+    want.update(substep=sub, bpp_fused=sub)
+    assert counts == want, (counts, want)
+    assert plain == 0
+    bad = {k: e for k, e in held_err.items() if not e <= held_tol[k]}
+    assert not bad, f"learner update parts from float64: {bad}"
+    return dict(counts, steps=steps * H)
+
+
+def loader_worlds(dev):
+    """name -> model of phase loaders on the card: the URDF double
+    pendulum (welded base, the URDF's own solver settings), the URDF
+    floating block on a ground and the SDF pendulum-and-crate world
+    (composed: cross-skeleton pairs), the last two with walker2d's
+    escalating solver settings."""
+    import tempfile
+
+    from dartenv_tpu_torch.bench import scenes
+    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.model import skel_model as sm
+    from dartenv_tpu_torch.model.sdf_loader import parse_sdf
+    from dartenv_tpu_torch.model.urdf_loader import parse_urdf
+
+    esc = make_task("walker2d", device=dev).model.solver
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "world.sdf")
+        with open(path, "w") as f:
+            f.write(scenes.SDF_PENDULUM_CRATE)
+        sdf = parse_sdf(path, device=dev).combined
+    return {"urdf_pendulum": parse_urdf(scenes.URDF_PENDULUM,
+                                        root_joint=sm.WELD, device=dev),
+            "urdf_box": parse_urdf(scenes.URDF_BOX, ground=True, solver=esc,
+                                   device=dev),
+            "sdf_world": sdf.replace(solver=esc)}
+
+
+def loader_states(name, model, B, dev):
+    """(q, dq, tau) of a loader world: the pendulum's elbow pushed past
+    its limit in three envs of four (its limit row live), the block and
+    the crate 1-3 mm into the ground at small random tilts, random
+    torques on the pendulums' joints."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    u = lambda *shape: torch.rand(shape, generator=gen, device=dev) * 2 - 1
+    q = model.q_init.expand(B, -1).clone()
+    dq = 0.2 * u(B, model.n)
+    tau = torch.zeros_like(q)
+    if name == "urdf_pendulum":
+        q[:, 0] = u(B)
+        past = torch.arange(B, device=dev) % 4 != 3
+        q[:, 1] = torch.where(past, torch.sign(u(B)) * (2.05 + 0.1 * u(B).abs()),
+                              1.5 * u(B))
+        tau = 5.0 * u(B, model.n)
+    elif name == "urdf_box":
+        q[:, :3] = 0.1 * u(B, 3)
+        q[:, 3], q[:, 5] = u(B), u(B)
+        q[:, 4] = 0.098 + 0.001 * u(B)
+    else:                          # the pendulum's 1 dof, then the crate's 6
+        q[:, 0] = u(B)
+        q[:, 1:4] = 0.02 * u(B, 3)
+        q[:, 5] = model.q_init[5] - 0.002 + 0.001 * u(B)
+        tau[:, 0] = 5.0 * u(B)
+    return q, dq, tau
+
+
+def check_loaders(dev):
+    """Phase loaders: each world of loader_worlds at B = 4096 through
+    engine/world.make_sim_step, LOADER_SUBSTEPS substeps with every
+    counter set to 0 just before and read just after (the route and the
+    kernels launched per substep); then, from the reached states, its
+    kernels against their plain versions (fused route: kernel 1 by
+    hold_substep, kernel 2's fused mode by check_escalate; phase-wise
+    route: kernels 3, 4 and 2's hybrid mode by check_phasewise_model) and
+    one substep in lockstep with the plain path composed here.  Then
+    DartEnv([the pendulum's .urdf]) for 20 control steps on the card.
+    Returns {world: (counts, {kernel: its check})}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dartenv_tpu_torch.bench import scenes
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+    from dartenv_tpu_torch.engine.constraints import build_layout
+    from dartenv_tpu_torch.engine.world import SimState, make_sim_step
+    from dartenv_tpu_torch.envs import DartEnv
+
+    out = {}
+    for name, model in loader_worlds(dev).items():
+        B = LOADER_B
+        q, dq, tau = loader_states(name, model, B, dev)
+        st = SimState(q=q, dq=dq, time=q.new_zeros(B),
+                      lam=q.new_zeros((B, build_layout(model).m)))
+        step = make_sim_step(model)
+        zero_counters()
+        for _ in range(LOADER_SUBSTEPS):
+            st, contacts = step(st, tau)
+        torch.cuda.synchronize()
+        counts, plain = read_counters(), sum(plain_counts())
+        fused = hs.in_fused_scope(model)
+        ins = (st.q, st.dq, tau, st.lam)
+        assert all(torch.isfinite(x).all() for x in ins)
+        emit("loader_route", world=name, B=B, n=model.n, m=build_layout(
+            model).m, route="fused" if fused else "phasewise",
+             substeps=LOADER_SUBSTEPS, plain_calls=plain,
+             launches_per_substep={k: v / LOADER_SUBSTEPS
+                                   for k, v in counts.items()},
+             active_contacts=float(contacts.active.sum()))
+        assert plain == 0
+        cfg = model.solver
+        escal = cfg.escalate_frac > 0
+        if fused:
+            want = dict.fromkeys(counts, 0)
+            want.update(substep=LOADER_SUBSTEPS)
+            if escal:
+                want.update(bpp_fused=LOADER_SUBSTEPS)
+            kern = hs.get_substep_kernel(model)
+            outs = kern(*ins)
+            checks = {"substep": hold_substep(name, model, kern, outs, ins,
+                                              None)}
+            if escal:
+                checks["bpp_fused"] = check_escalate(name, kern.st, cfg,
+                                                     outs)
+            tiers = (plain_tiers(kern.st.findex_c, cfg_budgets(cfg))
+                     if escal else ())
+            sk, _ = step(SimState(q=ins[0], dq=ins[1], time=q.new_zeros(B),
+                                  lam=ins[3]), tau)
+            sp = plain_substep(model, kern.st, tiers, *ins[:2], ins[3], tau)
+            rel = lambda x, y: ((x - y).abs() / y.abs().clamp(min=1.0)).max(
+                1).values
+            beyond = int(((rel(sk.q, sp[0]) > 1e-3)
+                          | (rel(sk.dq, sp[1]) > 1e-3)).sum())
+            may = BPP_MAY_DIVERGE * -(-B // 128)
+            emit("lockstep", env=name, B=B, substeps=1, envs_beyond_tol=beyond,
+                 tol=1e-3, tol_envs_beyond=may,
+                 dq_err_q99=float(rel(sk.dq, sp[1]).quantile(0.99)))
+            assert beyond <= may
+        else:
+            want = dict.fromkeys(counts, 0)
+            want.update(dynamics=LOADER_SUBSTEPS, pgs=LOADER_SUBSTEPS,
+                        bpp_hybrid=LOADER_SUBSTEPS if escal else 0)
+            states = ins + (None,)
+            checks = check_phasewise_model(name, model, states)
+            lockstep_model(name, model, states)
+        assert counts == want, (name, counts, want)
+        out[name] = (dict(counts, steps=LOADER_SUBSTEPS), checks)
+
+    # the gym surface on a .urdf: the reference signature, on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pendulum.urdf")
+        with open(path, "w") as f:
+            f.write(scenes.URDF_PENDULUM)
+        env = DartEnv([path], frame_skip=4, observation_size=16,
+                      action_bounds=np.array([[1.0], [-1.0]]), device=dev)
+    env.seed(0)
+    env.reset()
+    x0 = env.state_vector()
+    zero_counters()
+    for _ in range(20):
+        env.do_simulation(np.zeros(env.model.n), env.frame_skip)
+    counts = read_counters()
+    x1 = env.state_vector()
+    route = "fused" if hs.in_fused_scope(env.model) else "phasewise"
+    emit("loader_env", path="pendulum.urdf", n=env.model.n, route=route,
+         control_steps=20, **{f"{k}_launches": v for k, v in counts.items()},
+         finite=bool(np.isfinite(x1).all()),
+         moved=float(np.abs(x1 - x0).max()))
+    assert np.isfinite(x1).all() and np.abs(x1 - x0).max() > 0
+    assert counts["substep" if route == "fused" else "dynamics"] == 80
+    return out
+
+
+def check_golden(dev, checks):
+    """Phase golden: the C++ goldens (dartenv_tpu_torch.native, built with
+    g++ here) hold kernels 3 and 2.  Kernel 3's dq_star on GOLDEN_ENVS
+    walker2d and humanwalker rollout states: ddq = (dq_star - dq) / dt
+    against native.aba in float64 on the same float32 inputs, within
+    GOLDEN_ACC_TOL of max(1, |ddq|) per env.  Kernel 2's core mode (the
+    solver="dantzig" mode's budgets) on GOLDEN_ENVS captured walker2d
+    LCPs against native.lcp_solve, by normalized complementarity residual
+    (friction LCPs have several solutions, so not by impulses): every
+    golden point exact (below 1e-9), the kernel's below GOLDEN_RES_TOL on
+    all but BPP_MAY_DIVERGE envs."""
+    import numpy as np
+    import torch
+
+    from dartenv_tpu_torch import native
+    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+    from dartenv_tpu_torch.lcp.dantzig import make_exact_solver
+    from dartenv_tpu_torch.validation.residual import comp_residual
+
+    t0 = time.time()
+    native.build()
+    build_s = time.time() - t0
+    G = GOLDEN_ENVS
+    host = lambda x: x.detach().double().cpu().numpy()
+    acc = {}
+    for e in ("walker2d", "humanwalker"):
+        model = make_task(e, device=dev).model
+        q, dq, tau = (x[:G] for x in checks[e]["states"][:3])
+        dq_star = hd.get_dynamics_kernel(model)(q, dq, tau)[0]
+        m64 = model.to(device="cpu", dtype=torch.float64)
+        dt = float(model.dt)
+        qh, dqh, tauh, dsh = map(host, (q, dq, tau, dq_star))
+        errs = []
+        for i in range(G):
+            ref = native.aba(m64, qh[i], dqh[i], tauh[i], dt)
+            got = (dsh[i] - dqh[i]) / dt
+            errs.append(float(np.abs(got - ref).max()
+                              / max(1.0, np.abs(ref).max())))
+        acc[e] = max(errs)
+    model = make_task("walker2d", device=dev, lcp_solver="dantzig").model
+    q, dq, tau, lam_prev = (x[:G] for x in checks["walker2d"]["states"])
+    _, _, prob, lam0 = phasewise_lcp(model, q, dq, tau, lam_prev, None)
+    A, b, lo, hi, act, mu, findex, _, _ = prob
+    lam_k = host(make_exact_solver(findex)(A, b, lo, hi, mu, act, lam0))
+    res_k, res_g, bad_g = [], [], 0
+    for i in range(G):
+        a = host(act[i]) > 0.5
+        Ai, bi, mui = host(A[i]), host(b[i]), host(mu[i])
+        loi, hii = np.where(a, host(lo[i]), 0.0), np.where(a, host(hi[i]),
+                                                            0.0)
+        x, _, bad = native.lcp_solve(Ai, bi, loi, hii, findex, mui)
+        bad_g += bad
+        r = lambda z: (comp_residual(Ai, bi, z, loi, hii, findex, mui,
+                                     a.astype(np.float64))
+                       / max(1.0, float(np.abs(z).max())))
+        res_g.append(r(x))
+        res_k.append(r(lam_k[i]))
+    res_k, res_g = np.asarray(res_k), np.asarray(res_g)
+    emit("golden", build_s=build_s, envs=G,
+         kernel3_ddq_rel_err=acc, tol_ddq=GOLDEN_ACC_TOL,
+         lcp_m=int(b.shape[1]), lcp_active_rows=float(act.sum()),
+         kernel2_core_res_median_p95_max=[
+             float(np.median(res_k)), float(np.quantile(res_k, 0.95)),
+             float(res_k.max())],
+         golden_res_max=float(res_g.max()), golden_violations=bad_g,
+         kernel2_envs_above_tol=int((res_k > GOLDEN_RES_TOL).sum()),
+         tol_res=GOLDEN_RES_TOL, tol_envs_above=BPP_MAY_DIVERGE)
+    assert all(v <= GOLDEN_ACC_TOL for v in acc.values()), acc
+    assert bad_g == 0 and res_g.max() <= 1e-9
+    assert float(act.sum()) > G, "constraint rows are not live"
+    assert int((res_k > GOLDEN_RES_TOL).sum()) <= BPP_MAY_DIVERGE
+
+
 def main():
     import torch
 
@@ -2952,10 +3304,27 @@ def main():
            for m in sim_models.values()]
         + [(st64.m_c, st64.escalation_header),
            (st64.m_c, hb.header(st64.m_c, 0, REF64))]))
+    # PR 10's phases: the loaders' worlds (kernel 1 and kernel 2's fused
+    # mode on the fused route, kernel 3 and kernel 2's hybrid mode on the
+    # phase-wise one) and kernel 3 on humanwalker (phase golden)
+    loaders = loader_worlds(dev)
+    fused_loaders = [hs.get_substep_kernel(m) for m in loaders.values()
+                     if hs.in_fused_scope(m)]
+    phasewise_loaders = [m for m in loaders.values()
+                         if not hs.in_fused_scope(m)]
+    bpp_keys += [(k.st.m_c, k.st.escalation_header) for k in fused_loaders
+                 if k.st.cfg.escalate_frac > 0]
+    bpp_keys += [(solver_rows(m), hb.header(solver_rows(m),
+                                            m.solver.escalate_ref,
+                                            m.solver.escalate_ref64))
+                 for m in phasewise_loaders]
+    bpp_keys = list(dict.fromkeys(bpp_keys))
     gkern = global_tables_kernel(sim_models["multiskel"])
     new_dkerns = [gkern] + list({id(k): k for k in (
         [hd.get_dynamics_kernel(m) for m in sim_models.values()]
-        + [hd.get_dynamics_kernel(m) for m in matrix_models.values()])
+        + [hd.get_dynamics_kernel(m) for m in matrix_models.values()]
+        + [hd.get_dynamics_kernel(m) for m in phasewise_loaders]
+        + [hd.get_dynamics_kernel(kerns["humanwalker"].model)])
         if k not in dkerns.values()}.values())
     builds = ([hb.start_build(m, h) for m, h in bpp_keys]
               + [hp.start_build()]
@@ -2964,13 +3333,14 @@ def main():
               + [k.start_build() for k in dkerns.values()]
               + [k.start_build() for k in dr_kerns.values()]
               + [k.start_build() for k in dr_dkerns.values()]
-              + [k.start_build() for k in new_dkerns])
+              + [k.start_build() for k in new_dkerns]
+              + [k.start_build() for k in fused_loaders])
     for (m, h), bld in zip(bpp_keys, builds):
         hb.load(m, bld, h)
     hp.load(builds[len(bpp_keys)])
     for k in (list(kerns.values()) + sunk_kerns + list(dkerns.values())
               + list(dr_kerns.values()) + list(dr_dkerns.values())
-              + new_dkerns):
+              + new_dkerns + fused_loaders):
         k.load()
     ptxas = {bld.tag + "/" + bld.so_path.split("/")[-2][-6:]:
              [ln.strip() for ln in cuda_build.build_log(bld).splitlines()
@@ -3100,6 +3470,11 @@ def main():
     for e in residual.HARNESS_TORQUE:
         harness_envelope(e, dev, envelopes[e])
 
+    # ---- 13. the learner, the loaders, the golden engines ---------------
+    learn_counts = check_learn(dev, smi)
+    loader_runs = check_loaders(dev)
+    check_golden(dev, checks)
+
     # ---- 11. the kernels line -------------------------------------------
     sources = {
         "substep": ("fused_substep", "dartenv_tpu_torch/csrc/substep.cu",
@@ -3159,6 +3534,12 @@ def main():
     rows += [("walker2d_resume", resume_counts, key, checks["walker2d"][ph])
              for key, ph in (("substep", "substep"),
                              ("bpp_fused", "escalate"))]
+    # PR 10's paths: the learner's rollout, the loaders' worlds
+    rows += [("walker2d_learn", learn_counts, key, checks["walker2d"][ph])
+             for key, ph in (("substep", "substep"),
+                             ("bpp_fused", "escalate"))]
+    rows += [(w, cnt, key, c) for w, (cnt, ents) in loader_runs.items()
+             for key, c in ents.items()]
     kernels = []
     for label, n, key, c in rows:
         kname, src, repl = sources[key]

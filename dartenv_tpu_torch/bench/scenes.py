@@ -166,3 +166,116 @@ def servo_walker(device="cuda", dtype=None, flimit: float = 50.0):
     fl = torch.zeros_like(model.q_init)
     fl[3:] = flimit
     return model.replace(servo_flimit=fl)
+
+
+# The loaders' worlds: the JAX package's tests/test_urdf.py double pendulum
+# (a welded base, a continuous shoulder, a limited elbow) and its floating
+# block (a cylinder, loaded as a capsule), and tests/test_sdf.py's world (a
+# static ground box, a welded pendulum, a free crate resting on the ground).
+URDF_PENDULUM = """
+<robot name="double_pendulum">
+  <link name="base">
+    <inertial><mass value="1.0"/>
+      <inertia ixx="0.01" iyy="0.01" izz="0.01" ixy="0" ixz="0" iyz="0"/>
+    </inertial>
+  </link>
+  <link name="upper">
+    <inertial><origin xyz="0 -0.5 0"/><mass value="2.0"/>
+      <inertia ixx="0.1" iyy="0.01" izz="0.1" ixy="0" ixz="0" iyz="0"/>
+    </inertial>
+    <collision><origin xyz="0 -0.5 0"/>
+      <geometry><sphere radius="0.05"/></geometry>
+    </collision>
+  </link>
+  <link name="lower">
+    <inertial><origin xyz="0 -0.4 0"/><mass value="1.0"/>
+      <inertia ixx="0.05" iyy="0.01" izz="0.05" ixy="0" ixz="0" iyz="0"/>
+    </inertial>
+  </link>
+  <joint name="shoulder" type="continuous">
+    <origin xyz="0 2.0 0"/>
+    <parent link="base"/><child link="upper"/>
+    <axis xyz="0 0 1"/>
+    <dynamics damping="0.1"/>
+  </joint>
+  <joint name="elbow" type="revolute">
+    <origin xyz="0 -1.0 0"/>
+    <parent link="upper"/><child link="lower"/>
+    <axis xyz="0 0 1"/>
+    <limit lower="-2.0" upper="2.0" effort="10" velocity="5"/>
+  </joint>
+</robot>
+"""
+
+URDF_BOX = """
+<robot name="block">
+  <link name="body">
+    <inertial><mass value="3.0"/>
+      <inertia ixx="0.1" iyy="0.1" izz="0.1" ixy="0" ixz="0" iyz="0"/>
+    </inertial>
+    <collision><geometry><cylinder radius="0.1" length="0.6"/></geometry>
+    </collision>
+  </link>
+</robot>
+"""
+
+SDF_PENDULUM_CRATE = """<?xml version="1.0" ?>
+<sdf version="1.6">
+  <world name="default">
+    <physics><max_step_size>0.002</max_step_size>
+      <gravity>0 -9.81 0</gravity></physics>
+    <model name="ground_plane">
+      <static>true</static>
+      <link name="ground">
+        <pose>0 -0.05 0 0 0 0</pose>
+        <collision name="c">
+          <geometry><box><size>10 0.1 10</size></box></geometry>
+          <surface><friction><ode><mu>0.9</mu></ode></friction></surface>
+        </collision>
+      </link>
+    </model>
+    <model name="pendulum">
+      <link name="base">
+        <pose>0 1.0 0 0 0 0</pose>
+        <inertial><mass>2.0</mass>
+          <inertia><ixx>0.02</ixx><iyy>0.02</iyy><izz>0.02</izz></inertia>
+        </inertial>
+        <collision name="c">
+          <geometry><sphere><radius>0.05</radius></sphere></geometry>
+        </collision>
+      </link>
+      <link name="bob">
+        <pose>0 0.6 0 0 0 0</pose>
+        <inertial><mass>1.0</mass>
+          <inertia><ixx>0.01</ixx><iyy>0.01</iyy><izz>0.01</izz></inertia>
+        </inertial>
+        <collision name="c">
+          <geometry><sphere><radius>0.08</radius></sphere></geometry>
+        </collision>
+      </link>
+      <joint name="anchor" type="fixed">
+        <parent>world</parent><child>base</child>
+      </joint>
+      <joint name="swing" type="revolute">
+        <pose>0 0.4 0 0 0 0</pose>
+        <parent>base</parent><child>bob</child>
+        <axis><xyz>0 0 1</xyz>
+          <limit><lower>-2.5</lower><upper>2.5</upper></limit>
+          <dynamics><damping>0.05</damping></dynamics>
+        </axis>
+      </joint>
+    </model>
+    <model name="crate">
+      <link name="box">
+        <pose>0.6 0.101 0 0 0 0</pose>
+        <inertial><mass>0.5</mass>
+          <inertia><ixx>0.003</ixx><iyy>0.003</iyy><izz>0.003</izz></inertia>
+        </inertial>
+        <collision name="c">
+          <geometry><box><size>0.2 0.2 0.2</size></box></geometry>
+        </collision>
+      </link>
+    </model>
+  </world>
+</sdf>
+"""

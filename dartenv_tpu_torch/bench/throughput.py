@@ -71,15 +71,22 @@ def bench_env(name: str = "walker2d", batch: int = 4096,
               horizon: int = 100, iters: int = 5,
               max_episode_steps: int = 1000, device="cuda", seed: int = 0,
               return_state: bool = False, perturb: bool = False,
-              solver=None, escalate_ref64=None):
+              solver=None, escalate_ref64=None, group=None):
     """Returns a dict with env-steps/s and timing detail of `iters`
     rollouts of `horizon` control steps after one warm-up rollout (which
     also builds the kernels); with iters=0 the rate is the warm-up's.
     `perturb` turns on the task's random perturbation pushes; `solver`
     ("pgs" or "dantzig", None: the task's own) picks the LCP solver;
     `escalate_ref64` (None: the task's own) sets the passes of the
-    escalation's mixed-precision refinement tier."""
+    escalation's mixed-precision refinement tier.  With a process `group`
+    (parallel/sharding.py) the batch is split over its ranks, each
+    stepping its slice on its own device, and the episode totals are
+    summed over the group; `devices` is the group's size and
+    `env_steps_per_s_per_chip` the rate over it."""
     from dartenv_tpu_torch.parallel.rollout import make_rollout
+    from dartenv_tpu_torch.parallel.sharding import (
+        group_shape, make_sharded_rollout, sharded_reset,
+    )
     from dartenv_tpu_torch.parallel.vec_env import VecEnv
 
     device = torch.device(device)
@@ -104,9 +111,15 @@ def bench_env(name: str = "walker2d", batch: int = 4096,
             track["env_share"] = track["env_share"] + share.sum()
             track["substeps"] += share.shape[0]
 
-    rollout = make_rollout(vec, random_policy(task), horizon,
-                           step_hook=track_step)
-    state, _ = vec.reset()
+    n_dev, _ = group_shape(group)
+    if group is None:
+        rollout = make_rollout(vec, random_policy(task), horizon,
+                               step_hook=track_step)
+        state, _ = vec.reset()
+    else:
+        rollout = make_sharded_rollout(vec, random_policy(task), horizon,
+                                       group, step_hook=track_step)
+        state, _ = sharded_reset(vec, group)
 
     t0 = time.perf_counter()
     state, stats = rollout(None, state, gen)
@@ -131,7 +144,9 @@ def bench_env(name: str = "walker2d", batch: int = 4096,
         "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
+        "devices": n_dev,
         "env_steps_per_s": steps / best,
+        "env_steps_per_s_per_chip": steps / best / n_dev,
         "substeps_per_s": steps * task.frame_skip / best,
         "warmup_s": warmup_s,
         "iter_times_s": times,

@@ -16,6 +16,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from dartenv_tpu_torch.dynamics.joints import type_S_rows
 from dartenv_tpu_torch.math import spatial as sp
 from dartenv_tpu_torch.math.linalg import solve_psd
 from dartenv_tpu_torch.model.skel_model import (
@@ -58,15 +59,11 @@ def _rod(axes, angles):
     return sp.so3_exp(axes * angles[..., None])
 
 
-def _scross(a, v):
-    """a (g, 3) x v (B, g, 3), broadcast."""
-    return sp.cross(a.expand(v.shape), v)
-
-
 def joint_S(model: SkelModel, q, dq=None):
     """S rows (B, n, 6) in the JOINT frame.  With dq given, also the exact
     time derivative Sdot (B, n, 6) (zero for constant-S joints); returns
-    S alone otherwise."""
+    S alone otherwise.  Joints are taken a type group at a time
+    (joints.type_S_rows)."""
     idx = get_index(model)
     B, n = q.shape[0], model.n
     S = q.new_zeros((B, n, 6))
@@ -75,65 +72,14 @@ def joint_S(model: SkelModel, q, dq=None):
     for t, joints in idx.groups.items():
         if len(joints) == 0 or t == WELD:
             continue
-        ax = model.axes[joints]               # (g, 3, 3)
         qs = idx.q_start[joints]
-        g = len(joints)
-        z = q.new_zeros((B, g, 3))
-        bc = lambda a: a.expand(B, g, 3)
-        if t == REVOLUTE:
-            S[:, qs] = torch.cat([bc(ax[:, 0]), z], dim=-1)
-        elif t == PRISMATIC:
-            S[:, qs] = torch.cat([z, bc(ax[:, 0])], dim=-1)
-        elif t == SCREW:
-            S[:, qs] = torch.cat([bc(ax[:, 0]), bc(ax[:, 1])], dim=-1)
-        elif t == UNIVERSAL:
-            R2t = _rod(ax[:, 1], q[:, qs + 1]).transpose(-1, -2)
-            s1 = _mv(R2t, ax[:, 0])
-            S[:, qs] = torch.cat([s1, z], dim=-1)
-            S[:, qs + 1] = torch.cat([bc(ax[:, 1]), z], dim=-1)
+        rows, drows = type_S_rows(
+            t, model.axes[joints], lambda k: q[:, qs + k],
+            None if dq is None else (lambda k: dq[:, qs + k]))
+        for k, r in enumerate(rows):
+            S[:, qs + k] = r
             if Sd is not None:
-                # d/dt (R2^T a0) = -q1dot * (a1 x R2^T a0)
-                d1 = -dq[:, qs + 1, None] * _scross(ax[:, 1], s1)
-                Sd[:, qs] = torch.cat([d1, z], dim=-1)
-        elif t == EULER:
-            R2t = _rod(ax[:, 1], q[:, qs + 1]).transpose(-1, -2)
-            R3t = _rod(ax[:, 2], q[:, qs + 2]).transpose(-1, -2)
-            gv = _mv(R2t, ax[:, 0])
-            s1 = _mv(R3t, gv)
-            s2 = _mv(R3t, ax[:, 1])
-            S[:, qs] = torch.cat([s1, z], dim=-1)
-            S[:, qs + 1] = torch.cat([s2, z], dim=-1)
-            S[:, qs + 2] = torch.cat([bc(ax[:, 2]), z], dim=-1)
-            if Sd is not None:
-                q1d = dq[:, qs + 1, None]
-                q2d = dq[:, qs + 2, None]
-                gd = -q1d * _scross(ax[:, 1], gv)
-                d1 = _mv(R3t, gd) - q2d * _scross(ax[:, 2], s1)
-                d2 = -q2d * _scross(ax[:, 2], s2)
-                Sd[:, qs] = torch.cat([d1, z], dim=-1)
-                Sd[:, qs + 1] = torch.cat([d2, z], dim=-1)
-        elif t == PLANAR:
-            Rt = _rod(ax[:, 2], q[:, qs + 2]).transpose(-1, -2)
-            r0 = _mv(Rt, ax[:, 0])
-            r1 = _mv(Rt, ax[:, 1])
-            S[:, qs] = torch.cat([z, r0], dim=-1)
-            S[:, qs + 1] = torch.cat([z, r1], dim=-1)
-            S[:, qs + 2] = torch.cat([bc(ax[:, 2]), z], dim=-1)
-            if Sd is not None:
-                thd = dq[:, qs + 2, None]
-                Sd[:, qs] = torch.cat(
-                    [z, -thd * _scross(ax[:, 2], r0)], dim=-1)
-                Sd[:, qs + 1] = torch.cat(
-                    [z, -thd * _scross(ax[:, 2], r1)], dim=-1)
-        elif t in (BALL, TRANSLATIONAL):
-            off = 0 if t == BALL else 3
-            for k in range(3):
-                S[:, qs + k, off + k] = 1.0
-        elif t == FREE:
-            for k in range(6):
-                S[:, qs + k, k] = 1.0
-        else:
-            raise NotImplementedError(t)
+                Sd[:, qs + k] = drows[k]
     return S if dq is None else (S, Sd)
 
 

@@ -376,17 +376,20 @@ class DartEnv(core.Env):
     def _task_from_model_paths(model_paths, frame_skip, observation_size,
                                action_bounds, dt, device="cuda",
                                dtype=torch.float32):
-        """Reference-signature construction: parse the .skel file(s) and
-        keep every mobile skeleton (the reference's World::step steps them
-        all; `robot_skeleton = world.skeletons[-1]`).  Several skeletons
-        compose into one block-diagonal model (model/compose.py) with
+        """Reference-signature construction: parse the .skel, .urdf or
+        .sdf file(s) and keep every mobile skeleton (the reference's
+        World::step steps them all; `robot_skeleton = world.skeletons[-1]`,
+        the last skeleton of the last file).  Several skeletons compose
+        into one block-diagonal model (model/compose.py) with
         cross-skeleton contact pairs."""
         import os
 
         from dartenv_tpu_torch.model.compose import compose_models
+        from dartenv_tpu_torch.model.sdf_loader import parse_sdf
         from dartenv_tpu_torch.model.skel_parser import (
             asset_path, parse_skel,
         )
+        from dartenv_tpu_torch.model.urdf_loader import parse_urdf
 
         if frame_skip is None or observation_size is None \
                 or action_bounds is None:
@@ -397,14 +400,17 @@ class DartEnv(core.Env):
             list(model_paths)
         models = []
         for p in paths:
-            if p.endswith((".urdf", ".sdf")):
-                raise NotImplementedError(
-                    f"DartEnv(model_paths): {p}: the URDF and SDF loaders "
-                    "are not ported yet (ROADMAP.md Queue 1 item 14); "
-                    "only .skel files load")
             full = p if os.path.exists(p) else asset_path(p)
-            models.extend(parse_skel(full, dtype=dtype,
-                                     device=device).skeletons)
+            if not os.path.exists(full):
+                raise FileNotFoundError(f"DartEnv(model_paths): {p}")
+            if full.endswith(".urdf"):
+                models.append(parse_urdf(full, dtype=dtype, device=device))
+            elif full.endswith(".sdf"):
+                models.extend(parse_sdf(full, dtype=dtype,
+                                        device=device).skeletons)
+            else:
+                models.extend(parse_skel(full, dtype=dtype,
+                                         device=device).skeletons)
         # the constructor's dt overrides the files' <physics> dt (the
         # reference's `pydart.World(dt, path)`), on every model so the
         # composition's shared time step holds

@@ -10,13 +10,21 @@ rollout is bit-identical.
 Format: one .npz of the leaves and a treedef JSON beside it.  Leaves are
 tensors, numpy arrays, Python scalars and torch.Generators (saved as their
 `get_state()` bytes); None, dataclasses, dicts (keys sorted), tuples and
-lists are structure.  The multi-host backend of the JAX package (orbax) is
-not ported.
+lists are structure.
+
+The multi-process backend (`save_sharded` / `load_sharded`, the
+counterparts of the JAX package's `save_orbax` / `load_orbax`) writes the
+trees of all ranks of a process group into one directory through
+torch.distributed.checkpoint, each rank's leaves under its own keys: DCP
+keeps one copy of a tensor that every rank saves under the same key (it
+takes it for replicated), so shared keys would hand every rank rank 0's
+envs on restore.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Any, List
 
 import numpy as np
@@ -125,4 +133,66 @@ def load_pytree(path: str, like: Any) -> Any:
             out.append(arr.astype(ref.dtype))
         else:
             out.append(type(ref)(arr))
+    return _unflatten(like, iter(out))
+
+
+def _rank_keys(tree, rank: int):
+    """({rank-qualified key: CPU tensor}, leaves) of a tree: generators as
+    their state bytes, scalars and numpy leaves as tensors."""
+    leaves: List[Any] = []
+    _flatten(tree, leaves)
+    sd = {}
+    for i, x in enumerate(leaves):
+        if isinstance(x, torch.Generator):
+            x = x.get_state()
+        elif not torch.is_tensor(x):
+            x = torch.as_tensor(np.asarray(x))
+        sd[f"rank{rank}/leaf_{i}"] = x.detach().to("cpu", copy=True)
+    return sd, leaves
+
+
+def save_sharded(directory: str, tree: Any, group=None, step: int = 0
+                 ) -> None:
+    """Write every rank's `tree` (this rank's env slice, generators and
+    the replicated params alike) to directory/step_<step> with
+    torch.distributed.checkpoint, collectively over `group` (None: the
+    default group).  The counterpart of the JAX package's `save_orbax`;
+    restore with `load_sharded` on the same number of ranks."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    rank = dist.get_rank(group)
+    sd, _ = _rank_keys(tree, rank)
+    dcp.save(sd, checkpoint_id=os.path.join(os.path.abspath(directory),
+                                            f"step_{step}"),
+             process_group=group)
+
+
+def load_sharded(directory: str, like: Any, group=None, step: int = 0
+                 ) -> Any:
+    """Restore this rank's tree written by `save_sharded` into the
+    structure of `like` (each leaf takes `like`'s dtype and device; a
+    generator of `like` has its state set).  Raises if the checkpoint
+    holds no leaf of this rank's, or a leaf of another shape.  The
+    counterpart of the JAX package's `load_orbax`."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    rank = dist.get_rank(group)
+    sd, refs = _rank_keys(like, rank)
+    dcp.load(sd, checkpoint_id=os.path.join(os.path.abspath(directory),
+                                            f"step_{step}"),
+             process_group=group)
+    out = []
+    for i, ref in enumerate(refs):
+        arr = sd[f"rank{rank}/leaf_{i}"]
+        if isinstance(ref, torch.Generator):
+            ref.set_state(arr)
+            out.append(ref)
+        elif torch.is_tensor(ref):
+            out.append(arr.to(device=ref.device, dtype=ref.dtype))
+        elif isinstance(ref, (np.ndarray, np.generic)):
+            out.append(arr.numpy().astype(ref.dtype))
+        else:
+            out.append(type(ref)(arr.item()))
     return _unflatten(like, iter(out))

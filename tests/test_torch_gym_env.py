@@ -1,7 +1,7 @@
 """PyTorch port, the single-env `DartEnv` against the JAX package's, on the
 CPU in float64: seeded resets and 20 seeded steps of hopper, cartpole and
 reacher; the reference-signature construction (custom env subclasses, a
-composed two-skeleton world, a refused .urdf); image observations."""
+composed two-skeleton world, a missing model file); image observations."""
 import time
 
 import jax.numpy as jnp
@@ -135,8 +135,11 @@ def test_custom_env_reference_signature():
 
 
 def test_custom_env_urdf_and_sdf_raise():
-    for path in ("robot.urdf", "world.sdf"):
-        with pytest.raises(NotImplementedError, match="item 14"):
+    """.urdf and .sdf paths load (tests/test_torch_loaders.py); a path
+    that is neither a file nor an asset raises, as does the reference
+    signature without its sizes."""
+    for path in ("robot.urdf", "world.sdf", "robot.skel"):
+        with pytest.raises(FileNotFoundError, match=path):
             DartEnv(path, 4, 11, np.array([[1.0], [-1.0]]), device="cpu")
     with pytest.raises(gym.error.Error):
         DartEnv("hopper_capsule.skel", device="cpu")

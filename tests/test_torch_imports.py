@@ -19,7 +19,10 @@ PKG = os.path.join(ROOT, "dartenv_tpu_torch")
 
 
 def _port_sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    # the port, chip_smoke.py and the child-process script of the port's
+    # multi-process tests (it runs the port alone)
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "torch_dist_child.py")]
     for d, _dirs, names in os.walk(PKG):
         files += [os.path.join(d, f) for f in names if f.endswith(".py")]
     return sorted(files)
@@ -54,7 +57,10 @@ def test_port_sources_exist():
               "model/assets/doublependulum.skel",
               "dynamics/hopper_dynamics.py", "lcp/hopper_pgs.py",
               "envs/cart_pole.py", "envs/double_pendulum.py",
-              "parallel/domain_rand.py"):
+              "parallel/domain_rand.py", "parallel/train.py",
+              "parallel/sharding.py", "model/urdf_loader.py",
+              "model/sdf_loader.py", "native/__init__.py",
+              "model/assets/gen_humanwalker.py"):
         assert os.path.exists(os.path.join(PKG, f)), f
 
 
