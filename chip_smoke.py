@@ -49,9 +49,10 @@ float32:
     100 and perturbed humanwalker at B = 1024 for 15 (the first rollout of
     each path is bench_env's warm-up);
   * per escalating contact model, the residual envelope after the
-    escalation (median,
-    p95, max over the substeps of a kernel-path rollout) beside the JAX
-    harness's bounds (a finding; it does not gate);
+    escalation (median, p95, max over the substeps of a kernel-path
+    rollout, through escalate_batch's with_diag hook) beside the JAX
+    harness's bounds (a finding; it does not gate), the first substep's
+    record held against the plain route's;
   * domain randomization (phase dr): the substep kernel built with per-env
     DR leaves (walker2d with the throughput bench's spec and with all
     twelve leaves, walker3d and humanwalker with the spec) and the
@@ -65,8 +66,14 @@ float32:
     mode on the walker2d DR substep's outputs; one walker2d DR control
     step in lockstep with a plain path; then bench_dr for walker2d
     (B = 4096, the DR substep kernel and the fused escalation on every
-    substep) and cartpole (B = 8192, the DR dynamics kernel), counters
-    zeroed just before each (phase dr_path);
+    substep), walker3d (B = 4096, the same on a 3D model; at most
+    DR_RUNAWAY_MAX of its envs may run away under the bench's fixed
+    torques) and cartpole (B = 8192, the DR dynamics kernel), counters
+    zeroed just before each (phase dr_path); walker2d with per-env joint axes and offsets, limits,
+    ground height and mass (walker2d_frames, B = 4096, 40 substeps: no
+    kernel takes frame leaves, so the plain batched dynamics, then the
+    PGS kernel and the BPP kernel's hybrid mode on every substep; 256 of
+    its envs held for 4 substeps against the float64 CPU step);
   * the multi-skeleton world (walker2d.skel composed with a free box:
     n 15, nb 8, 36 solver rows) and the servo walker (servo rows on its 6
     actuated dofs, 30 rows) at B = 4096: the dynamics kernel (against its
@@ -115,7 +122,13 @@ float32:
     DartEnv([a .urdf]) for 20 control steps; the C++ golden engines
     (phase golden): the dynamics kernel's accelerations on walker2d and
     humanwalker states against native.aba, the BPP kernel's core mode on
-    captured walker2d LCPs against native.lcp_solve by residual.
+    captured walker2d LCPs against native.lcp_solve by residual;
+  * the bench CLI (phase bench_cli): bench/throughput.main --all at
+    horizon 10 (five metric lines with the card), a walker2d run with
+    --cold --pgs_iters 12 --escalate_kmax 256 at B = 8192 (its kernels
+    against their plain versions first; then the substep kernel and the
+    fused mode once per substep, K = 256), and bench_env's profile_dir
+    (the substep_fused range with both kernels' launches inside it).
 
 Each phase prints one JSON line; any failing phase raises, and without a
 GPU the script exits non-zero before printing a result.  The last line is
@@ -125,7 +138,6 @@ import dataclasses
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -827,45 +839,95 @@ def check_env(name, B, dev):
     return out
 
 
+def check_envelope_diag(name, sub, model, q, dq, lam, tau):
+    """Phase envelope, the hook: on one substep's outputs, the escalation
+    through escalate_batch(with_diag=True) on the kernel route (the BPP
+    kernel's fused mode) against the plain route's record (escalate_
+    reference with the plain BPP, the same escalation_diag): idx equal,
+    every env outside the top K equal to the bit, and the envelope equal
+    (within 1e-5 of max(1, |plain|)) on every escalated env whose patched
+    rows agree; at most BPP_MAY_DIVERGE envs part."""
+    import torch
+
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+    from dartenv_tpu_torch.lcp import hopper_bpp as hb
+
+    st, cfg = sub.st, model.solver
+    kern = hs.get_substep_kernel(model, st)
+    outs = kern(q, dq, tau, lam)
+    dqp0, lamf0 = outs["dq_plus"], outs["lam_full"]
+    launches = hb.FUSED_LAUNCHES
+    dqp_k, lamf_k, diag_k = hs.escalate_batch(
+        st, cfg, outs, dqp0, lamf0, *hs.escalation_tiers(st, cfg),
+        with_diag=True)
+    assert hb.FUSED_LAUNCHES - launches == 1       # the kernel route
+    ref = hs.escalate_reference(st, cfg, outs, dqp0, lamf0,
+                                *plain_tiers(st.findex_c, cfg_budgets(cfg)))
+    diag_r = hs.escalation_diag(outs, *ref[2:])
+    idx = diag_k["idx"]
+    assert torch.equal(idx, diag_r["idx"]), name
+    rows = lambda d, l: torch.cat([d[idx], l[idx]], dim=1)
+    rows_k, rows_r = rows(dqp_k, lamf_k), rows(ref[0], ref[1])
+    same = ((rows_k - rows_r).abs().max(1).values
+            / rows_r.abs().max(1).values.clamp(min=1.0)) <= 1e-5
+    env_k, env_r = diag_k["envelope"], diag_r["envelope"]
+    rest = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+    rest[idx] = False
+    err = ((env_k[idx] - env_r[idx]).abs()
+           / env_r[idx].abs().clamp(min=1.0))[same]
+    line = dict(K=int(idx.shape[0]), envs_same=int(same.sum()),
+                envelope_rel_err_same=float(err.max()) if err.numel()
+                else 0.0,
+                envelope_bitwise_same=bool(torch.equal(env_k[idx][same],
+                                                       env_r[idx][same])),
+                others_bit_equal=bool(torch.equal(env_k[rest],
+                                                  env_r[rest])),
+                res_pre_equal=bool(torch.equal(diag_k["res_pre"],
+                                               diag_r["res_pre"])))
+    assert line["others_bit_equal"] and line["res_pre_equal"], (name, line)
+    assert line["envs_same"] >= line["K"] - BPP_MAY_DIVERGE, (name, line)
+    assert line["envelope_rel_err_same"] <= 1e-5, (name, line)
+    return line
+
+
 def residual_envelope(name, dev, states, control_steps=25):
     """Phase envelope: the escalation's effect on the residuals along a
     kernel-path rollout of one contact model, as the JAX harness measures
-    it (scripts/residual_envelope.py of the JAX package): per substep,
-    every env's substep-kernel residual with the escalated envs' replaced
-    by their kept point's.  From the check's states, random actions,
-    control_steps control steps.  Printed beside the JAX harness's bounds,
-    which were measured on a TPU: a finding, not a gate."""
+    it (scripts/residual_envelope.py of the JAX package; the port's
+    scripts/torch_residual_envelope.py): per substep, escalate_batch's
+    with_diag record (validation/residual.make_envelope_substep), every
+    env's substep-kernel residual with the escalated envs' replaced by
+    their kept point's.  From the check's states, random actions,
+    control_steps control steps; the first substep's record is held
+    against the plain route's (check_envelope_diag).  Printed beside the
+    JAX harness's bounds, which were measured on a TPU: a finding, not a
+    gate."""
     import torch
 
     from dartenv_tpu_torch.bench.throughput import make_task
-    from dartenv_tpu_torch.dynamics.batched import integrate_positions
-    from dartenv_tpu_torch.engine import hopper_substep as hs
     from dartenv_tpu_torch.validation import residual
 
     task = make_task(name, device=dev)
-    model, cfg = task.model, task.model.solver
-    kern = hs.get_substep_kernel(model)
-    st = kern.st
-    budgets = cfg_budgets(cfg)
+    model = task.model
+    sub = residual.make_envelope_substep(model)
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     hi_a = torch.as_tensor(task.control_bounds[0], device=dev,
                            dtype=torch.float32)
     q, dq, _, lam = (x.clone() for x in states)
     B = q.shape[0]
-    env, pre = [], []
+    env, pre, hook = [], [], None
     for _ in range(control_steps):
         a = (torch.rand((B, task.action_size), generator=gen, device=dev)
              * 2 - 1) * hi_a
         tau = task.action_to_tau(a, ())
         for _ in range(task.frame_skip):
-            outs = kern(q, dq, tau, lam)
-            dq, lam, idx, _, kept = hs.escalate_fused(
-                st, cfg, outs, outs["dq_plus"], outs["lam_full"], budgets)
-            res = outs["res"][:, 0]
-            pre.append(res)
-            env.append(res.index_copy(0, idx, kept))
-            q = integrate_positions(model, q, dq, st.dt)
+            if hook is None:
+                hook = check_envelope_diag(name, sub, model, q, dq, lam,
+                                           tau)
+            q, dq, lam, diag = sub(q, dq, lam, tau)
+            pre.append(diag["res_pre"])
+            env.append(diag["envelope"])
     env, pre = torch.cat(env), torch.cat(pre)
     finite = bool(torch.isfinite(q).all() and torch.isfinite(dq).all())
     pct = lambda x: [float(x.median()), float(x.quantile(0.95)),
@@ -876,7 +938,7 @@ def residual_envelope(name, dev, states, control_steps=25):
          median_p95_max=got, before_escalation=pct(pre),
          jax_bounds_tpu=list(bounds),
          within_jax_bounds=[g <= b for g, b in zip(got, bounds)],
-         finite_state=finite)
+         finite_state=finite, hook_vs_plain=hook)
     assert finite
     return got
 
@@ -1343,6 +1405,7 @@ def check_core_batch(name, dev, states):
     per_sm = lib.bpp_core_blocks_per_sm()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     solved = lambda r: int((r < 1e-4).sum())
+    bb, bf = bpp_work(m, B, 24, 8, 10)
     emit("bpp_batch", env=name, solver="dantzig", B=B, m=m,
          active_rows=float(act.sum()), envs_same=n_same,
          envs_parted=B - n_same, lam_abs_err_same=err,
@@ -1354,14 +1417,14 @@ def check_core_batch(name, dev, states):
          solved_kernel=solved(r_k), solved_plain=solved(r_r),
          solved_warm_start=solved(r_w), blocks_per_sm=per_sm, sms=sms,
          waves=B / (per_sm * sms), ms=ms, device_ms=dev_ms,
-         plain_ms=plain_ms, tol_lam=1e-5, tol_res_diff=1e-5,
+         plain_ms=plain_ms, bound_ms=bound(bb, bf)[0],
+         bound_by=bound(bb, bf)[1], tol_lam=1e-5, tol_res_diff=1e-5,
          tol_envs_parted=allowed)
     assert torch.isfinite(lam_k).all()
     assert float(act.sum()) > B, "constraint rows are not live"
     assert B - n_same <= allowed, (name, B - n_same, allowed)
     assert err <= 1e-5 and res_diff <= 1e-5
     assert solved_as_plain(B, solved(r_k), solved(r_r), n_same)
-    bb, bf = bpp_work(m, B, 24, 8, 10)
     return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                 bound=bound(bb, bf),
                 shape=f"{name} B={B} m={m} core iters=24+8 polish=10")
@@ -1377,7 +1440,24 @@ DR_SUBSTEP = {("walker2d", "spec"): 4096, ("walker2d", "all"): 4096,
 DR_DYNAMICS = {("cartpole", "all"): 8192, ("cartpole", "spec"): 8192,
                ("walker2d", "mass_damping"): 4096}
 # bench_dr paths: env -> (batch, substeps); one warm-up run and one more
-DR_PATHS = {"walker2d": (4096, 400), "cartpole": (8192, 400)}
+DR_PATHS = {"walker2d": (4096, 400), "cartpole": (8192, 400),
+            "walker3d": (4096, 400)}
+# env -> the most envs of its bench_dr path that may end non-finite.
+# bench_dr holds fixed torques U(-50, 50) on every dof, the FREE root's
+# included, and walker3d envs run away under it in every route
+# (scripts/torch_dr_runaway.py, 4096 envs, 400 substeps, on an H100): env
+# 1717 in the fused kernel route with and without DR and in the
+# phase-wise route, envs 1717 and 3050 in the plain versions in float64
+# (PERF.md)
+DR_RUNAWAY_MAX = {"walker3d": 2}
+# the walker2d_frames path: per-env leaves outside the fused route's set
+# (joint axes and offsets, limits, the ground's height, and mass), which
+# run the phase-wise route with the plain batched dynamics; (batch,
+# substeps) of the counted drive, and (envs, substeps) of its lockstep
+# against the float64 plain version on the CPU
+FRAME_FIELDS = ("axes", "pj_pos", "q_lower", "q_upper", "wg_offset", "mass")
+FRAMES_PATH = (4096, 40)
+FRAMES_LOCK = (256, 4)
 
 
 def dr_fields_of(tag, kernel):
@@ -1558,6 +1638,8 @@ def check_dr(dev, checks, dr_kerns, dyn_models):
             model, gen, blocks=lambda o: hs.output_blocks(kern.st, o),
             tol=lambda f: 0.0 if f in EXACT_BLOCKS else (
                 2e-2 if after(f) else 1e-4))
+        if (e, tag) == ("walker3d", "spec"):
+            out["substep_walker3d"] = c
         if (e, tag) == ("walker2d", "spec"):
             out["substep"] = c
             # B not a multiple of the 16 envs per block
@@ -1599,9 +1681,10 @@ def check_dr(dev, checks, dr_kerns, dyn_models):
 def drive_dr_path(dev, name, smi):
     """Phase dr_path: bench_dr (a domain-randomized batch, the bench's
     spec, fixed random torques) with every launch counter and plain-call
-    counter set to 0 just before and read just after.  Walker2d runs the
-    DR substep kernel and the escalation kernel's fused mode on every
-    substep; cartpole (no constraint rows) the DR dynamics kernel.  The
+    counter set to 0 just before and read just after.  Walker2d and
+    walker3d run the DR substep kernel and the escalation kernel's fused
+    mode on every substep; cartpole (no constraint rows) the DR dynamics
+    kernel.  The
     rate is printed with the card; it sets no limit.  Returns the launch
     counts."""
     import torch
@@ -1626,6 +1709,7 @@ def drive_dr_path(dev, name, smi):
                   dynamics=hd.DYNAMICS_LAUNCHES, pgs=hp.PGS_LAUNCHES)
     plain = sum(plain_counts())
     emit("dr_path", card=smi, **out,
+         nonfinite_envs_max=DR_RUNAWAY_MAX.get(name, 0),
          **{f"{k}_launches": v for k, v in counts.items()},
          plain_calls=plain,
          plain_dynamics_steps=tdr.PLAIN_DYNAMICS_STEPS, seconds=seconds)
@@ -1637,8 +1721,251 @@ def drive_dr_path(dev, name, smi):
         want.update(substep=sub, bpp_fused=sub)
     assert counts == want, (counts, want)
     assert plain == 0 and tdr.PLAIN_DYNAMICS_STEPS == 0
-    assert out["finite_state"] and torch.cuda.is_available()
+    assert out["nonfinite_envs"] <= DR_RUNAWAY_MAX.get(name, 0), out
+    assert torch.cuda.is_available()
     return dict(counts, steps=sub / out["frame_skip"])
+
+
+def frame_model(model, B, gen):
+    """The walker2d_frames batch: `model` with per-env FRAME_FIELDS, drawn
+    from `gen` with randomize_model (joint axes and offsets scaled per env
+    by U(0.95, 1.05), the limits by U(0.9, 1.1), mass by U(0.7, 1.3)),
+    and the ground plane moved along its normal by U(-0.02, 0.02) m per
+    env (its offset is 0, which a scale would keep)."""
+    import torch
+
+    from dartenv_tpu_torch.parallel.domain_rand import randomize_model
+
+    bm = randomize_model(model, {"axes": 0.05, "pj_pos": 0.05,
+                                 "q_lower": 0.1, "q_upper": 0.1,
+                                 "mass": 0.3}, B, gen)
+    off = model.wg_offset
+    shift = torch.rand((B,) + tuple(off.shape), generator=gen,
+                       device=gen.device) * 0.04 - 0.02
+    return bm.replace(wg_offset=off[None] + shift.to(off))
+
+
+def drive_frames_path(dev, smi, states):
+    """Phase dr_path, walker2d_frames: a walker2d batch with per-env
+    FRAME_FIELDS (frame_model) from the check's states (q, dq, tau, lam),
+    stepped by make_randomized_sim_step under fixed random torques.  No
+    fused route serves these leaves, and a frame leaf keeps the dynamics
+    kernel out (its build holds the base model's frames): each substep
+    runs the plain batched dynamics (PLAIN_DYNAMICS_STEPS), collision on
+    the per-env ground, the limit rows from the per-env limits, the PGS
+    kernel and the BPP kernel's hybrid mode.  First FRAMES_LOCK envs and
+    substeps are held against the same step in float64 on the CPU (the
+    plain versions), at phase dr's lockstep bound; then FRAMES_PATH with
+    every counter set to 0 just before and read just after.  Returns the
+    launch counts."""
+    import torch
+
+    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.engine.world import SimState
+    from dartenv_tpu_torch.parallel import domain_rand as tdr
+
+    task = make_task("walker2d", device=dev)
+    model = task.model
+    B, substeps = FRAMES_PATH
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    bmodel = frame_model(model, B, gen)
+    step = tdr.make_randomized_sim_step(model, FRAME_FIELDS)
+    q, dq, _, lam = (x[:B].clone() for x in states)
+    tau = (torch.rand((B, model.n), generator=gen, device=dev) * 2
+           - 1) * 50.0
+    s0 = SimState(q=q, dq=dq, time=q.new_zeros(B), lam=lam)
+
+    # lockstep: the card's float32 step beside the CPU's float64 one
+    Bl, nl = FRAMES_LOCK
+    cpu64 = lambda x: x[:Bl].to(device="cpu", dtype=torch.float64)
+    base64 = model.to("cpu", torch.float64)
+    b64 = base64.replace(**{f: cpu64(getattr(bmodel, f))
+                            for f in FRAME_FIELDS})
+    bml = model.replace(**{f: getattr(bmodel, f)[:Bl]
+                           for f in FRAME_FIELDS})
+    step64 = tdr.make_randomized_sim_step(base64, FRAME_FIELDS)
+    sk = SimState(q=q[:Bl], dq=dq[:Bl], time=q.new_zeros(Bl), lam=lam[:Bl])
+    sp = SimState(q=cpu64(q), dq=cpu64(dq), time=torch.zeros(
+        Bl, dtype=torch.float64), lam=cpu64(lam))
+    same = torch.ones(Bl, dtype=torch.bool)
+    for _ in range(nl):
+        sk, _ = step(bml, sk, tau[:Bl])
+        sp, _ = step64(b64, sp, cpu64(tau))
+        same &= (sk.lam.cpu() > 0).eq(sp.lam > 0).all(1)
+    rel = lambda x, y: ((x.cpu().double() - y).abs()
+                        / y.abs().clamp(min=1.0)).max(1).values
+    q_err, dq_err = rel(sk.q, sp.q), rel(sk.dq, sp.dq)
+    lock = dict(same_contact_frac=float(same.float().mean()),
+                q_err=float(q_err[same].max()),
+                dq_err=float(dq_err[same].max()),
+                dq_err_all=float(dq_err.max()),
+                envs_beyond_tol=int(((q_err > 1e-3)
+                                     | (dq_err > 1e-3))[same].sum()),
+                envs_beyond_tol_all=int(((q_err > 1e-3)
+                                         | (dq_err > 1e-3)).sum()),
+                q_err_q99=float(q_err[same].quantile(0.99)),
+                dq_err_q99=float(dq_err[same].quantile(0.99)))
+    # phase dr's lockstep rule (lockstep_dr): envs whose contact sets
+    # stayed the same are held
+    emit("lockstep", env="walker2d_frames", B=Bl, substeps=nl,
+         reference="float64 CPU", **lock, tol=1e-3,
+         tol_envs_beyond=LOCK_MAY_DIVERGE)
+    assert lock["same_contact_frac"] > 0.9, lock
+    assert lock["envs_beyond_tol"] <= LOCK_MAY_DIVERGE, lock
+    assert lock["q_err_q99"] <= 1e-3 and lock["dq_err_q99"] <= 1e-3, lock
+
+    state = s0
+    for _ in range(4):                   # warm-up, outside the count
+        state, _ = step(bmodel, state, tau)
+    zero_counters()
+    tdr.PLAIN_DYNAMICS_STEPS = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state = s0
+    for _ in range(substeps):
+        state, _ = step(bmodel, state, tau)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counts = read_counters()
+    plain = sum(plain_counts())
+    finite = bool(torch.isfinite(state.q).all()
+                  and torch.isfinite(state.dq).all())
+    emit("dr_path", env="walker2d_frames", card=smi, batch=B,
+         substeps=substeps, dr_fields=list(FRAME_FIELDS),
+         env_steps_per_s=B * substeps / task.frame_skip / seconds,
+         **{f"{k}_launches": v for k, v in counts.items()},
+         plain_calls=plain, plain_dynamics_steps=tdr.PLAIN_DYNAMICS_STEPS,
+         finite_state=finite, seconds=seconds)
+    want = dict.fromkeys(counts, 0)
+    want.update(pgs=substeps, bpp_hybrid=substeps)
+    assert counts == want, (counts, want)
+    assert plain == 0 and tdr.PLAIN_DYNAMICS_STEPS == substeps
+    assert finite
+    return dict(counts, steps=substeps / task.frame_skip)
+
+
+# ---- the bench surface ---------------------------------------------------
+
+# the knob run of phase bench_cli: a cold start, 12 PGS sweeps and an
+# escalation cap of 256, at a batch whose 1/32 is 256
+BENCH_KNOBS = ["--env", "walker2d", "--batch", "8192", "--cold",
+               "--pgs_iters", "12", "--escalate_kmax", "256",
+               "--horizon", "10", "--iters", "1"]
+
+
+def knob_model(dev):
+    """walker2d's model with BENCH_KNOBS' solver overrides."""
+    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.base import with_solver
+
+    return with_solver(make_task("walker2d", device=dev).model,
+                       pgs_iters=12, escalate_kmax=256)
+
+
+def check_knob_kernels(kern, states):
+    """Phase bench_cli, the knob run's builds against their plain versions
+    on walker2d's check states (q, dq, tau, lam): the substep kernel built
+    with 12 PGS sweeps, and the fused escalation on its outputs (the cap
+    of 256 leaves K = 128 at B = 4096).  Returns the kernels line's
+    checks."""
+    model = kern.model
+    outs = kern(*states)
+    return {"substep": hold_substep("walker2d_knobs", model, kern, outs,
+                                    states, None, phase="bench_cli"),
+            "bpp_fused": check_escalate("walker2d_knobs", kern.st,
+                                        model.solver, outs)}
+
+
+def kernels_in_ranges(path, name):
+    """Names of the device kernels launched inside the record_function
+    ranges `name` of a torch.profiler Chrome trace: a kernel whose launch
+    (the runtime call of the same correlation id) lies within a host range
+    of that name on the same thread, or whose execution lies within the
+    device range of that name."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    host = [(e["tid"], e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+            if e.get("name") == name and e.get("cat") == "user_annotation"]
+    gpu = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+           if e.get("name") == name
+           and e.get("cat") == "gpu_user_annotation"]
+    kernels = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") == "kernel"
+               and "correlation" in e.get("args", {})}
+    found = set()
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") == "cuda_runtime" and corr in kernels and any(
+                e["tid"] == tid and a <= e["ts"] <= b for tid, a, b in host):
+            found.add(kernels[corr]["name"])
+    for k in kernels.values():
+        if any(a <= k["ts"] <= b for a, b in gpu):
+            found.add(k["name"])
+    return dict(host_ranges=len(host), device_ranges=len(gpu),
+                kernels=sorted(found))
+
+
+def check_bench_cli(dev, smi, root):
+    """Phase bench_cli: the bench CLI in this process.  (1) --all at
+    horizon 10, one timed rollout: five metric lines, the JAX CLI's
+    metric strings, each with the card.  (2) BENCH_KNOBS with every
+    counter set to 0 just before and read just after: the substep kernel
+    (its pgs_iters 12 build) and the BPP kernel's fused mode once per
+    substep, no plain call, K = 256, no warm start.  (3) one bench_env
+    rollout with profile_dir: the trace holds the substep_fused range
+    with the substep kernel's and the fused mode's launches inside it.
+    Returns the knob run's launch counts."""
+    from dartenv_tpu_torch.bench import throughput
+
+    t0 = time.time()
+    runs = throughput.main(["--all", "--horizon", "10", "--iters", "1"])
+    lines = [ln for _, ln in runs]
+    want = [f"env-steps/s/chip (batched Dart{e.capitalize()}, B={b})"
+            for e, b, _ in throughput.BASELINE_CONFIGS]
+    emit("bench_cli", check="all", lines=lines, seconds=time.time() - t0)
+    assert [ln["metric"] for ln in lines] == want
+    assert all(ln["card"] == smi and ln["value"] > 0 and
+               set(ln) == {"metric", "value", "unit", "vs_baseline", "card"}
+               for ln in lines)
+
+    zero_counters()
+    t0 = time.time()
+    (detail, line), = throughput.main(BENCH_KNOBS)
+    seconds = time.time() - t0
+    counts = read_counters()
+    plain = sum(plain_counts())
+    sub = (detail["control_steps_run"]
+           * throughput.make_task("walker2d", device=dev).frame_skip)
+    cfg = detail["solver_config"]
+    emit("bench_cli", check="knobs", argv=BENCH_KNOBS, metric=line,
+         escalation_k=detail["escalation_k"],
+         warm_start=detail["warm_start"], pgs_iters=cfg["pgs_iters"],
+         escalate_kmax=cfg["escalate_kmax"],
+         **{f"{k}_launches": v for k, v in counts.items()},
+         plain_calls=plain, seconds=seconds)
+    want = dict.fromkeys(counts, 0)
+    want.update(substep=sub, bpp_fused=sub)
+    assert counts == want, (counts, want)
+    assert plain == 0
+    assert (detail["escalation_k"], detail["warm_start"], cfg["pgs_iters"],
+            cfg["escalate_kmax"]) == (256, False, 12, 256)
+
+    trace_dir = os.path.join(root, "build", "chip_smoke_profile")
+    for attempt in range(3):     # a late profile may catch no launch (§7)
+        out = throughput.bench_env("walker2d", batch=4096, horizon=3,
+                                   iters=0, device=dev,
+                                   profile_dir=trace_dir)
+        inside = kernels_in_ranges(out["profile_trace"], "substep_fused")
+        ok = all(any(k in n for n in inside["kernels"])
+                 for k in ("substep_kernel", "bpp_fused_kernel"))
+        if ok:
+            break
+    emit("bench_cli", check="profile_dir", trace=out["profile_trace"],
+         attempts=attempt + 1, range="substep_fused", **inside)
+    assert inside["host_ranges"] >= 12, inside     # 3 steps x 4 substeps
+    assert ok, inside
+    return dict(counts, steps=detail["control_steps_run"])
 
 
 def plain_counts():
@@ -1749,7 +2076,7 @@ def drive_main_path(dev, name, perturb=False, solver=None, ref64=None):
     out = bench_env(name, batch=B, horizon=horizon, iters=rollouts - 1,
                     max_episode_steps=1000, device=dev,
                     return_state=True, perturb=perturb, solver=solver,
-                    escalate_ref64=ref64)
+                    solver_overrides=ref64 and {"escalate_ref64": ref64})
     seconds = time.time() - t0
     counts = read_counters()
     plain = sum(plain_counts())
@@ -3234,7 +3561,7 @@ def main():
     import dartenv_tpu_torch  # noqa: F401  (asserts full-f32 products)
     from dartenv_tpu_torch import cuda_build
     from dartenv_tpu_torch.bench import scenes
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.bench.throughput import card_name, make_task
     from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
     from dartenv_tpu_torch.engine.constraints import build_layout
     from dartenv_tpu_torch.engine import hopper_substep as hs
@@ -3247,10 +3574,7 @@ def main():
     B = 4096
 
     # ---- 1. device ------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_name(dev)
     emit("device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
@@ -3272,6 +3596,8 @@ def main():
     dr_dkerns = {(e, tag): hd.get_dynamics_kernel(
         dyn_models[e], dr_fields_of(tag, "dynamics"))
         for e, tag in DR_DYNAMICS}
+    # kernel 1 with the bench CLI's knobs (12 PGS sweeps, phase bench_cli)
+    knob_kern = hs.get_substep_kernel(knob_model(dev))
     # the BPP kernel: core and hybrid modes per row count (and per
     # refinement passes of the hybrid mode), fused mode per substep digest
     # (of the models that escalate); the core mode at walker2d's 24 rows
@@ -3314,6 +3640,7 @@ def main():
                          if not hs.in_fused_scope(m)]
     bpp_keys += [(k.st.m_c, k.st.escalation_header) for k in fused_loaders
                  if k.st.cfg.escalate_frac > 0]
+    bpp_keys += [(knob_kern.st.m_c, knob_kern.st.escalation_header)]
     bpp_keys += [(solver_rows(m), hb.header(solver_rows(m),
                                             m.solver.escalate_ref,
                                             m.solver.escalate_ref64))
@@ -3334,13 +3661,14 @@ def main():
               + [k.start_build() for k in dr_kerns.values()]
               + [k.start_build() for k in dr_dkerns.values()]
               + [k.start_build() for k in new_dkerns]
-              + [k.start_build() for k in fused_loaders])
+              + [k.start_build() for k in fused_loaders]
+              + [knob_kern.start_build()])
     for (m, h), bld in zip(bpp_keys, builds):
         hb.load(m, bld, h)
     hp.load(builds[len(bpp_keys)])
     for k in (list(kerns.values()) + sunk_kerns + list(dkerns.values())
               + list(dr_kerns.values()) + list(dr_dkerns.values())
-              + new_dkerns + fused_loaders):
+              + new_dkerns + fused_loaders + [knob_kern]):
         k.load()
     ptxas = {bld.tag + "/" + bld.so_path.split("/")[-2][-6:]:
              [ln.strip() for ln in cuda_build.build_log(bld).splitlines()
@@ -3442,6 +3770,12 @@ def main():
     # ---- 9b. domain randomization: the DR kernels, then their paths -----
     dr = check_dr(dev, checks, dr_kerns, dyn_models)
     dr_counts = {e: drive_dr_path(dev, e, smi) for e in DR_PATHS}
+    frames_counts = drive_frames_path(dev, smi, checks["walker2d"]["states"])
+
+    # ---- 9c. the bench CLI: --all, the knobs, profile_dir ---------------
+    knob_checks = check_knob_kernels(knob_kern, checks["walker2d"]["states"])
+    cli_counts = check_bench_cli(dev, smi, os.path.dirname(
+        os.path.abspath(__file__)))
 
     # ---- 10. device launches of one eager walker2d control step ---------
     from dartenv_tpu_torch.bench.profile_step import profile
@@ -3500,7 +3834,11 @@ def main():
                 ("walker2d", ("walker2d", True), "pgs", pgs),
                 ("walker2d", ("walker2d", True), "bpp_hybrid", bpp_pert)]
     entries += [("walker2d", "dr", "substep", dr["substep"]),
-                ("cartpole", "dr", "dynamics", dr["dynamics"])]
+                ("walker2d", "dr", "bpp_fused", dr["escalate"]),
+                ("cartpole", "dr", "dynamics", dr["dynamics"]),
+                ("walker3d", "dr", "substep", dr["substep_walker3d"]),
+                ("walker3d", "dr", "bpp_fused",
+                 checks["walker3d"]["escalate"])]
     entries += [("walker2d", dantzig, "bpp_core", core["walker2d"]),
                 ("walker2d", dantzig, "dynamics", dyn["walker2d"]),
                 ("humanwalker", ("humanwalker", True), "pgs", pgs_hw),
@@ -3540,6 +3878,11 @@ def main():
                              ("bpp_fused", "escalate"))]
     rows += [(w, cnt, key, c) for w, (cnt, ents) in loader_runs.items()
              for key, c in ents.items()]
+    # the frame-leaf DR path, the bench CLI's knob run
+    rows += [("walker2d_frames", frames_counts, "pgs", pgs),
+             ("walker2d_frames", frames_counts, "bpp_hybrid", bpp_pert)]
+    rows += [("walker2d_bench_knobs", cli_counts, key, c)
+             for key, c in knob_checks.items()]
     kernels = []
     for label, n, key, c in rows:
         kname, src, repl = sources[key]

@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 
 import torch
@@ -64,16 +63,19 @@ def _control_step(task, batch, gen, dr):
 
 
 def profile(env="walker2d", batch=4096, steps=20, top=12, perturb=False,
-            dr=False, solver=None, escalate_ref64=None):
+            dr=False, solver=None, solver_overrides=None):
+    """The JSON object of the module docstring; `solver_overrides`
+    ({SolverConfig field: value}) as bench/throughput.bench_env takes
+    them."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    from dartenv_tpu_torch.bench.throughput import make_task, ref64_kw
+    from dartenv_tpu_torch.bench.throughput import card_name, make_task
 
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
     dev = torch.device("cuda")
     task = make_task(env, device=dev, lcp_solver=solver,
-                     **ref64_kw(escalate_ref64))
+                     **(solver_overrides or {}))
     task.add_perturbation = perturb
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -100,15 +102,11 @@ def profile(env="walker2d", batch=4096, steps=20, top=12, perturb=False,
             rows.append((ev.key, dev_us, ev.count))
     rows.sort(key=lambda r: -r[1])
     dev_ms = sum(r[1] for r in rows) / 1e3
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip()
     return {
         "env": env, "perturb": perturb, "dr": dr,
         "solver": task.model.solver.solver, "batch": batch,
         "control_steps": steps,
-        "card": smi,
+        "card": card_name(dev),
         "wall_ms_per_control_step": plain_wall_ms / steps,
         "device_busy_ms_per_control_step": dev_ms / steps,
         "device_busy_share": dev_ms / plain_wall_ms,
@@ -141,7 +139,8 @@ def main():
     args = ap.parse_args()
     res = profile(args.env, args.batch, args.steps, perturb=args.perturb,
                   dr=args.dr, solver=args.solver,
-                  escalate_ref64=args.escalate_ref64)
+                  solver_overrides=None if args.escalate_ref64 is None
+                  else {"escalate_ref64": args.escalate_ref64})
     text = json.dumps(res, indent=1)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -206,10 +206,12 @@ def _deepest4(pts, dist, n):
 
 
 def _geom_pose(model, R_w, p_w, gi):
+    """World pose of geom gi; its local frame may carry a leading env axis
+    (domain randomization)."""
     bidx = int(model.geom_body[gi])
     Rb = R_w[:, bidx]
-    return (sp.mm(Rb, model.geom_rot[gi]),
-            p_w[:, bidx] + sp.mv(Rb, model.geom_pos[gi]))
+    return (sp.mm(Rb, model.geom_rot[..., gi, :, :]),
+            p_w[:, bidx] + sp.mv(Rb, model.geom_pos[..., gi, :]))
 
 
 def _is_capsule_box(model, pair) -> bool:
@@ -266,10 +268,11 @@ def collide(model: SkelModel, R_w, p_w) -> Contacts:
     for gi, wi in model.world_pairs:
         gt = int(model.geom_type[gi])
         Rg, pg = _geom_pose(model, R_w, p_w, gi)
-        n = model.wg_normal[wi]
-        off = model.wg_offset[wi]
-        # size, friction and restitution may carry a leading env axis
-        # (domain randomization): index from the end
+        # every leaf may carry a leading env axis (domain randomization):
+        # index from the end; n1, off1: the plane against a (B, P) cloud
+        n = model.wg_normal[..., wi, :]                     # (3,) or (B, 3)
+        off = model.wg_offset[..., wi]                      # () or (B,)
+        n1, off1 = n[..., None, :], off[..., None]
         size = model.geom_size[..., gi, :]                  # (3,) or (B, 3)
         fric = torch.minimum(model.geom_friction[..., gi],
                              model.wg_friction[..., wi])
@@ -282,12 +285,13 @@ def collide(model: SkelModel, R_w, p_w) -> Contacts:
             r, hl = size[..., 0:1], size[..., 1:2]
             axis = Rg[..., :, 2]
             ends = torch.stack([pg + axis * hl, pg - axis * hl], dim=1)
-            cpos, cdep = _halfspace_point(ends, r, n, off)
+            cpos, cdep = _halfspace_point(ends, r, n1, off1)
         elif gt == GEOM_BOX:
             corners = torch.tensor(_CORNERS8, dtype=dtype,
                                    device=device) * size[..., None, :]
             cw = pg[:, None, :] + sp.mv(Rg[:, None], corners)   # (B, 8, 3)
-            cpos, cdep = _deepest4(cw, torch.sum(cw * n, dim=-1) - off, n)
+            cpos, cdep = _deepest4(cw, torch.sum(cw * n1, dim=-1) - off1,
+                                   n1)
         elif gt == GEOM_CYLINDER:
             cpos8, cdep8 = cylinder_halfspace(pg, Rg, size[..., 0],
                                               size[..., 1], n, off)
@@ -302,16 +306,16 @@ def collide(model: SkelModel, R_w, p_w) -> Contacts:
             # sentinel depth, so they stay inert downstream
             mi = int(model.geom_mesh[gi])
             vw = pg[:, None, :] + sp.mv(Rg[:, None], model.mesh_verts[mi])
-            dist = torch.sum(vw * n, dim=-1) - off
+            dist = torch.sum(vw * n1, dim=-1) - off1
             depth = torch.where(model.mesh_vmask[mi] > 0.5, -dist, -1e9)
             cdep, top_i = topk_stable(depth, 4)
             cpos = (take_rows(vw, top_i)
-                    - torch.gather(dist, 1, top_i)[..., None] * n)
+                    - torch.gather(dist, 1, top_i)[..., None] * n1)
         else:
             raise NotImplementedError(f"geom type {gt} vs halfspace")
         k = cdep.shape[1]
         pos_l.append(cpos)
-        nrm_l.append(n.expand(B, k, 3))
+        nrm_l.append(n1.expand(B, k, 3))
         dep_l.append(cdep)
         fr_l.append(fric.reshape(-1, 1).expand(B, k))
         re_l.append(rest.reshape(-1, 1).expand(B, k))

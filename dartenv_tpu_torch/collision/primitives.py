@@ -74,8 +74,11 @@ def cylinder_halfspace(p, R, radius, half_h, n, offset):
     caps = torch.stack([p + hh * az, p - hh * az], dim=-2)     # (.., 2, 3)
     dirs = torch.stack([-u, u, w, -w], dim=-2) * _col(_col(radius))
     pts = (caps[..., :, None, :] + dirs[..., None, :, :]).flatten(-3, -2)
-    dist = torch.sum(pts * n, dim=-1) - offset
-    return pts - dist[..., None] * n, -dist
+    # the plane (n (..., 3), offset (...) or a number) against the 8 points
+    n8 = n[..., None, :]
+    off8 = offset[..., None] if torch.is_tensor(offset) else offset
+    dist = torch.sum(pts * n8, dim=-1) - off8
+    return pts - dist[..., None] * n8, -dist
 
 
 def ellipsoid_halfspace(p, R, radii, n, offset):

@@ -74,7 +74,7 @@ def joint_S(model: SkelModel, q, dq=None):
             continue
         qs = idx.q_start[joints]
         rows, drows = type_S_rows(
-            t, model.axes[joints], lambda k: q[:, qs + k],
+            t, model.axes[..., joints, :, :], lambda k: q[:, qs + k],
             None if dq is None else (lambda k: dq[:, qs + k]))
         for k, r in enumerate(rows):
             S[:, qs + k] = r
@@ -85,7 +85,8 @@ def joint_S(model: SkelModel, q, dq=None):
 
 def joint_transforms(model: SkelModel, q):
     """(R_rel (B, nb, 3, 3), p_rel (B, nb, 3)): child pose in the parent
-    body frame, grouped by joint type."""
+    body frame, grouped by joint type.  The joint axes and the joint
+    frames may carry a leading env axis (domain randomization)."""
     idx = get_index(model)
     B, nb = q.shape[0], model.nb
     Rj = torch.eye(3, dtype=q.dtype, device=q.device).repeat(B, nb, 1, 1)
@@ -94,29 +95,29 @@ def joint_transforms(model: SkelModel, q):
     for t, joints in idx.groups.items():
         if len(joints) == 0 or t == WELD:
             continue
-        ax = model.axes[joints]
+        ax = model.axes[..., joints, :, :]     # (g, 3, 3) or (B, g, 3, 3)
         qs = idx.q_start[joints]
         q3 = lambda o: torch.stack(
             [q[:, qs + o], q[:, qs + o + 1], q[:, qs + o + 2]], dim=-1)
         if t == REVOLUTE:
-            Rj[:, joints] = _rod(ax[:, 0], q[:, qs])
+            Rj[:, joints] = _rod(ax[..., 0, :], q[:, qs])
         elif t == PRISMATIC:
-            pj[:, joints] = ax[:, 0] * q[:, qs, None]
+            pj[:, joints] = ax[..., 0, :] * q[:, qs, None]
         elif t == SCREW:
-            Rj[:, joints] = _rod(ax[:, 0], q[:, qs])
-            pj[:, joints] = ax[:, 1] * q[:, qs, None]
+            Rj[:, joints] = _rod(ax[..., 0, :], q[:, qs])
+            pj[:, joints] = ax[..., 1, :] * q[:, qs, None]
         elif t == UNIVERSAL:
-            Rj[:, joints] = _mm(_rod(ax[:, 0], q[:, qs]),
-                                _rod(ax[:, 1], q[:, qs + 1]))
+            Rj[:, joints] = _mm(_rod(ax[..., 0, :], q[:, qs]),
+                                _rod(ax[..., 1, :], q[:, qs + 1]))
         elif t == EULER:
             Rj[:, joints] = _mm(
-                _rod(ax[:, 0], q[:, qs]),
-                _mm(_rod(ax[:, 1], q[:, qs + 1]),
-                    _rod(ax[:, 2], q[:, qs + 2])))
+                _rod(ax[..., 0, :], q[:, qs]),
+                _mm(_rod(ax[..., 1, :], q[:, qs + 1]),
+                    _rod(ax[..., 2, :], q[:, qs + 2])))
         elif t == PLANAR:
-            Rj[:, joints] = _rod(ax[:, 2], q[:, qs + 2])
-            pj[:, joints] = (ax[:, 0] * q[:, qs, None]
-                             + ax[:, 1] * q[:, qs + 1, None])
+            Rj[:, joints] = _rod(ax[..., 2, :], q[:, qs + 2])
+            pj[:, joints] = (ax[..., 0, :] * q[:, qs, None]
+                             + ax[..., 1, :] * q[:, qs + 1, None])
         elif t == BALL:
             Rj[:, joints] = sp.so3_exp(q3(0))
         elif t == TRANSLATIONAL:
@@ -141,8 +142,9 @@ def dof_S_child(model: SkelModel, q, dq):
     """S and S-dot rows (B, n, 6) in the CHILD body frame."""
     idx = get_index(model)
     S_j, Sdot_j = joint_S(model, q, dq)
-    cjR = model.cj_rot[idx.dof_body]     # (n, 3, 3)
-    cjp = model.cj_pos[idx.dof_body]     # (n, 3)
+    # the frame leaves may carry a leading env axis (domain randomization)
+    cjR = model.cj_rot[..., idx.dof_body, :, :]     # ([B,] n, 3, 3)
+    cjp = model.cj_pos[..., idx.dof_body, :]        # ([B,] n, 3)
 
     def ad(cols):
         w, v = cols[..., :3], cols[..., 3:]

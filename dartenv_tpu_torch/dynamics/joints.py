@@ -90,17 +90,18 @@ JOINT_FNS: Dict[int, Callable] = {
 
 
 def _scross(a, v):
-    """a (g, 3) x v (..., g, 3), broadcast."""
+    """a (g, 3) or (..., g, 3) x v (..., g, 3), broadcast."""
     return sp.cross(a.expand(v.shape), v)
 
 
 def type_S_rows(t: int, ax, qk: Callable, dqk: Optional[Callable] = None
                 ) -> Tuple[List, Optional[List]]:
     """Motion-subspace rows of a group of g joints of type t, in the JOINT
-    frame.  ax: (g, 3, 3) axes; qk(k) / dqk(k): the k-th coordinate of
-    every joint of the group, (..., g).  Returns (rows, drows): nd tensors
-    (..., g, 6) of S and, with dqk given, of its exact time derivative
-    (zero for the constant-S types); drows is None without dqk."""
+    frame.  ax: (g, 3, 3) axes, or (B, g, 3, 3) per env; qk(k) / dqk(k):
+    the k-th coordinate of every joint of the group, (..., g).  Returns
+    (rows, drows): nd tensors (..., g, 6) of S and, with dqk given, of its
+    exact time derivative (zero for the constant-S types); drows is None
+    without dqk."""
     q0 = qk(0) if t != WELD else None
     shape = (q0.shape if q0 is not None else ())
     nd = {WELD: 0, REVOLUTE: 1, PRISMATIC: 1, SCREW: 1, UNIVERSAL: 2,
@@ -114,48 +115,49 @@ def type_S_rows(t: int, ax, qk: Callable, dqk: Optional[Callable] = None
     if dqk is not None:
         drows = [q0.new_zeros(shape + (6,)) for _ in range(nd)]
     if t == REVOLUTE:
-        rows[0] = torch.cat([bc(ax[:, 0]), z], dim=-1)
+        rows[0] = torch.cat([bc(ax[..., 0, :]), z], dim=-1)
     elif t == PRISMATIC:
-        rows[0] = torch.cat([z, bc(ax[:, 0])], dim=-1)
+        rows[0] = torch.cat([z, bc(ax[..., 0, :])], dim=-1)
     elif t == SCREW:
-        rows[0] = torch.cat([bc(ax[:, 0]), bc(ax[:, 1])], dim=-1)
+        rows[0] = torch.cat([bc(ax[..., 0, :]), bc(ax[..., 1, :])], dim=-1)
     elif t == UNIVERSAL:
-        R2t = _rot(ax[:, 1], qk(1)).transpose(-1, -2)
-        s1 = sp.mv(R2t, ax[:, 0])
+        R2t = _rot(ax[..., 1, :], qk(1)).transpose(-1, -2)
+        s1 = sp.mv(R2t, ax[..., 0, :])
         rows[0] = torch.cat([s1, z], dim=-1)
-        rows[1] = torch.cat([bc(ax[:, 1]), z], dim=-1)
+        rows[1] = torch.cat([bc(ax[..., 1, :]), z], dim=-1)
         if drows is not None:
             # d/dt (R2^T a0) = -q1dot * (a1 x R2^T a0)
-            d1 = -dqk(1)[..., None] * _scross(ax[:, 1], s1)
+            d1 = -dqk(1)[..., None] * _scross(ax[..., 1, :], s1)
             drows[0] = torch.cat([d1, z], dim=-1)
     elif t == EULER:
-        R2t = _rot(ax[:, 1], qk(1)).transpose(-1, -2)
-        R3t = _rot(ax[:, 2], qk(2)).transpose(-1, -2)
-        gv = sp.mv(R2t, ax[:, 0])
+        R2t = _rot(ax[..., 1, :], qk(1)).transpose(-1, -2)
+        R3t = _rot(ax[..., 2, :], qk(2)).transpose(-1, -2)
+        gv = sp.mv(R2t, ax[..., 0, :])
         s1 = sp.mv(R3t, gv)
-        s2 = sp.mv(R3t, ax[:, 1])
+        s2 = sp.mv(R3t, ax[..., 1, :])
         rows[0] = torch.cat([s1, z], dim=-1)
         rows[1] = torch.cat([s2, z], dim=-1)
-        rows[2] = torch.cat([bc(ax[:, 2]), z], dim=-1)
+        rows[2] = torch.cat([bc(ax[..., 2, :]), z], dim=-1)
         if drows is not None:
             q1d = dqk(1)[..., None]
             q2d = dqk(2)[..., None]
-            gd = -q1d * _scross(ax[:, 1], gv)
-            d1 = sp.mv(R3t, gd) - q2d * _scross(ax[:, 2], s1)
-            d2 = -q2d * _scross(ax[:, 2], s2)
+            gd = -q1d * _scross(ax[..., 1, :], gv)
+            d1 = sp.mv(R3t, gd) - q2d * _scross(ax[..., 2, :], s1)
+            d2 = -q2d * _scross(ax[..., 2, :], s2)
             drows[0] = torch.cat([d1, z], dim=-1)
             drows[1] = torch.cat([d2, z], dim=-1)
     elif t == PLANAR:
-        Rt = _rot(ax[:, 2], qk(2)).transpose(-1, -2)
-        r0 = sp.mv(Rt, ax[:, 0])
-        r1 = sp.mv(Rt, ax[:, 1])
+        Rt = _rot(ax[..., 2, :], qk(2)).transpose(-1, -2)
+        r0 = sp.mv(Rt, ax[..., 0, :])
+        r1 = sp.mv(Rt, ax[..., 1, :])
         rows[0] = torch.cat([z, r0], dim=-1)
         rows[1] = torch.cat([z, r1], dim=-1)
-        rows[2] = torch.cat([bc(ax[:, 2]), z], dim=-1)
+        rows[2] = torch.cat([bc(ax[..., 2, :]), z], dim=-1)
         if drows is not None:
             thd = dqk(2)[..., None]
-            drows[0] = torch.cat([z, -thd * _scross(ax[:, 2], r0)], dim=-1)
-            drows[1] = torch.cat([z, -thd * _scross(ax[:, 2], r1)], dim=-1)
+            a2 = ax[..., 2, :]
+            drows[0] = torch.cat([z, -thd * _scross(a2, r0)], dim=-1)
+            drows[1] = torch.cat([z, -thd * _scross(a2, r1)], dim=-1)
     elif t in (BALL, TRANSLATIONAL, FREE):
         off = 3 if t == TRANSLATIONAL else 0
         for k in range(nd):

@@ -176,8 +176,9 @@ def assemble_rows(model: SkelModel, layout: RowLayout, phi, q,
     nl = len(layout.limit_dofs)
     if nl:
         ld = list(layout.limit_dofs)
-        lo_v = model.q_lower[ld] - q[:, ld]
-        hi_v = q[:, ld] - model.q_upper[ld]
+        # the limits may carry a leading env axis (domain randomization)
+        lo_v = model.q_lower[..., ld] - q[:, ld]
+        hi_v = q[:, ld] - model.q_upper[..., ld]
         high_active = hi_v > 0.0
         active_l = ((lo_v > 0.0) | high_active).to(dtype) * model.limited[ld]
         sign = torch.where(high_active, -1.0, 1.0).to(dtype)

@@ -580,15 +580,39 @@ def escalate_fused(st: _SubStatic, cfg, outs, dq_plus, lam_full, budgets):
     return dqp, lamf, idx, take, res_kept
 
 
+def escalation_tiers(st: _SubStatic, cfg):
+    """(exact1, exact2) of the escalation's tiers for `cfg` (the solvers of
+    hopper_bpp.tier_solvers, exact2 None without tier 2), or (None, None)
+    when the model does not escalate."""
+    if cfg.escalate_frac <= 0.0 or st.m_c == 0:
+        return None, None
+    return hopper_bpp.tier_solvers(st.findex_c, hopper_bpp.tier_budgets(
+        cfg.escalate_iters, cfg.escalate_refine, cfg.escalate_iters2,
+        *st.ref_passes))
+
+
+def escalation_diag(outs, idx, take, res_kept):
+    """The post-escalation residual envelope of the whole batch, the JAX
+    package's `with_diag` record: dict(res_pre (B,): every env's substep
+    residual, idx (K,): the escalated envs, envelope (B,): res_pre with the
+    escalated envs' entries replaced by the residual of the point kept,
+    which is their own residual where none was taken)."""
+    res = outs["res"][:, 0]
+    return dict(res_pre=res, idx=idx,
+                envelope=res.index_copy(0, idx, torch.where(
+                    take, res_kept, res[idx])))
+
+
 def escalate_batch(st: _SubStatic, cfg, outs, dq_plus, lam_full,
-                   exact1, exact2=None):
+                   exact1, exact2=None, with_diag: bool = False):
     """The hybrid exact-escalation stage over the substep's outputs.  A
     float32 CUDA batch runs `escalate_fused` with the tiers that `exact1` /
     `exact2` carry (solvers of hopper_bpp.tier_solvers; others raise) and
     the refinement passes of st.ref_passes; any other batch runs
     `escalate_reference` with `exact1` / `exact2`.  A cfg whose refinement
     tier is not the digest's (st.ref_passes) is refused.  The inputs are
-    not modified.  Returns new (dq_plus, lam_full)."""
+    not modified.  Returns new (dq_plus, lam_full), and with `with_diag`
+    a third value, `escalation_diag`'s record."""
     asked = hopper_bpp.ref_tiers(cfg.escalate_ref, cfg.escalate_ref64)
     if asked != st.ref_passes:
         raise ValueError(
@@ -596,11 +620,15 @@ def escalate_batch(st: _SubStatic, cfg, outs, dq_plus, lam_full,
             f"escalate_ref64) asked, the digest is built for "
             f"{st.ref_passes}")
     if cuda_build.use_kernel(dq_plus):
-        return escalate_fused(st, cfg, outs, dq_plus, lam_full,
-                              hopper_bpp.solver_budgets(
-                                  exact1, exact2, *st.ref_passes))[:2]
-    return escalate_reference(st, cfg, outs, dq_plus, lam_full, exact1,
-                              exact2)[:2]
+        out = escalate_fused(st, cfg, outs, dq_plus, lam_full,
+                             hopper_bpp.solver_budgets(
+                                 exact1, exact2, *st.ref_passes))
+    else:
+        out = escalate_reference(st, cfg, outs, dq_plus, lam_full, exact1,
+                                 exact2)
+    if with_diag:
+        return out[:2] + (escalation_diag(outs, *out[2:]),)
+    return out[:2]
 
 
 # ---------------------------------------------------------------------------
@@ -656,12 +684,7 @@ def make_substep_phase(model: SkelModel, dr_fields=()):
         "geom_friction", "wg_friction", "geom_restitution",
         "wg_restitution"})
 
-    exact1 = exact2 = None
-    if cfg.escalate_frac > 0.0 and st.m_c > 0:
-        exact1, exact2 = hopper_bpp.tier_solvers(
-            st.findex_c, hopper_bpp.tier_budgets(
-                cfg.escalate_iters, cfg.escalate_refine,
-                cfg.escalate_iters2, *st.ref_passes))
+    exact1, exact2 = escalation_tiers(st, cfg)
     kernel: List[Optional[SubstepKernel]] = [None]
     slot_consts = {}      # (device, dtype) -> static per-slot contact data
 

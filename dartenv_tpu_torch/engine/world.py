@@ -21,6 +21,12 @@ plain dynamics/batched path; step 4 through
 engine/constraints.solve_constraints (on a float32 CUDA batch the PGS
 kernel and the BPP kernel for escalation, or in the "dantzig" mode the
 BPP kernel over the whole batch).
+
+The phases run inside torch.profiler.record_function ranges named as the
+JAX package's named scopes: `substep_fused` (the fused phase),
+`dynamics`, `collision`, `constraints` and `integrate` (the phase-wise
+stages) and `substep_fused_dr` (the fused phase of a randomized batch),
+so a profile attributes each launch to its phase.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+from torch.profiler import record_function
 
 from dartenv_tpu_torch.collision.narrowphase import collide
 from dartenv_tpu_torch.dynamics import batched
@@ -78,19 +85,23 @@ def phasewise_substep(model: SkelModel, layout, state: SimState, tau,
     (domain randomization) that the plain stages read.  Returns
     (q_new, dq_plus, lam, Contacts)."""
     q, dq, dt = state.q, state.dq, model.dt
-    if dyn is not None:
-        dq_star, M, phi, R_w, p_w = dyn(q, dq, tau)
-    else:
-        kin = batched.bkin(model, q, dq)
-        ddq, M = batched.forward_dynamics(model, kin, q, dq, tau, dt,
-                                          f_ext_world)
-        dq_star = dq + dt * ddq
-        phi, R_w, p_w = kin.phi, kin.R_w, kin.p_w
-    contacts = collide(model, R_w, p_w)
-    dq_plus, lam = solve_constraints(
-        model, layout, phi, M, q, dq, dq_star, contacts, dt,
-        lam_prev=state.lam, servo_target=servo_target)
-    q_new = batched.integrate_positions(model, q, dq_plus, dt)
+    with record_function("dynamics"):
+        if dyn is not None:
+            dq_star, M, phi, R_w, p_w = dyn(q, dq, tau)
+        else:
+            kin = batched.bkin(model, q, dq)
+            ddq, M = batched.forward_dynamics(model, kin, q, dq, tau, dt,
+                                              f_ext_world)
+            dq_star = dq + dt * ddq
+            phi, R_w, p_w = kin.phi, kin.R_w, kin.p_w
+    with record_function("collision"):
+        contacts = collide(model, R_w, p_w)
+    with record_function("constraints"):
+        dq_plus, lam = solve_constraints(
+            model, layout, phi, M, q, dq, dq_star, contacts, dt,
+            lam_prev=state.lam, servo_target=servo_target)
+    with record_function("integrate"):
+        q_new = batched.integrate_positions(model, q, dq_plus, dt)
     return q_new, dq_plus, lam, contacts
 
 
@@ -113,9 +124,11 @@ def make_sim_step(model: SkelModel, return_impulses: bool = False
         q, dq = state.q, state.dq
         if (sub_phase is not None and f_ext_world is None
                 and servo_target is None):
-            lam_prev = (state.lam if state.lam is not None
-                        else q.new_zeros((q.shape[0], layout.m)))
-            q_new, dq_plus, lam, contacts = sub_phase(q, dq, lam_prev, tau)
+            with record_function("substep_fused"):
+                lam_prev = (state.lam if state.lam is not None
+                            else q.new_zeros((q.shape[0], layout.m)))
+                q_new, dq_plus, lam, contacts = sub_phase(q, dq, lam_prev,
+                                                          tau)
         else:
             dyn = dyn_phase if f_ext_world is None else None
             q_new, dq_plus, lam, contacts = phasewise_substep(
@@ -152,8 +165,9 @@ def make_dr_sim_step(model: SkelModel, dr_fields,
         q, dq = state.q, state.dq
         lam_prev = (state.lam if state.lam is not None
                     else q.new_zeros((q.shape[0], layout.m)))
-        q_new, dq_plus, lam, contacts = sub_phase(q, dq, lam_prev, tau,
-                                                  *dr_vals)
+        with record_function("substep_fused_dr"):
+            q_new, dq_plus, lam, contacts = sub_phase(q, dq, lam_prev, tau,
+                                                      *dr_vals)
         out = (contacts, lam) if return_impulses else contacts
         lam_carry = lam if state.lam is not None else None
         return SimState(q=q_new, dq=dq_plus, time=state.time + dt,

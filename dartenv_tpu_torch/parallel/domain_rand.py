@@ -8,14 +8,17 @@ tensors with a leading env axis (B, ...); the other leaves stay shared.
     engine/hopper_substep.DR_FIELDS_SUB, runs engine/world.
     make_dr_sim_step: on a float32 CUDA batch the substep kernel with the
     DR leaves as per-env inputs, then the escalation kernel's fused mode;
-  * any other model runs the phase-wise step (engine/world.
-    phasewise_substep) with the per-env model: its dynamics phase is the
-    dynamics kernel with the DR_FIELDS_DYN leaves as per-env inputs, and
-    collision and the constraint solve read the per-env contact leaves.
+  * any other model or field set runs the phase-wise step (engine/world.
+    phasewise_substep) with the per-env model.  Its dynamics phase is the
+    dynamics kernel with the DR_FIELDS_DYN leaves as per-env inputs,
+    unless a field is a frame leaf (FRAME_LEAVES: the kernel bakes the
+    base model's frames into its build), which runs the plain batched
+    dynamics on the per-env model; collision reads the per-env geom and
+    ground leaves, the constraint solve the per-env joint limits.
 
-Leaves that define the static constraint / contact layout (LAYOUT_LEAVES)
-are read when a step is built and can not be randomized.  The plain
-versions take per-env values of the DR_FIELDS_SUB leaves only.
+Every numeric leaf may be randomized except those that define the static
+constraint / contact layout (LAYOUT_LEAVES), which are read when a step is
+built.  q_init and dq_init are accepted and enter no sim step.
 """
 from __future__ import annotations
 
@@ -27,7 +30,6 @@ from dartenv_tpu_torch.dynamics.hopper_dynamics import (
     DR_FIELDS_DYN, make_dynamics_phase,
 )
 from dartenv_tpu_torch.engine.constraints import build_layout
-from dartenv_tpu_torch.engine.hopper_substep import DR_FIELDS_SUB
 from dartenv_tpu_torch.engine.world import (
     SimState, make_dr_sim_step, phasewise_substep,
 )
@@ -39,17 +41,20 @@ LAYOUT_LEAVES = frozenset({
     "ancestor_mask",
 })
 
+# the joint frames and axes, which the dynamics kernel reads from its
+# build: a field set with one of them runs the plain batched dynamics
+FRAME_LEAVES = frozenset({"pj_rot", "pj_pos", "cj_rot", "cj_pos", "axes"})
+
 # steps of the phase-wise route whose dynamics ran the plain per-env
-# version (a model the dynamics kernel can not serve); chosen when the step
-# is built, counted when it runs
+# version (a model the dynamics kernel can not serve, or a frame leaf);
+# chosen when the step is built, counted when it runs
 PLAIN_DYNAMICS_STEPS = 0
 
 
 def check_fields(fields: Sequence[str]) -> tuple:
     """The randomized fields as a tuple, after the check of the JAX
     package's model_in_axes: ValueError for a layout leaf (or a name that
-    is not a numeric leaf); NotImplementedError for a numeric leaf whose
-    per-env values the port's plain versions do not take."""
+    is not a numeric leaf)."""
     fields = tuple(fields)
     bad = set(fields) & LAYOUT_LEAVES
     if bad:
@@ -60,11 +65,6 @@ def check_fields(fields: Sequence[str]) -> tuple:
     unknown = [f for f in fields if f not in FLOAT_LEAVES]
     if unknown:
         raise ValueError(f"{unknown} are not numeric model leaves")
-    other = [f for f in fields if f not in DR_FIELDS_SUB]
-    if other:
-        raise NotImplementedError(
-            f"per-env values of {other} are not ported; the randomizable "
-            f"leaves are {DR_FIELDS_SUB}")
     return fields
 
 
@@ -73,7 +73,8 @@ def randomize_model(model: SkelModel, spec: Dict[str, float],
     """Batched copy of `model`: each field in `spec` gets a leading env
     axis, its values scaled per env by uniform(1 - s, 1 + s) (s =
     spec[field]) drawn from `generator` (on the generator's device, then
-    moved to the model's)."""
+    moved to the model's).  As in the JAX package, a rotation leaf is
+    scaled like any other and not renormalized."""
     kw = {}
     for f, s in spec.items():
         if f in LAYOUT_LEAVES:
@@ -105,11 +106,14 @@ def make_randomized_sim_step(model: SkelModel, fields: Sequence[str],
     # the dynamics kernel with the DR_FIELDS_DYN leaves passed explicitly:
     # the route the JAX package's make_dynamics_phase prescribes for DR
     # callers (its own fallback can not take it only because it runs the
-    # model traced under vmap).  The contact leaves go to collision and
-    # the constraint solve, which read the per-env model.
+    # model traced under vmap).  A frame leaf keeps the kernel out: it
+    # would step with the base model's frames.  The geom, ground and limit
+    # leaves go to collision and the constraint solve, which read the
+    # per-env model.
     layout = build_layout(model)
     dyn_fields = tuple(f for f in fields if f in DR_FIELDS_DYN)
-    dyn_phase = make_dynamics_phase(model, dyn_fields)
+    dyn_phase = (None if FRAME_LEAVES & set(fields)
+                 else make_dynamics_phase(model, dyn_fields))
 
     def stepper(bmodel, state, tau):
         global PLAIN_DYNAMICS_STEPS

@@ -8,6 +8,11 @@ PGS residual envelope).
 
 Residual metric: max complementarity violation of the boxed LCP at the
 solver's own friction-bound fixed point, normalized by the impulse scale.
+
+The batched envelope (scripts/torch_residual_envelope.py, chip_smoke.py
+phase envelope) steps the fused path through `make_envelope_substep`:
+every env's substep residual, the escalated envs' replaced by the residual
+of the point the escalation kept (escalate_batch's with_diag record).
 """
 from __future__ import annotations
 
@@ -77,3 +82,52 @@ def harness_residuals(env, device="cuda"):
                 / max(1.0, np.abs(lam).max()))
         state, _ = step(state, tau)
     return np.asarray(out), state
+
+
+# percentiles of the batched envelope's records (the JAX package's
+# scripts/residual_envelope.py)
+ENVELOPE_PCTS = (50.0, 95.0, 99.0, 99.9, 100.0)
+
+
+def envelope_percentiles(x):
+    """ENVELOPE_PCTS of the residuals x (B,), a tensor on x's device."""
+    q = torch.tensor(ENVELOPE_PCTS, dtype=x.dtype, device=x.device) / 100.0
+    return torch.quantile(x, q)
+
+
+def make_envelope_substep(model):
+    """sub(q, dq, lam, tau) -> (q', dq', lam', diag): one substep of the
+    fused path as engine/hopper_substep.make_substep_phase runs it (the
+    substep kernel on a float32 CUDA batch, else its plain version; the
+    escalation; the position update), with the escalation through
+    escalate_batch(with_diag=True), whose record `diag` (res_pre, idx,
+    envelope) it returns.  For a model in the fused path's scope that
+    escalates; `sub.st` is its static data."""
+    from dartenv_tpu_torch import cuda_build
+    from dartenv_tpu_torch.dynamics.batched import integrate_positions
+    from dartenv_tpu_torch.engine import hopper_substep as hs
+
+    st = hs._SubStatic(model)
+    cfg = model.solver
+    exact1, exact2 = hs.escalation_tiers(st, cfg)
+    if not hs.in_fused_scope(model) or exact1 is None:
+        raise ValueError(f"{model.name}: not a fused-path model that "
+                         "escalates")
+    kernel = []
+
+    def sub(q, dq, lam, tau):
+        if cuda_build.use_kernel(q):
+            if not kernel:
+                kernel.append(hs.get_substep_kernel(model, st))
+            outs = kernel[0](q, dq, tau, lam)
+        else:
+            hs.PLAIN_CALLS += 1
+            outs = hs.substep_reference(model, st, q, dq, tau, lam)
+        dq_plus, lam_full, diag = hs.escalate_batch(
+            st, cfg, outs, outs["dq_plus"], outs["lam_full"], exact1, exact2,
+            with_diag=True)
+        q_new = integrate_positions(model, q, dq_plus, st.dt)
+        return q_new, dq_plus, lam_full, diag
+
+    sub.st = st
+    return sub

@@ -30,6 +30,11 @@ _DYN = ("mass", "com", "inertia", "damping", "spring_stiff", "rest_pos",
         "gravity")
 _SUB = _DYN + ("geom_friction", "geom_restitution", "wg_friction",
                "wg_restitution", "geom_size")
+# leaves outside the fused route's set: joint frames and axes, limits,
+# geom frames, the ground plane (and mass, a kernel leaf, beside them)
+_FRAMES = ("pj_rot", "pj_pos", "cj_rot", "cj_pos", "axes", "q_lower",
+           "q_upper", "geom_rot", "geom_pos", "wg_normal", "wg_offset",
+           "mass")
 
 
 def _rel(got, ref):
@@ -183,8 +188,8 @@ def test_layout_leaves_rejected_and_dr_step_routing():
             tdr.make_randomized_sim_step(base, [leaf])
         with pytest.raises(ValueError):
             tdr.randomize_model(base, {leaf: 0.1}, 2, torch.Generator())
-    with pytest.raises(NotImplementedError, match="axes"):
-        tdr.make_randomized_sim_step(base, ["mass", "axes"])
+    # every other numeric leaf is taken (the frame leaves among them)
+    assert callable(tdr.make_randomized_sim_step(base, ["mass", "axes"]))
     from dartenv_tpu_torch.bench.throughput import make_task
 
     model = make_task("walker2d", device="cpu").model
@@ -215,3 +220,133 @@ def test_bench_dr_runs_both_routes_on_cpu():
         assert runs == ([0, 8, 0] if force else [8, 0, 0]), (force, runs)
         assert r["kernel_path"] is not force and r["finite_state"]
         assert r["env_steps_per_s"] > 0 and r["device_name"] == "cpu"
+
+
+def test_frame_limit_geom_ground_leaves_match_jax():
+    """(g) Per-env joint frames and axes, limits, geom frames and the
+    ground plane (and mass) of walker2d through the JAX
+    make_randomized_sim_step (its vmapped phase-wise fallback) and the
+    port's (the phase-wise route with the plain per-env dynamics, the
+    per-env collision and limit rows): float64, B = 3, escalation off, 4
+    substeps from contact-biased states, q, dq and lam within 1e-9 of
+    max(1, |JAX|); the leaves matter (dq differs from the base model's)."""
+    jm = jax_with_solver(jax_make_task("walker2d", dtype=jnp.float64).model,
+                         None, escalate_frac=0.0)
+    B, steps = 3, 4
+    leaves = dr_leaves(jm, _FRAMES, B, seed=8)
+    # limits tight enough that some bind, the plane tilted and raised a
+    # little per env
+    rng = np.random.default_rng(9)
+    leaves["q_lower"] = np.asarray(jm.q_lower)[None] * 0.1 - 0.02
+    leaves["q_upper"] = np.asarray(jm.q_upper)[None] * 0.1 + 0.02
+    leaves["q_lower"] = leaves["q_lower"] + rng.uniform(-0.01, 0.01,
+                                                        (B, jm.n))
+    leaves["q_upper"] = leaves["q_upper"] + rng.uniform(-0.01, 0.01,
+                                                        (B, jm.n))
+    nrm = np.asarray(jm.wg_normal)[None] + rng.uniform(
+        -0.05, 0.05, (B,) + np.asarray(jm.wg_normal).shape)
+    leaves["wg_normal"] = nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
+    leaves["wg_offset"] = rng.uniform(-0.02, 0.02,
+                                      (B,) + np.asarray(jm.wg_offset).shape)
+    jb, base, bmodel = port_dr_model(jm, leaves)
+    assert bmodel.axes.shape == (B,) + tuple(base.axes.shape)
+    assert make_dr_sim_step(base, _FRAMES) is None
+
+    rng = np.random.default_rng(10)
+    n = jm.n
+    q = np.asarray(jm.q_init)[None] + rng.uniform(-0.05, 0.05, (B, n))
+    q[:, 1] -= rng.uniform(0.0, 0.04, B)        # press the feet in
+    dq = rng.uniform(-1.0, 1.0, (B, n))
+    tau = rng.uniform(-60.0, 60.0, (B, n))
+    j0 = jax_init_state(jm, warm_start=True)
+    lam = np.zeros((B, j0.lam.shape[0]))
+    jstate = dataclasses.replace(
+        jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (B,) + x.shape),
+                               j0),
+        q=jnp.asarray(q), dq=jnp.asarray(dq), lam=jnp.asarray(lam))
+    jstep = jax.jit(jax_randomized_step(jm, list(_FRAMES)))
+    tstate = dataclasses.replace(init_state(base, B), q=T(q), dq=T(dq),
+                                 lam=T(lam))
+    tstep = tdr.make_randomized_sim_step(base, _FRAMES)
+    s0 = tstate
+    plain = tdr.PLAIN_DYNAMICS_STEPS
+    live = 0.0
+    for _ in range(steps):
+        jstate, _ = jstep(jb, jstate, jnp.asarray(tau))
+        tstate, _ = tstep(bmodel, tstate, T(tau))
+        live = max(live, float(N(tstate.lam).max()))
+        for name, a, r in (("q", tstate.q, jstate.q),
+                           ("dq", tstate.dq, jstate.dq),
+                           ("lam", tstate.lam, jstate.lam)):
+            assert _rel(a, r) <= 1e-9, (name, _rel(a, r))
+    assert tdr.PLAIN_DYNAMICS_STEPS - plain == steps
+    assert live > 0, "no contact or limit row is live"
+    for _ in range(steps):
+        s0, _ = make_sim_step(base)(s0, T(tau))
+    assert np.abs(N(s0.dq) - N(tstate.dq)).max() > 1e-6
+
+
+def test_per_env_geom_pos_on_capsule_box_pairs():
+    """(h) The composed walker-and-box world (bench/scenes.
+    walker_box_world: its capsule-box cross pairs collide in one call)
+    with per-env geom_pos and geom_rot, B = 2, float64, 6 substeps near
+    the default pose (the pairs are collided on every substep, live or
+    not): the randomized batch equals stepping each env's own model alone,
+    to 1e-12."""
+    from dartenv_tpu_torch.bench.scenes import walker_box_world
+
+    base = walker_box_world(device="cpu", dtype=torch.float64)
+    B, steps = 2, 6
+    rng = np.random.default_rng(12)
+    gpos = base.geom_pos[None].repeat(B, 1, 1)
+    gpos = gpos + T(rng.uniform(-0.02, 0.02, tuple(gpos.shape)))
+    grot = base.geom_rot[None].repeat(B, 1, 1, 1)
+    grot = grot * T(rng.uniform(0.97, 1.03, (B, base.ng, 1, 1)))
+    bmodel = base.replace(geom_pos=gpos, geom_rot=grot)
+    fields = ("geom_pos", "geom_rot")
+    step = tdr.make_randomized_sim_step(base, fields)
+    q = base.q_init[None].repeat(B, 1)
+    q[:, 9 + 4] += 0.02                         # the box drops 2 cm
+    q = q + T(rng.uniform(-0.02, 0.02, (B, base.n)))
+    tau = T(rng.uniform(-30.0, 30.0, (B, base.n)))
+    bs = dataclasses.replace(init_state(base, B), q=q.clone())
+    for _ in range(steps):
+        bs, contacts = step(bmodel, bs, tau)
+    assert float(N(bs.lam).max()) > 0, "no contact is live"
+    for i in range(B):
+        mi = base.replace(geom_pos=gpos[i], geom_rot=grot[i])
+        si = dataclasses.replace(init_state(mi, 1), q=q[i:i + 1].clone())
+        step_i = make_sim_step(mi)
+        for _ in range(steps):
+            si, _ = step_i(si, tau[i:i + 1])
+        assert _rel(bs.q[i], si.q[0]) <= 1e-12
+        assert _rel(bs.dq[i], si.dq[0]) <= 1e-12
+    assert _rel(bs.dq[0], bs.dq[1]) > 1e-9
+
+
+@pytest.mark.parametrize("fields,plain", [
+    (("mass", "axes"), True), (("pj_rot",), True), (("cj_pos",), True),
+    (("q_lower",), False), (("mass", "geom_pos", "wg_offset"), False)])
+def test_frame_leaves_route_to_plain_dynamics(fields, plain):
+    """(i) Routing of the phase-wise route (the JAX package's
+    tests/test_dr_kernel.py example ("mass", "axes") among them): a field
+    set with a frame leaf runs the plain batched dynamics
+    (PLAIN_DYNAMICS_STEPS, never the dynamics phase), one without keeps
+    the dynamics phase for its DR_FIELDS_DYN part; neither takes the
+    fused route."""
+    from dartenv_tpu_torch.bench.throughput import make_task
+
+    base = make_task("walker2d", device="cpu", dtype=torch.float64).model
+    assert make_dr_sim_step(base, fields) is None
+    B = 2
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    bmodel = tdr.randomize_model(base, dict.fromkeys(fields, 0.05), B, gen)
+    step = tdr.make_randomized_sim_step(base, fields)
+    before = (tdr.PLAIN_DYNAMICS_STEPS, hd.PLAIN_CALLS, ths.PLAIN_CALLS)
+    st, _ = step(bmodel, init_state(base, B), torch.zeros((B, base.n),
+                                                          dtype=torch.float64))
+    after = (tdr.PLAIN_DYNAMICS_STEPS, hd.PLAIN_CALLS, ths.PLAIN_CALLS)
+    assert [a - b for a, b in zip(after, before)] == (
+        [1, 0, 0] if plain else [0, 1, 0])
+    assert torch.isfinite(st.q).all()

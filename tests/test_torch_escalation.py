@@ -1,7 +1,7 @@
 """PyTorch port, the hybrid exact-escalation stage: the port's
 escalate_batch against the JAX package's on the SAME substep outputs
 (hopper, B = 16, starved PGS so offenders exist), float64 <= 1e-8;
-untouched envs bit-identical."""
+untouched envs bit-identical; the with_diag envelope record."""
 import functools
 
 import jax
@@ -84,3 +84,58 @@ def test_escalate_batch_refuses_unported_tiers():
     cfg = dataclasses.replace(tm.solver, escalate_ref64=2)
     with pytest.raises(ValueError, match="refinement passes"):
         ths.escalate_batch(ths._SubStatic(tm), cfg, {}, None, None, None)
+
+
+def test_escalate_batch_with_diag_matches_jax():
+    """escalate_batch(with_diag=True): res_pre, idx and envelope against
+    the JAX escalate_batch(..., with_diag=True) on the same outs (hopper,
+    B = 16, the compensated refinement tier on: the kept point may be the
+    refined one), float64, within 1e-8; the patched states are the ones
+    without the diag."""
+    jm = jax_with_solver(
+        jax_make_task("hopper", dtype=jnp.float64).model, None,
+        escalate_frac=1.0 / 4, escalate_tol=1e-7, pgs_iters=3,
+        escalate_ref=2)
+    tm = port_model(jm)
+    jst, tst = jps._SubStatic(jm), ths._SubStatic(tm)
+    cfg = jm.solver
+    B, n, m = 16, jm.n, jst.layout.m
+    rng = np.random.default_rng(7)
+    q = np.asarray(jm.q_init)[None] + rng.uniform(-0.06, 0.06, (B, n))
+    q[:, 1] -= 0.05
+    dq = rng.uniform(-1.5, 1.5, (B, n))
+    tau = np.concatenate(
+        [np.zeros((B, 3)), rng.uniform(-200, 200, (B, n - 3))], axis=1)
+    outs = ths.substep_reference(tm, tst, T(q), T(dq), T(tau),
+                                 torch.zeros((B, m), dtype=torch.float64))
+    jouts = {k: jnp.asarray(N(outs[k])) for k in ("res", "esc")}
+    dqp0, lamf0 = outs["dq_plus"], outs["lam_full"]
+    # tier 1 as the JAX scripts/residual_envelope.py builds it
+    jex1 = jax_exact_solver(
+        jst.findex_c, iters=cfg.escalate_iters, polish_iters=3,
+        refine_iters=(None if cfg.escalate_refine < 0
+                      else cfg.escalate_refine))
+    jdqp, jlamf, jdiag = jax.jit(lambda o, d, l: jps.escalate_batch(
+        jst, cfg, o, d, l, jex1, None, jnp.float64, refc_passes=2,
+        with_diag=True))(jouts, jnp.asarray(N(dqp0)), jnp.asarray(N(lamf0)))
+    ex1, ex2 = ths.escalation_tiers(tst, tm.solver)
+    assert ex2 is None and tst.ref_passes == (2, 0)
+    dqp, lamf, diag = ths.escalate_batch(tst, tm.solver, outs, dqp0, lamf0,
+                                         ex1, ex2, with_diag=True)
+    assert set(diag) == set(jdiag) == {"res_pre", "idx", "envelope"}
+    np.testing.assert_array_equal(N(diag["idx"]), np.asarray(jdiag["idx"]))
+    for k in ("res_pre", "envelope"):
+        np.testing.assert_allclose(N(diag[k]), np.asarray(jdiag[k]),
+                                   rtol=0, atol=1e-8)
+    np.testing.assert_allclose(N(dqp), np.asarray(jdqp), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(N(lamf), np.asarray(jlamf), rtol=0,
+                               atol=1e-8)
+    # the escalation lowered the residual of some escalated env, and the
+    # record outside the top K is the substep's residual bit for bit
+    idx = diag["idx"]
+    assert (diag["envelope"][idx] < diag["res_pre"][idx]).any()
+    rest = torch.ones(B, dtype=torch.bool)
+    rest[idx] = False
+    assert torch.equal(diag["envelope"][rest], outs["res"][rest, 0])
+    plain = ths.escalate_batch(tst, tm.solver, outs, dqp0, lamf0, ex1, ex2)
+    assert torch.equal(plain[0], dqp) and torch.equal(plain[1], lamf)
