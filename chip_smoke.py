@@ -2488,7 +2488,6 @@ def drive_sim_path(name, dev):
          max_contact_overflow=float(overflow.max()),
          wall_ms_per_control_step=wall,
          device_busy_ms_per_control_step=busy,
-         device_busy_share=busy / wall,
          device_launches_per_control_step=launches)
     assert finite and plain == 0
     assert int(resets) <= RUNAWAY_MAX[name], (name, int(resets))
@@ -3785,7 +3784,6 @@ def main():
          device_launches_per_control_step=prof[
              "device_launches_per_control_step"],
          wall_ms_per_control_step=prof["wall_ms_per_control_step"],
-         device_busy_share=prof["device_busy_share"],
          top_device_kernels=prof["top_device_kernels"], limit=700)
     assert prof["device_launches_per_control_step"] <= 700
 

@@ -9,7 +9,7 @@
 Steps a batched env under the random policy for `--steps` control steps
 inside torch.profiler and prints one JSON object: host wall time per
 control step (from an un-profiled pass), device-busy time per control step
-and its share of the wall time, device launches per control step, and the
+(from the profiled pass), device launches per control step, and the
 kernels that take the most device time.  `--perturb` turns on the task's
 random pushes (the phase-wise path with external forces); `--solver`
 overrides the task's LCP solver ("dantzig": the phase-wise path with the
@@ -109,7 +109,6 @@ def profile(env="walker2d", batch=4096, steps=20, top=12, perturb=False,
         "card": card_name(dev),
         "wall_ms_per_control_step": plain_wall_ms / steps,
         "device_busy_ms_per_control_step": dev_ms / steps,
-        "device_busy_share": dev_ms / plain_wall_ms,
         "device_launches_per_control_step":
             sum(r[2] for r in rows) / steps,
         "note": "wall time from an un-profiled pass of the same length; "

@@ -63,6 +63,7 @@ from dartenv_tpu_torch.math.linalg import (
 from dartenv_tpu_torch.model.skel_model import (
     GEOM_BOX, GEOM_CAPSULE, GEOM_SPHERE, JOINT_NAMES, SkelModel,
 )
+from dartenv_tpu_torch.utils.span import span
 
 SUBSTEP_LAUNCHES = 0      # launches of the fused substep kernel
 PLAIN_CALLS = 0           # calls of substep_reference through the phase
@@ -662,9 +663,10 @@ def make_substep_phase(model: SkelModel, dr_fields=()):
     tensors; `model` is then the base model, whose values of those leaves
     are ignored, and the Contacts carry per-env friction and restitution
     where those leaves are per-env.  A float32 CUDA batch runs the
-    substep kernel + `escalate_batch` (the escalation kernel's fused mode)
-    + `integrate_positions`; a CPU or float64 batch runs the plain
-    versions in the same sequence."""
+    substep kernel + `escalate_batch` (the escalation kernel's fused mode,
+    in the span `constraints`) + `integrate_positions` (in the span
+    `integrate`); a CPU or float64 batch runs the plain versions in the
+    same sequence."""
     dr_fields = tuple(dr_fields)
     if not in_fused_scope(model):
         return None
@@ -713,9 +715,11 @@ def make_substep_phase(model: SkelModel, dr_fields=()):
                                      st, q, dq, tau, lam_prev)
         dq_plus, lam_full = outs["dq_plus"], outs["lam_full"]
         if exact1 is not None:
-            dq_plus, lam_full = escalate_batch(
-                st, cfg, outs, dq_plus, lam_full, exact1, exact2)
-        q_new = batched.integrate_positions(model, q, dq_plus, dt)
+            with span("constraints"):
+                dq_plus, lam_full = escalate_batch(
+                    st, cfg, outs, dq_plus, lam_full, exact1, exact2)
+        with span("integrate"):
+            q_new = batched.integrate_positions(model, q, dq_plus, dt)
         normal, fric, rest, gi, wi = consts(q)
         if per_env_contact:
             fric, rest = slot_contact_values(model, dr_fields, dr_vals, gi,

@@ -22,11 +22,24 @@ engine/constraints.solve_constraints (on a float32 CUDA batch the PGS
 kernel and the BPP kernel for escalation, or in the "dantzig" mode the
 BPP kernel over the whole batch).
 
-The phases run inside torch.profiler.record_function ranges named as the
-JAX package's named scopes: `substep_fused` (the fused phase),
-`dynamics`, `collision`, `constraints` and `integrate` (the phase-wise
-stages) and `substep_fused_dr` (the fused phase of a randomized batch),
-so a profile attributes each launch to its phase.
+The phases run inside spans (utils/span.py: torch.profiler
+record_function ranges while a profiler runs, nothing otherwise) named
+as the JAX package's named scopes, so a profile attributes each launch
+to its phase:
+
+  substep_fused       the fused phase: kernel 1, the Contacts assembly
+    constraints         in it, escalate_batch (top K, kernel 2 fused)
+    integrate           in it, integrate_positions
+  substep_fused_dr    the fused phase of a randomized batch, split alike
+  dynamics            phase-wise steps 1-2
+  collision           phase-wise step 3
+  constraints         phase-wise step 4
+  integrate           phase-wise step 5
+
+Around them, outside the engine: `env.step`, `env.action`, `env.push`,
+`env.obs`, `env.reward`, `env.done`, `env.reset` (parallel/vec_env.py,
+envs/base.make_env_step) and `gym.step`, `gym.host_copy`, `gym.reset`
+(envs/base.DartEnv).
 """
 from __future__ import annotations
 
@@ -34,7 +47,6 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
-from torch.profiler import record_function
 
 from dartenv_tpu_torch.collision.narrowphase import collide
 from dartenv_tpu_torch.dynamics import batched
@@ -45,6 +57,7 @@ from dartenv_tpu_torch.engine.constraints import (
 )
 from dartenv_tpu_torch.engine.hopper_substep import make_substep_phase
 from dartenv_tpu_torch.model.skel_model import SkelModel
+from dartenv_tpu_torch.utils.span import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,7 +98,7 @@ def phasewise_substep(model: SkelModel, layout, state: SimState, tau,
     (domain randomization) that the plain stages read.  Returns
     (q_new, dq_plus, lam, Contacts)."""
     q, dq, dt = state.q, state.dq, model.dt
-    with record_function("dynamics"):
+    with span("dynamics"):
         if dyn is not None:
             dq_star, M, phi, R_w, p_w = dyn(q, dq, tau)
         else:
@@ -94,13 +107,13 @@ def phasewise_substep(model: SkelModel, layout, state: SimState, tau,
                                               f_ext_world)
             dq_star = dq + dt * ddq
             phi, R_w, p_w = kin.phi, kin.R_w, kin.p_w
-    with record_function("collision"):
+    with span("collision"):
         contacts = collide(model, R_w, p_w)
-    with record_function("constraints"):
+    with span("constraints"):
         dq_plus, lam = solve_constraints(
             model, layout, phi, M, q, dq, dq_star, contacts, dt,
             lam_prev=state.lam, servo_target=servo_target)
-    with record_function("integrate"):
+    with span("integrate"):
         q_new = batched.integrate_positions(model, q, dq_plus, dt)
     return q_new, dq_plus, lam, contacts
 
@@ -124,7 +137,7 @@ def make_sim_step(model: SkelModel, return_impulses: bool = False
         q, dq = state.q, state.dq
         if (sub_phase is not None and f_ext_world is None
                 and servo_target is None):
-            with record_function("substep_fused"):
+            with span("substep_fused"):
                 lam_prev = (state.lam if state.lam is not None
                             else q.new_zeros((q.shape[0], layout.m)))
                 q_new, dq_plus, lam, contacts = sub_phase(q, dq, lam_prev,
@@ -165,7 +178,7 @@ def make_dr_sim_step(model: SkelModel, dr_fields,
         q, dq = state.q, state.dq
         lam_prev = (state.lam if state.lam is not None
                     else q.new_zeros((q.shape[0], layout.m)))
-        with record_function("substep_fused_dr"):
+        with span("substep_fused_dr"):
             q_new, dq_plus, lam, contacts = sub_phase(q, dq, lam_prev, tau,
                                                       *dr_vals)
         out = (contacts, lam) if return_impulses else contacts

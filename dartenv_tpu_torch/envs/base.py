@@ -24,6 +24,7 @@ from dartenv_tpu_torch.engine.world import (
     SimState, make_do_simulation, make_sim_step,
 )
 from dartenv_tpu_torch.model.skel_model import SkelModel
+from dartenv_tpu_torch.utils.span import span
 
 
 def with_solver(model: SkelModel, lcp_solver: Optional[str] = None,
@@ -184,7 +185,9 @@ def make_env_step(task: Task):
     takes the external-force route of the sim step.  step_info holds
     `contact_overflow` (B,) and, with perturbations,
     `perturb_env_share` (frame_skip,): the share of envs pushed in each
-    substep."""
+    substep.  Its parts run in the spans `env.action`, `env.push` (each
+    substep's push bookkeeping), `env.obs`, `env.reward` and `env.done`
+    (utils/span.py)."""
     model = task.model
     perturb = task.add_perturbation
     if perturb:
@@ -205,19 +208,21 @@ def make_env_step(task: Task):
         B = force.shape[0]
         overflow, pushed = None, []
         for k in range(task.frame_skip):
-            start = (ttl <= 0) & (u[k] < prob)
-            fresh = torch.zeros_like(force).scatter_(
-                1, axis[k][:, None], (sign[k] * mag)[:, None])
-            live = ttl > 0
-            force = torch.where(
-                start[:, None], fresh,
-                torch.where(live[:, None], force, torch.zeros_like(force)))
-            ttl = torch.where(start, torch.full_like(ttl, duration),
-                              torch.clamp(ttl - 1, min=0))
-            pushed.append(torch.mean((force != 0).any(dim=1).to(
-                force.dtype)))
-            f_ext = force.new_zeros((B, model.nb, 6))
-            f_ext[:, body_id, 3:] = force
+            with span("env.push"):
+                start = (ttl <= 0) & (u[k] < prob)
+                fresh = torch.zeros_like(force).scatter_(
+                    1, axis[k][:, None], (sign[k] * mag)[:, None])
+                live = ttl > 0
+                force = torch.where(
+                    start[:, None], fresh,
+                    torch.where(live[:, None], force,
+                                torch.zeros_like(force)))
+                ttl = torch.where(start, torch.full_like(ttl, duration),
+                                  torch.clamp(ttl - 1, min=0))
+                pushed.append(torch.mean((force != 0).any(dim=1).to(
+                    force.dtype)))
+                f_ext = force.new_zeros((B, model.nb, 6))
+                f_ext[:, body_id, 3:] = force
             sim, contacts = sub_step(sim, tau, f_ext)
             overflow = (contacts.overflow if overflow is None
                         else torch.maximum(overflow, contacts.overflow))
@@ -227,8 +232,9 @@ def make_env_step(task: Task):
 
     def env_step(state: EnvState, action, generator=None,
                  perturb_noise=None):
-        a = torch.minimum(torch.maximum(action, lo), hi)
-        tau = task.action_to_tau(a, state.aux)
+        with span("env.action"):
+            a = torch.minimum(torch.maximum(action, lo), hi)
+            tau = task.action_to_tau(a, state.aux)
         aux = state.aux
         step_info = {}
         if perturb:
@@ -242,9 +248,12 @@ def make_env_step(task: Task):
             sim_new, contacts = do_sim(state.sim, tau)
         # contact_overflow > 0: the active-set cap dropped contacts
         step_info["contact_overflow"] = contacts.overflow
-        obs = task.obs(sim_new, aux)
-        reward = task.reward(state.sim, sim_new, a, contacts, aux)
-        done = task.done(sim_new, aux)
+        with span("env.obs"):
+            obs = task.obs(sim_new, aux)
+        with span("env.reward"):
+            reward = task.reward(state.sim, sim_new, a, contacts, aux)
+        with span("env.done"):
+            done = task.done(sim_new, aux)
         new_state = EnvState(sim=sim_new, aux=aux, steps=state.steps + 1)
         return new_state, obs, reward, done, step_info
 
@@ -305,7 +314,8 @@ class DartEnv(core.Env):
     The env is a batch of one: its state is an EnvState of (1, ...)
     tensors on the task model's device, stepped by `make_env_step(task)`
     (so a float32 CUDA model runs the same kernels as a VecEnv), and each
-    control step copies its results to the host once.
+    control step copies its results to the host once (`step` in the span
+    `gym.step`, the copy in `gym.host_copy`, `reset` in `gym.reset`).
 
     Two construction modes:
       * `DartEnv(task)` — the built-in env families.
@@ -565,26 +575,30 @@ class DartEnv(core.Env):
         return contacts
 
     def _step(self, action):
-        m = self.model
-        a = self._tensor(np.asarray(action).reshape(-1))
-        self._state, obs, reward, done, info = self._env_step(
-            self._state, a, self._generator)
-        # one copy to the host per control step: obs, reward, done and the
-        # overflow count in one tensor
-        vals = self._host(torch.cat([
-            obs, reward[:, None].to(m.dtype), done[:, None].to(m.dtype),
-            info["contact_overflow"][:, None].to(m.dtype)], dim=1))
-        k = obs.shape[1]
-        info = {"contact_overflow": float(vals[k + 2])}
-        if self.obs_type == "image":
-            # image observations at the constructor's screen size (the
-            # reference's obs_type='image', screen_width / screen_height)
-            obs_out = self._render(mode="rgb_array",
-                                   width=self.screen_width,
-                                   height=self.screen_height)
-        else:
-            obs_out = vals[:k]
-        return obs_out, float(vals[k]), bool(vals[k + 1]), info
+        with span("gym.step"):
+            m = self.model
+            a = self._tensor(np.asarray(action).reshape(-1))
+            self._state, obs, reward, done, info = self._env_step(
+                self._state, a, self._generator)
+            # one copy to the host per control step: obs, reward, done and
+            # the overflow count in one tensor
+            with span("gym.host_copy"):
+                vals = self._host(torch.cat([
+                    obs, reward[:, None].to(m.dtype),
+                    done[:, None].to(m.dtype),
+                    info["contact_overflow"][:, None].to(m.dtype)], dim=1))
+            k = obs.shape[1]
+            info = {"contact_overflow": float(vals[k + 2])}
+            if self.obs_type == "image":
+                # image observations at the constructor's screen size (the
+                # reference's obs_type='image', screen_width /
+                # screen_height)
+                obs_out = self._render(mode="rgb_array",
+                                       width=self.screen_width,
+                                       height=self.screen_height)
+            else:
+                obs_out = vals[:k]
+            return obs_out, float(vals[k]), bool(vals[k + 1]), info
 
     def _new_state(self, sim, aux):
         self._state = EnvState(
@@ -593,26 +607,30 @@ class DartEnv(core.Env):
                               device=self.model.device))
 
     def _reset(self):
-        m = self.model
-        if hasattr(self, "reset_model"):
-            # the reference's custom-env flow: world.reset(), then the
-            # subclass's reset_model() sets the state and returns obs
-            self._new_state(SimState(
-                q=m.q_init[None].clone(), dq=m.dq_init[None].clone(),
-                time=m.q_init.new_zeros(1), lam=self.task.lam_init(1)),
-                self.task.aux_init(1))
-            self._staged_tau = None
-            self._pending_fext = None
-            return self.reset_model()
-        q, dq = self.task.np_reset_sim(self.np_random)
-        aux = self.task.np_reset_aux(self.np_random, self.task.aux_init(1))
-        sim = SimState(q=self._tensor(q), dq=self._tensor(dq),
-                       time=m.q_init.new_zeros(1), lam=self.task.lam_init(1))
-        self._new_state(sim, aux)
-        if self.obs_type == "image":
-            return self._render(mode="rgb_array", width=self.screen_width,
-                                height=self.screen_height)
-        return self._host(self.task.obs(sim, aux))
+        with span("gym.reset"):
+            m = self.model
+            if hasattr(self, "reset_model"):
+                # the reference's custom-env flow: world.reset(), then the
+                # subclass's reset_model() sets the state and returns obs
+                self._new_state(SimState(
+                    q=m.q_init[None].clone(), dq=m.dq_init[None].clone(),
+                    time=m.q_init.new_zeros(1), lam=self.task.lam_init(1)),
+                    self.task.aux_init(1))
+                self._staged_tau = None
+                self._pending_fext = None
+                return self.reset_model()
+            q, dq = self.task.np_reset_sim(self.np_random)
+            aux = self.task.np_reset_aux(self.np_random,
+                                         self.task.aux_init(1))
+            sim = SimState(q=self._tensor(q), dq=self._tensor(dq),
+                           time=m.q_init.new_zeros(1),
+                           lam=self.task.lam_init(1))
+            self._new_state(sim, aux)
+            if self.obs_type == "image":
+                return self._render(mode="rgb_array",
+                                    width=self.screen_width,
+                                    height=self.screen_height)
+            return self._host(self.task.obs(sim, aux))
 
     def _close(self):
         # the owned window goes with the env (the reference's

@@ -5,6 +5,8 @@ every env and selects per env on `done` (`torch.where`) — no host sync, no
 data-dependent control flow.  The episode-step TimeLimit runs on the
 device too.  The terminal observation of a finished episode is returned in
 `info["terminal_obs"]` (the post-reset obs is what flows to the policy).
+A step runs in the span `env.step`, its auto-reset in `env.reset`
+(utils/span.py).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from dartenv_tpu_torch.envs.base import (
     EnvState, Task, make_env_reset, make_env_step,
 )
+from dartenv_tpu_torch.utils.span import span
 
 
 def _select(done, a, b):
@@ -63,14 +66,17 @@ class VecEnv:
         (see Task.reset_sim); perturb_noise: optional perturbation dice
         (see Task.perturb_noise_sample).  Auto-reset also resets the
         task's aux (the perturbation state among it)."""
-        new_state, obs, reward, done, step_info = self._step(
-            state, actions, self.generator, perturb_noise)
-        if self.max_episode_steps is not None:
-            done = done | (new_state.steps >= self.max_episode_steps)
-        info = {"terminal_obs": obs, "steps": new_state.steps, **step_info}
-        if self.auto_reset:
-            reset_state, reset_obs = self._reset(
-                self.num_envs, self.generator, reset_noise)
-            new_state = _select(done, reset_state, new_state)
-            obs = _select(done, reset_obs, obs)
+        with span("env.step"):
+            new_state, obs, reward, done, step_info = self._step(
+                state, actions, self.generator, perturb_noise)
+            if self.max_episode_steps is not None:
+                done = done | (new_state.steps >= self.max_episode_steps)
+            info = {"terminal_obs": obs, "steps": new_state.steps,
+                    **step_info}
+            if self.auto_reset:
+                with span("env.reset"):
+                    reset_state, reset_obs = self._reset(
+                        self.num_envs, self.generator, reset_noise)
+                    new_state = _select(done, reset_state, new_state)
+                    obs = _select(done, reset_obs, obs)
         return new_state, obs, reward, done, info
