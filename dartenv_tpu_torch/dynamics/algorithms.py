@@ -88,11 +88,25 @@ def fk(model: SkelModel, q, dq) -> Kin:
                v=torch.stack(v))
 
 
-def fk_positions(model: SkelModel, q):
+def _chain_closure(parent, bodies):
+    """`bodies` and all their ancestors under `parent`, in index order."""
+    seen = set()
+    for i in bodies:
+        while i >= 0 and i not in seen:
+            seen.add(i)
+            i = parent[i]
+    return tuple(sorted(seen))
+
+
+def fk_positions(model: SkelModel, q, bodies=None):
     """Pose-only forward kinematics of a batch: q (B, n) ->
-    (R_w (B, nb, 3, 3), p_w (B, nb, 3))."""
-    R_w, p_w = [], []
-    for i in range(model.nb):
+    (R_w (B, k, 3, 3), p_w (B, k, 3)) of the k `bodies` (a tuple of body
+    indices; None: all nb bodies in index order).  Only the ancestor
+    chains of `bodies` are visited, each body by the same ops as in the
+    full pass, so every pose is bit-identical to the full pass's."""
+    want = tuple(range(model.nb)) if bodies is None else tuple(bodies)
+    R_w, p_w = {}, {}
+    for i in _chain_closure(model.parent, want):
         a, b = model.q_start[i], model.q_start[i] + model.ndof[i]
         Rj, pj = JOINT_FNS[model.joint_type[i]](model.axes[i], q[:, a:b])
         # T_rel = T_pj o T_joint o inv(T_cj)
@@ -104,19 +118,19 @@ def fk_positions(model: SkelModel, q):
         p_rel = p1 + sp.mv(R1, cj_inv_p)
         par = model.parent[i]
         if par < 0:
-            R_w.append(R_rel)
-            p_w.append(p_rel)
+            R_w[i], p_w[i] = R_rel, p_rel
         else:
-            R_w.append(sp.mm(R_w[par], R_rel))
-            p_w.append(p_w[par] + sp.mv(R_w[par], p_rel))
-    return torch.stack(R_w, dim=1), torch.stack(p_w, dim=1)
+            R_w[i] = sp.mm(R_w[par], R_rel)
+            p_w[i] = p_w[par] + sp.mv(R_w[par], p_rel)
+    return (torch.stack([R_w[i] for i in want], dim=1),
+            torch.stack([p_w[i] for i in want], dim=1))
 
 
 def body_point_world(model: SkelModel, q, body: int, offset):
     """World position (B, 3) of a body-frame point (e.g. a fingertip)."""
-    R_w, p_w = fk_positions(model, q)
+    R_w, p_w = fk_positions(model, q, (body,))
     off = torch.as_tensor(offset, dtype=q.dtype, device=q.device)
-    return p_w[:, body] + sp.mv(R_w[:, body], off)
+    return p_w[:, 0] + sp.mv(R_w[:, 0], off)
 
 
 def _body_inertias(model: SkelModel):

@@ -35,9 +35,9 @@ class Walker2dTask(Task):
                          dim=-1)
 
     def height_pitch(self, sim):
-        R_w, p_w = fk_positions(self.model, sim.q)
         t = self.torso_body
-        com_t = p_w[:, t] + mv(R_w[:, t], self.model.com[t])
+        R_w, p_w = fk_positions(self.model, sim.q, (t,))
+        com_t = p_w[:, 0] + mv(R_w[:, 0], self.model.com[t])
         return com_t[:, 1], sim.q[:, 2]
 
     def reward(self, sim_prev, sim, a, contacts, aux):

@@ -39,9 +39,9 @@ class Walker3dTask(Task):
 
     def pelvis_pose(self, sim):
         """(R (B, 3, 3), COM position (B, 3)) of the pelvis in the world."""
-        R_w, p_w = fk_positions(self.model, sim.q)
         b = self.pelvis_body
-        return R_w[:, b], p_w[:, b] + mv(R_w[:, b], self.model.com[b])
+        R_w, p_w = fk_positions(self.model, sim.q, (b,))
+        return R_w[:, 0], p_w[:, 0] + mv(R_w[:, 0], self.model.com[b])
 
     def reward(self, sim_prev, sim, a, contacts, aux):
         d = self.forward_dof

@@ -156,3 +156,54 @@ def test_phasewise_step_matches_jax_for_a_model_without_rows():
     assert rel_err(new.q, jnew.q) <= TOL and rel_err(new.dq, jnew.dq) <= TOL
     assert rel_err(new.time, jnew.time) <= TOL and new.lam is None
     assert contacts.pos.shape == (B, 0, 3)
+
+
+def _fk_full_pass(model, q):
+    """The pose-only pass over every body, written out: the reference
+    that fk_positions' default call is held to, bit for bit."""
+    from dartenv_tpu_torch.dynamics.joints import JOINT_FNS
+    from dartenv_tpu_torch.math import spatial as sp
+
+    R_w, p_w = [], []
+    for i in range(model.nb):
+        a, b = model.q_start[i], model.q_start[i] + model.ndof[i]
+        Rj, pj = JOINT_FNS[model.joint_type[i]](model.axes[i], q[:, a:b])
+        R1 = sp.mm(model.pj_rot[i], Rj)
+        p1 = model.pj_pos[i] + sp.mv(model.pj_rot[i], pj)
+        cj_inv_R = model.cj_rot[i].transpose(-1, -2)
+        cj_inv_p = -sp.mv(cj_inv_R, model.cj_pos[i])
+        R_rel = sp.mm(R1, cj_inv_R)
+        p_rel = p1 + sp.mv(R1, cj_inv_p)
+        par = model.parent[i]
+        if par < 0:
+            R_w.append(R_rel)
+            p_w.append(p_rel)
+        else:
+            R_w.append(sp.mm(R_w[par], R_rel))
+            p_w.append(p_w[par] + sp.mv(R_w[par], p_rel))
+    return torch.stack(R_w, dim=1), torch.stack(p_w, dim=1)
+
+
+@pytest.mark.parametrize("name", ["walker2d", "hopper", "walker3d", "dog",
+                                  "humanwalker"])
+def test_chain_fk_matches_full_fk_to_the_bit(name):
+    """fk_positions over a body set visits only their ancestor chains and
+    returns, bit for bit, the rows of the full pass; the default call
+    keeps the full pass's bits (float32, the production precision)."""
+    from dartenv_tpu_torch.bench.throughput import make_task
+
+    m = make_task(name, device="cpu").model
+    g = torch.Generator().manual_seed(5)
+    q = m.q_init + 0.4 * (2.0 * torch.rand((16, m.n), generator=g,
+                                           dtype=m.dtype) - 1.0)
+    R_full, p_full = _fk_full_pass(m, q)
+    R_def, p_def = talg.fk_positions(m, q)
+    assert torch.equal(R_def, R_full) and torch.equal(p_def, p_full)
+    leaves = [i for i in range(m.nb) if i not in m.parent]
+    sets = ([(0,)] + [(i,) for i in leaves] + [(leaves[-1], leaves[0])]
+            + [tuple(range(m.nb))])
+    for bodies in sets:
+        R, p = talg.fk_positions(m, q, bodies)
+        assert R.shape == (16, len(bodies), 3, 3), bodies
+        assert torch.equal(R, R_full[:, list(bodies)]), bodies
+        assert torch.equal(p, p_full[:, list(bodies)]), bodies
