@@ -152,7 +152,7 @@ def _run_child(tmp_path, name, code):
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, script, str(tmp_path)],
                          capture_output=True, text=True, env=env,
-                         timeout=300)
+                         timeout=120)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
     return out.stdout
 

@@ -49,6 +49,7 @@ def test_concurrent_builds_do_not_race():
         for p in procs:
             if p.poll() is None:
                 p.kill()
+                p.wait()
     assert all(p.returncode == 0 for p in procs), outs
     lib_dir = os.path.dirname(native.build())
     assert not [f for f in os.listdir(lib_dir) if ".tmp" in f]

@@ -116,7 +116,7 @@ def test_cpu_path_matches_interpret_kernel_path_f32(tmp_path):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [root, tests, os.environ.get("PYTHONPATH", "")]))
     subprocess.run([sys.executable, "-c", _INTERPRET_CHILD, out],
-                   check=True, cwd=root, env=env, timeout=600)
+                   check=True, cwd=root, env=env, timeout=120)
     ref = np.load(out)
     q_new, dq_plus, lam_full = ref["q_new"], ref["dq_plus"], ref["lam_full"]
 
