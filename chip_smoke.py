@@ -4,7 +4,7 @@
 Run from the repository root on a machine with one NVIDIA GPU and the CUDA
 toolkit:  python3 chip_smoke.py
 
-It builds the port's four CUDA kernels from dartenv_tpu_torch/csrc (every
+It builds the port's five CUDA kernels from dartenv_tpu_torch/csrc (every
 build it needs, all nvcc processes started together) and then, in
 float32:
 
@@ -20,6 +20,14 @@ float32:
     no escalation) and DartSnake7Link (14 contact slots, no compaction, no
     escalation; also on a raised ground, where its contacts are live) at
     B = 4096 the substep kernel and the lockstep;
+  * the position-update kernel (dynamics/hopper_integrate) against its
+    plain version batched.integrate_positions on the rollout states of
+    humanwalker (B = 1024), walker3d and dog (B = 4096) and on the
+    multi-skeleton world's (its FREE box): linear columns to the bit,
+    rotation and translation columns within INTEGRATE_TOL (phase
+    integrate); its launches are counted on every path below, one a
+    substep of a model with a BALL or FREE joint, and the plain version's
+    runs, one a substep of any other model;
   * the dynamics kernel against its plain version on cartpole and the
     double pendulum at B = 8192, on walker2d states at B = 4096 and on two
     ModelBuilder chains that hold the six joint types the substep kernel
@@ -285,6 +293,9 @@ PATHS = {("walker2d", False): (4096, 100, 1), ("hopper", False): (4096, 100, 1),
 FUSED_ENVS = {"walker2d": 4096, "hopper": 4096, "walker3d": 4096,
               "humanwalker": 1024, "reacher": 4096, "dog": 4096,
               "snake7link": 4096, "reacher2d": 4096}
+# the FUSED_ENVS with a FREE root, whose position update is the
+# position-update kernel's (phase integrate)
+INTEGRATE_ENVS = ("humanwalker", "walker3d", "dog")
 # DartSnake7Link's PLANAR zx root holds its capsules' axes at the height
 # of their radius, so their contact depth is 0 in every state and no
 # contact row is ever active (the JAX package's model does the same).  Its
@@ -1060,6 +1071,69 @@ def check_dynamics(name, model, B, q, dq, tau, dr_fields=(), dr_vals=(),
                          f"floats" if dr_fields else ""))
 
 
+# the position-update kernel's bound on the rotation and translation
+# columns, max |x - x_ref| / (1 + |x_ref|): tests/test_torch_integrate.py's
+INTEGRATE_TOL = 1e-6
+
+
+def integrate_work(model, B):
+    """(bytes, flops) of one position-update launch for B envs: q and dq
+    read once, q_new written once; 2 flops a column, about 72 a BALL /
+    FREE joint's rotation (two exp-maps to quaternions, their product, the
+    log) and 105 more a FREE joint's translation (the exp-map to a matrix,
+    a matvec), a transcendental counted as one."""
+    from dartenv_tpu_torch.dynamics import hopper_integrate as hi
+
+    table = hi.joint_table(model)
+    flops = 2 * model.n + 72 * len(table) + 105 * int(table[:, 1].sum())
+    return 4 * 3 * model.n * B, flops * B
+
+
+def check_integrate(name, model, q, dq):
+    """Phase integrate for one model: the position-update kernel
+    (dynamics/hopper_integrate.integrate on a float32 CUDA batch, one
+    launch a call) against its plain version batched.integrate_positions
+    on the same (q, dq): the linear columns to the bit, the rotation and
+    translation columns of each BALL / FREE joint within INTEGRATE_TOL."""
+    import torch
+
+    from dartenv_tpu_torch.bench.kernel_stages import device_ms
+    from dartenv_tpu_torch.dynamics import batched
+    from dartenv_tpu_torch.dynamics import hopper_integrate as hi
+
+    B, dt = q.shape[0], model.dt
+    table = hi.joint_table(model)
+    rot = [int(s) + k for s, _ in table for k in range(3)]
+    tra = [int(s) + 3 + k for s, free in table if free for k in range(3)]
+    lin = sorted(set(range(model.n)) - set(rot) - set(tra))
+    launches = hi.INTEGRATE_LAUNCHES
+    got = hi.integrate(model, q, dq, dt)
+    assert hi.INTEGRATE_LAUNCHES == launches + 1, "no kernel launch"
+    ref = batched.integrate_positions(model, q, dq, dt)
+    torch.cuda.synchronize()
+    lin_equal = bool(torch.equal(got[:, lin], ref[:, lin]))
+    rel = lambda c: float(((got[:, c] - ref[:, c]).abs()
+                           / (1.0 + ref[:, c].abs())).max()) if c else 0.0
+    errs = dict(rotation=rel(rot), translation=rel(tra))
+    abs_err = float((got - ref).abs().max())
+    kern = lambda: hi.integrate(model, q, dq, dt)
+    ms = time_ms(kern)
+    dev_ms = device_ms(kern, "integrate_kernel")
+    plain_ms = time_ms(lambda: batched.integrate_positions(model, q, dq, dt),
+                       runs=5, warmup=1)
+    emit("integrate", kernel="integrate", env=name, B=B, n=model.n,
+         joints=len(table), free_joints=int(table[:, 1].sum()),
+         linear_equal=lin_equal, rel_err=errs, abs_err=abs_err, ms=ms,
+         device_ms=dev_ms, plain_ms=plain_ms, tol_rel=INTEGRATE_TOL)
+    assert torch.isfinite(got).all(), name
+    assert lin_equal, f"integrate kernel: linear columns differ on {name}"
+    bad = {k: e for k, e in errs.items() if not e <= INTEGRATE_TOL}
+    assert not bad, f"integrate kernel disagrees on {name}: {bad}"
+    return dict(max_abs_err=abs_err, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound=bound(*integrate_work(model, B)),
+                shape=f"{name} B={B} n={model.n} joints={len(table)}")
+
+
 def random_pushes(model, task, B, gen, dev):
     """(B, nb, 6) external forces as the perturbation branch applies them:
     about half of the envs pushed with `magnitude` N along +-x or +-y at
@@ -1684,29 +1758,22 @@ def drive_dr_path(dev, name, smi):
     counter set to 0 just before and read just after.  Walker2d and
     walker3d run the DR substep kernel and the escalation kernel's fused
     mode on every substep; cartpole (no constraint rows) the DR dynamics
-    kernel.  The
+    kernel; walker3d's position update the position-update kernel, the
+    others' its plain version (integrate_counts).  The
     rate is printed with the card; it sets no limit.  Returns the launch
     counts."""
     import torch
 
-    from dartenv_tpu_torch.bench.throughput import bench_dr
-    from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
-    from dartenv_tpu_torch.engine import hopper_substep as hs
-    from dartenv_tpu_torch.lcp import hopper_bpp as hb
-    from dartenv_tpu_torch.lcp import hopper_pgs as hp
+    from dartenv_tpu_torch.bench.throughput import bench_dr, make_task
     from dartenv_tpu_torch.parallel import domain_rand as tdr
 
     B, substeps = DR_PATHS[name]
-    hs.SUBSTEP_LAUNCHES = hd.DYNAMICS_LAUNCHES = hp.PGS_LAUNCHES = 0
-    hb.CORE_LAUNCHES = hb.FUSED_LAUNCHES = hb.HYBRID_LAUNCHES = 0
-    hs.PLAIN_CALLS = hb.PLAIN_CALLS = hd.PLAIN_CALLS = hp.PLAIN_CALLS = 0
+    zero_counters()
     tdr.PLAIN_DYNAMICS_STEPS = 0
     t0 = time.time()
     out = bench_dr(name, batch=B, substeps=substeps, iters=1, device=dev)
     seconds = time.time() - t0
-    counts = dict(substep=hs.SUBSTEP_LAUNCHES, bpp_core=hb.CORE_LAUNCHES,
-                  bpp_fused=hb.FUSED_LAUNCHES, bpp_hybrid=hb.HYBRID_LAUNCHES,
-                  dynamics=hd.DYNAMICS_LAUNCHES, pgs=hp.PGS_LAUNCHES)
+    counts = read_counters()
     plain = sum(plain_counts())
     emit("dr_path", card=smi, **out,
          nonfinite_envs_max=DR_RUNAWAY_MAX.get(name, 0),
@@ -1715,6 +1782,7 @@ def drive_dr_path(dev, name, smi):
          plain_dynamics_steps=tdr.PLAIN_DYNAMICS_STEPS, seconds=seconds)
     sub = substeps * out["runs"]
     want = dict.fromkeys(counts, 0)
+    want.update(integrate_counts(make_task(name, device=dev).model, sub))
     if name == "cartpole":
         want.update(dynamics=sub)
     else:
@@ -1838,7 +1906,8 @@ def drive_frames_path(dev, smi, states):
          plain_calls=plain, plain_dynamics_steps=tdr.PLAIN_DYNAMICS_STEPS,
          finite_state=finite, seconds=seconds)
     want = dict.fromkeys(counts, 0)
-    want.update(pgs=substeps, bpp_hybrid=substeps)
+    want.update(pgs=substeps, bpp_hybrid=substeps,
+                **integrate_counts(model, substeps))
     assert counts == want, (counts, want)
     assert plain == 0 and tdr.PLAIN_DYNAMICS_STEPS == substeps
     assert finite
@@ -1945,7 +2014,8 @@ def check_bench_cli(dev, smi, root):
          **{f"{k}_launches": v for k, v in counts.items()},
          plain_calls=plain, seconds=seconds)
     want = dict.fromkeys(counts, 0)
-    want.update(substep=sub, bpp_fused=sub)
+    want.update(substep=sub, bpp_fused=sub, **integrate_counts(
+        throughput.make_task("walker2d", device=dev).model, sub))
     assert counts == want, (counts, want)
     assert plain == 0
     assert (detail["escalation_k"], detail["warm_start"], cfg["pgs_iters"],
@@ -1969,7 +2039,8 @@ def check_bench_cli(dev, smi, root):
 
 
 def plain_counts():
-    """The plain-call counters of all four kernels' dispatchers."""
+    """The plain-call counters of the dispatchers of the four kernels that
+    every model's main path runs (the position update's: read_counters)."""
     from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
     from dartenv_tpu_torch.engine import hopper_substep as hs
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
@@ -2097,6 +2168,7 @@ def drive_main_path(dev, name, perturb=False, solver=None, ref64=None):
         name == "humanwalker" and perturb)
     sub = task.frame_skip * steps_run
     want = dict.fromkeys(counts, 0)
+    want.update(integrate_counts(task.model, sub))
     if perturb:                      # the external-force route
         want.update(bpp_hybrid=sub, pgs=sub)
     elif solver == "dantzig":        # kernel 3, the exact solve over B
@@ -2413,6 +2485,7 @@ def profile_calls(fn, calls):
 
 def zero_counters():
     from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+    from dartenv_tpu_torch.dynamics import hopper_integrate as hi
     from dartenv_tpu_torch.engine import hopper_substep as hs
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
     from dartenv_tpu_torch.lcp import hopper_pgs as hp
@@ -2420,17 +2493,37 @@ def zero_counters():
     hs.SUBSTEP_LAUNCHES = hd.DYNAMICS_LAUNCHES = hp.PGS_LAUNCHES = 0
     hb.CORE_LAUNCHES = hb.FUSED_LAUNCHES = hb.HYBRID_LAUNCHES = 0
     hs.PLAIN_CALLS = hb.PLAIN_CALLS = hd.PLAIN_CALLS = hp.PLAIN_CALLS = 0
+    hi.INTEGRATE_LAUNCHES = hi.PLAIN_CALLS = 0
 
 
 def read_counters():
+    """Every kernel's launches, and `integrate_plain`: the runs of the
+    position update's plain version (the main path of a model without a
+    BALL or FREE joint, so it is checked by integrate_counts and not
+    among plain_counts)."""
     from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+    from dartenv_tpu_torch.dynamics import hopper_integrate as hi
     from dartenv_tpu_torch.engine import hopper_substep as hs
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
     from dartenv_tpu_torch.lcp import hopper_pgs as hp
 
     return dict(substep=hs.SUBSTEP_LAUNCHES, bpp_core=hb.CORE_LAUNCHES,
                 bpp_fused=hb.FUSED_LAUNCHES, bpp_hybrid=hb.HYBRID_LAUNCHES,
-                dynamics=hd.DYNAMICS_LAUNCHES, pgs=hp.PGS_LAUNCHES)
+                dynamics=hd.DYNAMICS_LAUNCHES, pgs=hp.PGS_LAUNCHES,
+                integrate=hi.INTEGRATE_LAUNCHES,
+                integrate_plain=hi.PLAIN_CALLS)
+
+
+def integrate_counts(model, calls):
+    """The position update's counts over `calls` substeps of `model` on
+    the card: a kernel launch each (`integrate`) where the model has a
+    BALL or FREE joint, else a run of the plain version each
+    (`integrate_plain`: planar and revolute-only models)."""
+    from dartenv_tpu_torch.dynamics import hopper_integrate as hi
+
+    rot = hi.has_rotations(model)
+    return dict(integrate=calls if rot else 0,
+                integrate_plain=0 if rot else calls)
 
 
 def drive_sim_path(name, dev):
@@ -2492,7 +2585,8 @@ def drive_sim_path(name, dev):
     assert finite and plain == 0
     assert int(resets) <= RUNAWAY_MAX[name], (name, int(resets))
     want = dict.fromkeys(counts, 0)
-    want.update(dynamics=sub, pgs=sub, bpp_hybrid=sub)
+    want.update(dynamics=sub, pgs=sub, bpp_hybrid=sub,
+                **integrate_counts(model, sub))
     assert counts == want, (counts, want)
     return dict(counts, steps=steps)
 
@@ -2807,6 +2901,9 @@ def drive_gym(env_id, dev):
     counts = read_counters()
     sub = task.frame_skip * GYM_STEPS
     want = dict.fromkeys(counts, 0)
+    want.update(integrate_counts(model, sub))
+    # the CPU twin's substeps run the plain version too
+    want["integrate_plain"] += task.frame_skip * len(locks)
     fused = hs.in_fused_scope(model)
     if fused:
         want.update(substep=sub)
@@ -3033,9 +3130,11 @@ def check_facade(dev):
     assert contact["bodies_equal"] and contact["point_err"] <= 1e-3
     assert ext_err <= 1e-3 and servo_err <= 1e-3
     assert ext_counts == dict.fromkeys(ext_counts, 0) | dict(
-        pgs=1, bpp_hybrid=1, steps=1), ext_counts
+        pgs=1, bpp_hybrid=1, steps=1,
+        **integrate_counts(env.model, 1)), ext_counts
     assert servo_counts == dict.fromkeys(servo_counts, 0) | dict(
-        dynamics=4, pgs=4, bpp_hybrid=4, steps=1), servo_counts
+        dynamics=4, pgs=4, bpp_hybrid=4, steps=1,
+        **integrate_counts(senv.model, 4)), servo_counts
     return (ext_counts, dict(pgs=pgs, bpp_hybrid=hyb)), (servo_counts,
                                                          servo_entries)
 
@@ -3302,7 +3401,8 @@ def check_learn(dev, smi):
         assert torch.isfinite(v).all(), k
         assert not torch.equal(v.detach(), first[k]), f"{k} did not move"
     want = dict.fromkeys(counts, 0)
-    want.update(substep=sub, bpp_fused=sub)
+    want.update(substep=sub, bpp_fused=sub,
+                **integrate_counts(task.model, sub))
     assert counts == want, (counts, want)
     assert plain == 0
     bad = {k: e for k, e in held_err.items() if not e <= held_tol[k]}
@@ -3447,6 +3547,7 @@ def check_loaders(dev):
             states = ins + (None,)
             checks = check_phasewise_model(name, model, states)
             lockstep_model(name, model, states)
+        want.update(integrate_counts(model, LOADER_SUBSTEPS))
         assert counts == want, (name, counts, want)
         out[name] = (dict(counts, steps=LOADER_SUBSTEPS), checks)
 
@@ -3562,6 +3663,7 @@ def main():
     from dartenv_tpu_torch.bench import scenes
     from dartenv_tpu_torch.bench.throughput import card_name, make_task
     from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+    from dartenv_tpu_torch.dynamics import hopper_integrate as hi
     from dartenv_tpu_torch.engine.constraints import build_layout
     from dartenv_tpu_torch.engine import hopper_substep as hs
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
@@ -3661,7 +3763,7 @@ def main():
               + [k.start_build() for k in dr_dkerns.values()]
               + [k.start_build() for k in new_dkerns]
               + [k.start_build() for k in fused_loaders]
-              + [knob_kern.start_build()])
+              + [knob_kern.start_build(), hi.start_build()])
     for (m, h), bld in zip(bpp_keys, builds):
         hb.load(m, bld, h)
     hp.load(builds[len(bpp_keys)])
@@ -3669,6 +3771,7 @@ def main():
               + list(dr_kerns.values()) + list(dr_dkerns.values())
               + new_dkerns + fused_loaders + [knob_kern]):
         k.load()
+    hi.load()
     ptxas = {bld.tag + "/" + bld.so_path.split("/")[-2][-6:]:
              [ln.strip() for ln in cuda_build.build_log(bld).splitlines()
               if "registers" in ln or "spill" in ln or "Compiling" in ln]
@@ -3707,6 +3810,10 @@ def main():
     checks = {e: check_env(e, Be, dev) for e, Be in FUSED_ENVS.items()}
     envelopes = {e: residual_envelope(e, dev, checks[e]["states"])
                  for e in residual.JAX_ENVELOPE}
+
+    # ---- 5b. the position-update kernel vs its plain version ------------
+    integ = {e: check_integrate(e, kerns[e].model, *checks[e]["states"][:2])
+             for e in INTEGRATE_ENVS}
 
     # ---- 6. dynamics kernel vs its plain version ------------------------
     dyn = {}
@@ -3752,6 +3859,7 @@ def main():
         sim_checks[p] = check_phasewise_model(p, model, states)
         lockstep_model(p, model, states)
         if p == "multiskel":
+            integ[p] = check_integrate(p, model, *states[:2])
             check_capture(p, model, states)
             table_space(p, model, gkern, *states[:3])
             capsule_box_pairs(model, *states[:2])
@@ -3821,6 +3929,9 @@ def main():
                 "dartenv_tpu/lcp/pallas_pgs.py:131"),
         "bpp_core": ("bpp_core", "dartenv_tpu_torch/csrc/bpp.cu",
                      "dartenv_tpu/lcp/pallas_bpp.py:232"),
+        # port-only: XLA fuses the JAX package's position update
+        "integrate": ("integrate", "dartenv_tpu_torch/csrc/integrate.cu",
+                      "dartenv_tpu/dynamics/batched.py:384"),
     }
     # (env, path: a PATHS key or "dr", kernel, its check)
     entries = [(e, (e, False), key, checks[e][phase])
@@ -3842,6 +3953,11 @@ def main():
                 ("humanwalker", ("humanwalker", True), "pgs", pgs_hw),
                 ("humanwalker", ("humanwalker", True), "bpp_hybrid",
                  hybrid_hw)]
+    entries += [(e, (e, False), "integrate", integ[e])
+                for e in INTEGRATE_ENVS]
+    entries += [("humanwalker", ("humanwalker", True), "integrate",
+                 integ["humanwalker"]),
+                ("walker3d", "dr", "integrate", integ["walker3d"])]
     # (label, launch counts of its path, kernel, its check)
     rows = []
     for e, path, key, c in entries:
@@ -3853,6 +3969,8 @@ def main():
     # the slice's paths
     rows += [(p, sim_counts[p], key, sim_checks[p][key])
              for p in SIM_PATHS for key in ("dynamics", "pgs", "bpp_hybrid")]
+    rows += [("multiskel", sim_counts["multiskel"], "integrate",
+              integ["multiskel"])]
     hw_ref64 = ref64_counts[("humanwalker", False)]
     rows += [("humanwalker_ref64", hw_ref64, "substep",
               checks["humanwalker"]["substep"]),

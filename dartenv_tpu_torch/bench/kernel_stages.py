@@ -20,7 +20,11 @@ the random policy), it prints one JSON object with
     and stage (the latency of the stage as lane 0 of a warp sees it);
   * the unstamped kernels' device times (`device_ms`) and their wrappers'
     times (`wrapper_ms`, CUDA events, allocation and ctypes call
-    included) at the same shapes.
+    included) at the same shapes;
+  * for a model with a BALL or FREE joint, the position-update kernel
+    (csrc/integrate.cu) on the batch's (q, dq): device and wrapper times,
+    its plain version's time, its largest gap to the plain version and its
+    registers (`integrate`; null for other models).
 
 Device times are the kernels' own, from torch.profiler over 20 launches.
 The card's name and power limit are in the output.  Needs a GPU.
@@ -254,8 +258,33 @@ def dynamics_split(model, q, dq, tau):
     return out
 
 
+def integrate_times(model, q, dq):
+    """The position-update kernel (csrc/integrate.cu) on (q, dq): device
+    and wrapper times, its plain version's wrapper time, the largest
+    |x - x_plain| / (1 + |x_plain|) and the compiler's register report."""
+    from dartenv_tpu_torch import cuda_build
+    from dartenv_tpu_torch.dynamics import batched
+    from dartenv_tpu_torch.dynamics import hopper_integrate as hi
+
+    dt = model.dt
+    kern = lambda: hi.integrate_cuda(model, q, dq, dt)
+    plain = lambda: batched.integrate_positions(model, q, dq, dt)
+    got, ref = kern(), plain()          # the first call builds and loads
+    err = ((got - ref).abs() / (1.0 + ref.abs())).max()
+    log = cuda_build.build_log(hi.start_build())
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    return dict(B=int(q.shape[0]), n=model.n,
+                joints=int(hi.joint_table(model).shape[0]),
+                device_ms=device_ms(kern, "integrate_kernel"),
+                wrapper_ms=wrapper_ms(kern),
+                plain_wrapper_ms=wrapper_ms(plain),
+                max_rel_err=float(err), ptxas=ptxas)
+
+
 def run(env="walker2d", batch=4096):
     from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.dynamics import hopper_integrate as hi
 
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_stages needs a CUDA device")
@@ -263,6 +292,9 @@ def run(env="walker2d", batch=4096):
     ss, es = substep_and_escalate(task, q, dq, tau, lam, batch)
     pg = pgs_split(task, (q, dq, tau, lam), batch)
     dy = {env: dynamics_split(task.model, q, dq, tau)}
+    ig = None
+    if hi.has_rotations(task.model):
+        ig = integrate_times(task.model, q, dq)
     cart = make_task("cartpole", device="cuda").model
     dy["cartpole"] = dynamics_split(cart, *random_states(cart, 2 * batch))
 
@@ -272,7 +304,7 @@ def run(env="walker2d", batch=4096):
         text=True).stdout.strip()
     return {"env": env, "batch": batch, "card": smi,
             "substep_stages": ss, "escalate_stages": es,
-            "pgs_stages": pg, "dynamics_stages": dy}
+            "pgs_stages": pg, "dynamics_stages": dy, "integrate": ig}
 
 
 def main():

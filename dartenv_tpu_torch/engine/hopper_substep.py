@@ -13,7 +13,9 @@ One substep of a batch is
      `keep_best` of lcp/hybrid): on a float32 CUDA batch a top-K and ONE
      launch of the escalation kernel's fused mode (lcp/hopper_bpp.
      bpp_fused), otherwise its plain version `escalate_reference`;
-  3. `integrate_positions`.
+  3. the position update, dynamics/hopper_integrate.integrate (one launch
+     of the position-update kernel on a float32 CUDA batch of a model with
+     a BALL or FREE joint, otherwise batched.integrate_positions).
 
 Scope of the fused path (as in the JAX package): world pairs of sphere /
 capsule / box against a halfspace, no self pairs, no servo rows, at least
@@ -43,7 +45,7 @@ import torch
 
 from dartenv_tpu_torch import cuda_build
 from dartenv_tpu_torch.collision.narrowphase import Contacts, collide
-from dartenv_tpu_torch.dynamics import batched
+from dartenv_tpu_torch.dynamics import batched, hopper_integrate
 from dartenv_tpu_torch.dynamics.hopper_dynamics import (
     DR_FIELDS_DYN, c_ptrs, c_float, c_floats, c_ints, dr_inputs, dr_layout,
     dynamics_header, with_leaves,
@@ -664,9 +666,9 @@ def make_substep_phase(model: SkelModel, dr_fields=()):
     are ignored, and the Contacts carry per-env friction and restitution
     where those leaves are per-env.  A float32 CUDA batch runs the
     substep kernel + `escalate_batch` (the escalation kernel's fused mode,
-    in the span `constraints`) + `integrate_positions` (in the span
-    `integrate`); a CPU or float64 batch runs the plain versions in the
-    same sequence."""
+    in the span `constraints`) + `hopper_integrate.integrate` (in the
+    span `integrate`); a CPU or float64 batch runs the plain versions in
+    the same sequence."""
     dr_fields = tuple(dr_fields)
     if not in_fused_scope(model):
         return None
@@ -674,6 +676,7 @@ def make_substep_phase(model: SkelModel, dr_fields=()):
         return None
     if any(f not in DR_FIELDS_SUB for f in dr_fields):
         return None
+    hopper_integrate.prepare(model)
     st = _SubStatic(model)
     cfg = model.solver
     dt = st.dt
@@ -719,7 +722,7 @@ def make_substep_phase(model: SkelModel, dr_fields=()):
                 dq_plus, lam_full = escalate_batch(
                     st, cfg, outs, dq_plus, lam_full, exact1, exact2)
         with span("integrate"):
-            q_new = batched.integrate_positions(model, q, dq_plus, dt)
+            q_new = hopper_integrate.integrate(model, q, dq_plus, dt)
         normal, fric, rest, gi, wi = consts(q)
         if per_env_contact:
             fric, rest = slot_contact_values(model, dr_fields, dr_vals, gi,

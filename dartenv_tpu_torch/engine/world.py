@@ -20,7 +20,9 @@ float32 CUDA batch) unless an external force is given, which takes the
 plain dynamics/batched path; step 4 through
 engine/constraints.solve_constraints (on a float32 CUDA batch the PGS
 kernel and the BPP kernel for escalation, or in the "dantzig" mode the
-BPP kernel over the whole batch).
+BPP kernel over the whole batch); step 5, on either path, through
+dynamics/hopper_integrate.integrate (the position-update kernel on a
+float32 CUDA batch of a model with a BALL or FREE joint).
 
 The phases run inside spans (utils/span.py: torch.profiler
 record_function ranges while a profiler runs, nothing otherwise) named
@@ -29,7 +31,7 @@ to its phase:
 
   substep_fused       the fused phase: kernel 1, the Contacts assembly
     constraints         in it, escalate_batch (top K, kernel 2 fused)
-    integrate           in it, integrate_positions
+    integrate           in it, the position update
   substep_fused_dr    the fused phase of a randomized batch, split alike
   dynamics            phase-wise steps 1-2
   collision           phase-wise step 3
@@ -49,7 +51,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from dartenv_tpu_torch.collision.narrowphase import collide
-from dartenv_tpu_torch.dynamics import batched
+from dartenv_tpu_torch.dynamics import batched, hopper_integrate
 from dartenv_tpu_torch.dynamics.hopper_dynamics import make_dynamics_phase
 from dartenv_tpu_torch.engine.constraints import (
     assemble_lcp, build_layout, compact_lam, run_lcp_solver,
@@ -114,7 +116,7 @@ def phasewise_substep(model: SkelModel, layout, state: SimState, tau,
             model, layout, phi, M, q, dq, dq_star, contacts, dt,
             lam_prev=state.lam, servo_target=servo_target)
     with span("integrate"):
-        q_new = batched.integrate_positions(model, q, dq_plus, dt)
+        q_new = hopper_integrate.integrate(model, q, dq_plus, dt)
     return q_new, dq_plus, lam, contacts
 
 
@@ -130,6 +132,7 @@ def make_sim_step(model: SkelModel, return_impulses: bool = False
     path; only an external force bypasses the dynamics phase."""
     layout = build_layout(model)
     dt = model.dt
+    hopper_integrate.prepare(model)
     sub_phase = make_substep_phase(model)
     dyn_phase = make_dynamics_phase(model)
 

@@ -99,12 +99,13 @@ def make_envelope_substep(model):
     """sub(q, dq, lam, tau) -> (q', dq', lam', diag): one substep of the
     fused path as engine/hopper_substep.make_substep_phase runs it (the
     substep kernel on a float32 CUDA batch, else its plain version; the
-    escalation; the position update), with the escalation through
+    escalation; the position update through hopper_integrate.integrate,
+    the fused phase's own dispatch), with the escalation through
     escalate_batch(with_diag=True), whose record `diag` (res_pre, idx,
     envelope) it returns.  For a model in the fused path's scope that
     escalates; `sub.st` is its static data."""
     from dartenv_tpu_torch import cuda_build
-    from dartenv_tpu_torch.dynamics.batched import integrate_positions
+    from dartenv_tpu_torch.dynamics import hopper_integrate
     from dartenv_tpu_torch.engine import hopper_substep as hs
 
     st = hs._SubStatic(model)
@@ -126,7 +127,7 @@ def make_envelope_substep(model):
         dq_plus, lam_full, diag = hs.escalate_batch(
             st, cfg, outs, outs["dq_plus"], outs["lam_full"], exact1, exact2,
             with_diag=True)
-        q_new = integrate_positions(model, q, dq_plus, st.dt)
+        q_new = hopper_integrate.integrate(model, q, dq_plus, st.dt)
         return q_new, dq_plus, lam_full, diag
 
     sub.st = st

@@ -50,7 +50,9 @@ def test_port_sources_exist():
               "csrc/pgs.cu", "csrc/dynamics_body.h",
               "csrc/dynamics_host.cpp", "csrc/pgs_row.h",
               "csrc/escalate_body.h", "csrc/escalate_host.cpp",
-              "csrc/pgs_host.cpp",
+              "csrc/pgs_host.cpp", "csrc/integrate.cu",
+              "csrc/integrate_body.h", "csrc/integrate_host.cpp",
+              "dynamics/hopper_integrate.py",
               "model/assets/walker2d.skel",
               "model/assets/hopper_capsule.skel",
               "model/assets/cartpole.skel",
