@@ -689,9 +689,9 @@ def check_env(name, B, dev):
     line needs."""
     import torch
 
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.engine import hopper_substep as hs
     from dartenv_tpu_torch.engine.world import SimState, make_sim_step
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.parallel.vec_env import VecEnv
 
     task = make_task(name, device=dev)
@@ -915,7 +915,7 @@ def residual_envelope(name, dev, states, control_steps=25):
     gate."""
     import torch
 
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.validation import residual
 
     task = make_task(name, device=dev)
@@ -1346,7 +1346,7 @@ def check_pgs(dev, name, states, ref64=0):
 
     import torch
 
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.lcp.hybrid import escalation_size
 
     task = make_task(name, device=dev)
@@ -1442,7 +1442,7 @@ def check_core_batch(name, dev, states):
     import torch
 
     from dartenv_tpu_torch.bench.kernel_stages import device_ms
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
     from dartenv_tpu_torch.lcp.dantzig import make_exact_solver
     from dartenv_tpu_torch.lcp.hybrid import comp_residual
@@ -1624,10 +1624,11 @@ def lockstep_dr(dev, kern, states):
     lockstep holds the paths without DR."""
     import torch
 
-    from dartenv_tpu_torch.bench.throughput import DR_SPEC, make_task
+    from dartenv_tpu_torch.bench.throughput import DR_SPEC
     from dartenv_tpu_torch.dynamics.hopper_dynamics import with_leaves
     from dartenv_tpu_torch.engine import hopper_substep as hs
     from dartenv_tpu_torch.engine.world import SimState
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.parallel.domain_rand import (
         make_randomized_sim_step, randomize_model,
     )
@@ -1764,7 +1765,8 @@ def drive_dr_path(dev, name, smi):
     counts."""
     import torch
 
-    from dartenv_tpu_torch.bench.throughput import bench_dr, make_task
+    from dartenv_tpu_torch.bench.throughput import bench_dr
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.parallel import domain_rand as tdr
 
     B, substeps = DR_PATHS[name]
@@ -1828,8 +1830,8 @@ def drive_frames_path(dev, smi, states):
     launch counts."""
     import torch
 
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.engine.world import SimState
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.parallel import domain_rand as tdr
 
     task = make_task("walker2d", device=dev)
@@ -1925,8 +1927,8 @@ BENCH_KNOBS = ["--env", "walker2d", "--batch", "8192", "--cold",
 
 def knob_model(dev):
     """walker2d's model with BENCH_KNOBS' solver overrides."""
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.envs.base import with_solver
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     return with_solver(make_task("walker2d", device=dev).model,
                        pgs_iters=12, escalate_kmax=256)
@@ -1986,6 +1988,7 @@ def check_bench_cli(dev, smi, root):
     with the substep kernel's and the fused mode's launches inside it.
     Returns the knob run's launch counts."""
     from dartenv_tpu_torch.bench import throughput
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     t0 = time.time()
     runs = throughput.main(["--all", "--horizon", "10", "--iters", "1"])
@@ -2005,7 +2008,7 @@ def check_bench_cli(dev, smi, root):
     counts = read_counters()
     plain = sum(plain_counts())
     sub = (detail["control_steps_run"]
-           * throughput.make_task("walker2d", device=dev).frame_skip)
+           * make_task("walker2d", device=dev).frame_skip)
     cfg = detail["solver_config"]
     emit("bench_cli", check="knobs", argv=BENCH_KNOBS, metric=line,
          escalation_k=detail["escalation_k"],
@@ -2015,7 +2018,7 @@ def check_bench_cli(dev, smi, root):
          plain_calls=plain, seconds=seconds)
     want = dict.fromkeys(counts, 0)
     want.update(substep=sub, bpp_fused=sub, **integrate_counts(
-        throughput.make_task("walker2d", device=dev).model, sub))
+        make_task("walker2d", device=dev).model, sub))
     assert counts == want, (counts, want)
     assert plain == 0
     assert (detail["escalation_k"], detail["warm_start"], cfg["pgs_iters"],
@@ -2060,10 +2063,10 @@ def lockstep_phasewise(name, dev, states=None, perturb=False, solver=None):
     the fused path).  Contact sets compared after every substep."""
     import torch
 
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.engine.constraints import build_layout
     from dartenv_tpu_torch.engine.world import SimState, make_sim_step
     from dartenv_tpu_torch.envs.base import make_env_reset
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     B = 1024 if states is None else min(1024, states[0].shape[0])
     task = make_task(name, device=dev, lcp_solver=solver)
@@ -2984,8 +2987,8 @@ def check_image(dev):
     import numpy as np
     import torch
 
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.envs import DartEnv
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     env = DartEnv(make_task("hopper", device=dev), obs_type="image",
                   screen_width=80, screen_height=45)
@@ -3148,9 +3151,9 @@ def check_checked(dev, states):
     medians of CHECKED_REPEATS interleaved rounds with their spread."""
     import torch
 
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.engine import debug
     from dartenv_tpu_torch.engine.world import SimState, make_sim_step
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     model = make_task("walker2d", device=dev).model
     q, dq, tau, lam = states
@@ -3200,7 +3203,7 @@ def check_trace(dev):
     import numpy as np
     import torch
 
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.validation import capture_trace, compare_traces
 
     T = 200
@@ -3234,7 +3237,7 @@ def check_resume(dev, root):
 
     import torch
 
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.parallel.vec_env import VecEnv
     from dartenv_tpu_torch.utils import checkpoint as ckpt
 
@@ -3337,7 +3340,7 @@ def check_learn(dev, smi):
     import torch
     import torch.distributed as dist
 
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.parallel.sharding import distributed_init
     from dartenv_tpu_torch.parallel.train import (
         make_train_step, reinforce_update,
@@ -3419,7 +3422,7 @@ def loader_worlds(dev):
     import tempfile
 
     from dartenv_tpu_torch.bench import scenes
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.model import skel_model as sm
     from dartenv_tpu_torch.model.sdf_loader import parse_sdf
     from dartenv_tpu_torch.model.urdf_loader import parse_urdf
@@ -3591,8 +3594,8 @@ def check_golden(dev, checks):
     import torch
 
     from dartenv_tpu_torch import native
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.lcp.dantzig import make_exact_solver
     from dartenv_tpu_torch.validation.residual import comp_residual
 
@@ -3661,11 +3664,12 @@ def main():
     import dartenv_tpu_torch  # noqa: F401  (asserts full-f32 products)
     from dartenv_tpu_torch import cuda_build
     from dartenv_tpu_torch.bench import scenes
-    from dartenv_tpu_torch.bench.throughput import card_name, make_task
+    from dartenv_tpu_torch.bench.throughput import card_name
     from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
     from dartenv_tpu_torch.dynamics import hopper_integrate as hi
     from dartenv_tpu_torch.engine.constraints import build_layout
     from dartenv_tpu_torch.engine import hopper_substep as hs
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
     from dartenv_tpu_torch.lcp import hopper_pgs as hp
     from dartenv_tpu_torch.validation import residual

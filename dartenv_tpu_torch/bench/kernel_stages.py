@@ -105,7 +105,7 @@ def stage_split(lib_fn, names, launch, per):
 
 def live_batch(env, batch, steps=25):
     """(task, q, dq, tau, lam) after `steps` control steps of a rollout."""
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.parallel.vec_env import VecEnv
 
     dev = torch.device("cuda")
@@ -283,8 +283,8 @@ def integrate_times(model, q, dq):
 
 
 def run(env="walker2d", batch=4096):
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.dynamics import hopper_integrate as hi
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_stages needs a CUDA device")

@@ -1,7 +1,7 @@
 """Where one control step's time goes on the card.
 
     python -m dartenv_tpu_torch.bench.profile_step [--env walker2d]
-        (any name of bench/throughput._TASKS: walker3d, humanwalker, ...)
+        (any name of envs/tasks._TASKS: walker3d, humanwalker, ...)
         [--batch 4096] [--steps 20] [--perturb | --dr]
         [--solver pgs|dantzig] [--escalate_ref64 N]
         [--out out/profile.json]
@@ -69,7 +69,8 @@ def profile(env="walker2d", batch=4096, steps=20, top=12, perturb=False,
     them."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    from dartenv_tpu_torch.bench.throughput import card_name, make_task
+    from dartenv_tpu_torch.bench.throughput import card_name
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
@@ -121,7 +122,7 @@ def profile(env="walker2d", batch=4096, steps=20, top=12, perturb=False,
 
 
 def main():
-    from dartenv_tpu_torch.bench.throughput import _TASKS
+    from dartenv_tpu_torch.envs.tasks import _TASKS
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--env", default="walker2d", choices=sorted(_TASKS))

@@ -142,8 +142,8 @@ def walker_box_world(device="cuda", dtype=None, contact_cap: int = 10):
     `contact_cap` kept slots (10: 36 solver rows)."""
     import torch
 
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.envs.base import with_solver
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.model.compose import compose_models
 
     dtype = dtype or torch.float32
@@ -159,7 +159,7 @@ def servo_walker(device="cuda", dtype=None, flimit: float = 50.0):
     contact and limit rows, boxed to +-flimit * dt with findex -1."""
     import torch
 
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     dtype = dtype or torch.float32
     model = make_task("walker2d", device=device, dtype=dtype).model

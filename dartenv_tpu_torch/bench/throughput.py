@@ -17,6 +17,8 @@ import time
 
 import torch
 
+from dartenv_tpu_torch.envs.tasks import _TASKS, make_task
+
 # The JAX bench's anecdotal single-core CPU estimate of the reference
 # stack's speed (its SURVEY.md section 6; the reference publishes no
 # number): the denominator of `vs_baseline`, not a measurement.
@@ -28,34 +30,6 @@ REFERENCE_CPU_STEPS_PER_S = 5000.0
 BASELINE_CONFIGS = (("cartpole", 8192, 1000), ("reacher", 4096, 100),
                     ("hopper", 4096, 100), ("walker2d", 4096, 100),
                     ("humanwalker", 1024, 100))
-
-_TASKS = {
-    "cartpole": ("dartenv_tpu_torch.envs.cart_pole", "make_cartpole_task"),
-    "hopper": ("dartenv_tpu_torch.envs.hopper", "make_hopper_task"),
-    "walker2d": ("dartenv_tpu_torch.envs.walker2d", "make_walker2d_task"),
-    "doublependulum": ("dartenv_tpu_torch.envs.double_pendulum",
-                       "make_double_pendulum_task"),
-    "reacher": ("dartenv_tpu_torch.envs.reacher", "make_reacher_task"),
-    "walker3d": ("dartenv_tpu_torch.envs.walker3d", "make_walker3d_task"),
-    "humanwalker": ("dartenv_tpu_torch.envs.human_walker",
-                    "make_humanwalker_task"),
-    "reacher2d": ("dartenv_tpu_torch.envs.reacher2d", "make_reacher2d_task"),
-    "snake7link": ("dartenv_tpu_torch.envs.snake_7link",
-                   "make_snake7link_task"),
-    "dog": ("dartenv_tpu_torch.envs.dog", "make_dog_task"),
-}
-
-
-def make_task(name: str, dtype=torch.float32, device="cuda",
-              lcp_solver=None, **solver_kw):
-    """The named task on `device`; `lcp_solver` ("pgs" or "dantzig", None:
-    the task's own) picks the contact solver and `solver_kw` overrides
-    SolverConfig fields, as the task factories take them."""
-    import importlib
-
-    mod, fn = _TASKS[name]
-    return getattr(importlib.import_module(mod), fn)(
-        dtype=dtype, device=device, lcp_solver=lcp_solver, **solver_kw)
 
 
 def random_policy(task):

@@ -323,20 +323,33 @@ def run_lcp_solver(cfg, findex, A, b, lo, hi, mu, active, lam0):
                   torch.zeros_like(b) if lam0 is None else lam0)
 
 
-def solve_constraints(model: SkelModel, layout: RowLayout, phi,
-                      M, q, dq_before, dq_star, contacts: Contacts, dt,
-                      lam_prev=None, servo_target=None):
-    """Assemble + solve the per-env boxed LCP (run_lcp_solver); returns
-    (dq_plus, lam) with lam on the full row stack.  servo_target: (B, n)
-    servo commands, or None for zero commands."""
-    if layout.m == 0:
-        return dq_star, dq_star.new_zeros((dq_star.shape[0], 0))
-    A, b, lo, hi, active, mu, findex, MinvJt, row_sel, _ = assemble_lcp(
-        model, layout, phi, M, q, dq_before, dq_star, contacts, dt,
-        servo_target=servo_target)
+def solve_lcp(model: SkelModel, layout: RowLayout, phi, M, q, dq_before,
+              dq_star, contacts: Contacts, dt, lam_prev=None,
+              servo_target=None):
+    """assemble_lcp, the warm start compacted (compact_lam), run_lcp_solver
+    and the velocity update.  Returns (dq_plus, lam, lcp): lam on the
+    solver's (compacted) rows, lcp the tuple assemble_lcp returned."""
+    lcp = assemble_lcp(model, layout, phi, M, q, dq_before, dq_star,
+                       contacts, dt, servo_target=servo_target)
+    A, b, lo, hi, active, mu, findex, MinvJt, row_sel, _ = lcp
     lam0 = (compact_lam(lam_prev, row_sel, active)
             if lam_prev is not None else None)
     lam = run_lcp_solver(model.solver, findex, A, b, lo, hi, mu, active,
                          lam0)
     dq_plus = dq_star + torch.sum(MinvJt * lam[:, None, :], dim=-1)
+    return dq_plus, lam, lcp
+
+
+def solve_constraints(model: SkelModel, layout: RowLayout, phi,
+                      M, q, dq_before, dq_star, contacts: Contacts, dt,
+                      lam_prev=None, servo_target=None):
+    """Assemble + solve the per-env boxed LCP (solve_lcp); returns
+    (dq_plus, lam) with lam on the full row stack.  servo_target: (B, n)
+    servo commands, or None for zero commands."""
+    if layout.m == 0:
+        return dq_star, dq_star.new_zeros((dq_star.shape[0], 0))
+    dq_plus, lam, lcp = solve_lcp(model, layout, phi, M, q, dq_before,
+                                  dq_star, contacts, dt, lam_prev,
+                                  servo_target)
+    row_sel = lcp[8]
     return dq_plus, scatter_lam(lam, row_sel, layout.m)

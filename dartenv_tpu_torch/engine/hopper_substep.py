@@ -655,11 +655,14 @@ def slot_contact_values(model: SkelModel, dr_fields, dr_vals, gi, wi, ref):
     return fric, rest
 
 
-def make_substep_phase(model: SkelModel, dr_fields=()):
+def make_substep_phase(model: SkelModel, dr_fields=(),
+                       with_diag: bool = False):
     """sub(q, dq, lam_prev, tau, *dr_vals) -> (q_new, dq_plus, lam_full,
     Contacts) for a batch, or None when the model is outside the fused
     path's scope (the caller keeps the phase-wise path) or a DR field is
-    outside DR_FIELDS_SUB.
+    outside DR_FIELDS_SUB.  With `with_diag` (ValueError for a model that
+    does not escalate) escalate_batch's record is a fifth value.  `sub.st`
+    is the phase's static data.
 
     dr_vals: the per-env values of the `dr_fields` leaves, (B, ...)
     tensors; `model` is then the base model, whose values of those leaves
@@ -690,6 +693,8 @@ def make_substep_phase(model: SkelModel, dr_fields=()):
         "wg_restitution"})
 
     exact1, exact2 = escalation_tiers(st, cfg)
+    if with_diag and exact1 is None:
+        raise ValueError(f"{model.name}: no escalation to record")
     kernel: List[Optional[SubstepKernel]] = [None]
     slot_consts = {}      # (device, dtype) -> static per-slot contact data
 
@@ -716,11 +721,12 @@ def make_substep_phase(model: SkelModel, dr_fields=()):
             PLAIN_CALLS += 1
             outs = substep_reference(with_leaves(model, dr_fields, dr_vals),
                                      st, q, dq, tau, lam_prev)
-        dq_plus, lam_full = outs["dq_plus"], outs["lam_full"]
+        dq_plus, lam_full, diag = outs["dq_plus"], outs["lam_full"], ()
         if exact1 is not None:
             with span("constraints"):
-                dq_plus, lam_full = escalate_batch(
-                    st, cfg, outs, dq_plus, lam_full, exact1, exact2)
+                dq_plus, lam_full, *diag = escalate_batch(
+                    st, cfg, outs, dq_plus, lam_full, exact1, exact2,
+                    with_diag=with_diag)
         with span("integrate"):
             q_new = hopper_integrate.integrate(model, q, dq_plus, dt)
         normal, fric, rest, gi, wi = consts(q)
@@ -734,6 +740,7 @@ def make_substep_phase(model: SkelModel, dr_fields=()):
             friction=fric.expand(B, ns), restitution=rest.expand(B, ns),
             overflow=outs["overflow"][:, 0],
         )
-        return q_new, dq_plus, lam_full, contacts
+        return (q_new, dq_plus, lam_full, contacts, *diag)
 
+    sub.st = st
     return sub

@@ -54,8 +54,7 @@ from dartenv_tpu_torch.collision.narrowphase import collide
 from dartenv_tpu_torch.dynamics import batched, hopper_integrate
 from dartenv_tpu_torch.dynamics.hopper_dynamics import make_dynamics_phase
 from dartenv_tpu_torch.engine.constraints import (
-    assemble_lcp, build_layout, compact_lam, run_lcp_solver,
-    solve_constraints,
+    build_layout, solve_constraints, solve_lcp,
 )
 from dartenv_tpu_torch.engine.hopper_substep import make_substep_phase
 from dartenv_tpu_torch.model.skel_model import SkelModel
@@ -120,6 +119,25 @@ def phasewise_substep(model: SkelModel, layout, state: SimState, tau,
     return q_new, dq_plus, lam, contacts
 
 
+def _lam_prev(state: SimState, m: int):
+    """A substep's warm start: the carried impulses, or zeros (B, m) when
+    the state does not warm-start."""
+    if state.lam is not None:
+        return state.lam
+    return state.q.new_zeros((state.q.shape[0], m))
+
+
+def _advance(state: SimState, dt, q_new, dq_plus, lam, contacts,
+             return_impulses: bool = False):
+    """(state', out) after a substep: lam carried only where the state
+    warm-starts; out is the Contacts, or (Contacts, lam) with
+    `return_impulses`."""
+    out = (contacts, lam) if return_impulses else contacts
+    lam_carry = lam if state.lam is not None else None
+    return SimState(q=q_new, dq=dq_plus, time=state.time + dt,
+                    lam=lam_carry), out
+
+
 def make_sim_step(model: SkelModel, return_impulses: bool = False
                   ) -> Callable:
     """Build the single-substep function of a model:
@@ -131,28 +149,21 @@ def make_sim_step(model: SkelModel, return_impulses: bool = False
     rows (None: zero commands).  A step given either takes the phase-wise
     path; only an external force bypasses the dynamics phase."""
     layout = build_layout(model)
-    dt = model.dt
     hopper_integrate.prepare(model)
     sub_phase = make_substep_phase(model)
     dyn_phase = make_dynamics_phase(model)
 
     def step(state: SimState, tau, f_ext_world=None, servo_target=None):
-        q, dq = state.q, state.dq
         if (sub_phase is not None and f_ext_world is None
                 and servo_target is None):
             with span("substep_fused"):
-                lam_prev = (state.lam if state.lam is not None
-                            else q.new_zeros((q.shape[0], layout.m)))
-                q_new, dq_plus, lam, contacts = sub_phase(q, dq, lam_prev,
-                                                          tau)
+                res = sub_phase(state.q, state.dq,
+                                _lam_prev(state, layout.m), tau)
         else:
             dyn = dyn_phase if f_ext_world is None else None
-            q_new, dq_plus, lam, contacts = phasewise_substep(
-                model, layout, state, tau, dyn, f_ext_world, servo_target)
-        out = (contacts, lam) if return_impulses else contacts
-        lam_carry = lam if state.lam is not None else None
-        return SimState(q=q_new, dq=dq_plus, time=state.time + dt,
-                        lam=lam_carry), out
+            res = phasewise_substep(model, layout, state, tau, dyn,
+                                    f_ext_world, servo_target)
+        return _advance(state, model.dt, *res, return_impulses)
 
     return step
 
@@ -170,24 +181,16 @@ def make_dr_sim_step(model: SkelModel, dr_fields,
     float64 batch runs their plain versions on the per-env model.  None
     when the fused path cannot serve the model or a field is outside
     hopper_substep.DR_FIELDS_SUB (the caller keeps the phase-wise path)."""
-    dr_fields = tuple(dr_fields)
-    sub_phase = make_substep_phase(model, dr_fields=dr_fields)
+    sub_phase = make_substep_phase(model, dr_fields=tuple(dr_fields))
     if sub_phase is None:
         return None
-    layout = build_layout(model)
-    dt = model.dt
+    m = build_layout(model).m
 
     def step(state: SimState, tau, dr_vals):
-        q, dq = state.q, state.dq
-        lam_prev = (state.lam if state.lam is not None
-                    else q.new_zeros((q.shape[0], layout.m)))
+        lam_prev = _lam_prev(state, m)
         with span("substep_fused_dr"):
-            q_new, dq_plus, lam, contacts = sub_phase(q, dq, lam_prev, tau,
-                                                      *dr_vals)
-        out = (contacts, lam) if return_impulses else contacts
-        lam_carry = lam if state.lam is not None else None
-        return SimState(q=q_new, dq=dq_plus, time=state.time + dt,
-                        lam=lam_carry), out
+            res = sub_phase(state.q, state.dq, lam_prev, tau, *dr_vals)
+        return _advance(state, model.dt, *res, return_impulses)
 
     return step
 
@@ -198,7 +201,7 @@ def make_lcp_capture(model: SkelModel) -> Callable:
     compaction), and the engine's own solution: A (B, m, m), b, lo, hi,
     active, mu (B, m), findex (m,) numpy, lam (B, m), dq_star and dq_plus
     (B, n).  The LCPs are built from the plain dynamics; `lam` comes from
-    engine/constraints.run_lcp_solver, the production solve (on a float32
+    engine/constraints.solve_lcp, the production solve (on a float32
     CUDA batch the PGS kernel and the BPP kernel's hybrid mode, or its
     core mode in the "dantzig" mode)."""
     layout = build_layout(model)
@@ -210,16 +213,12 @@ def make_lcp_capture(model: SkelModel) -> Callable:
         ddq, M = batched.forward_dynamics(model, kin, q, dq, tau, dt, None)
         dq_star = dq + dt * ddq
         contacts = collide(model, kin.R_w, kin.p_w)
-        A, b, lo, hi, active, mu, findex, MinvJt, row_sel, _ = assemble_lcp(
-            model, layout, kin.phi, M, q, dq, dq_star, contacts, dt)
-        lam0 = (compact_lam(state.lam, row_sel, active)
-                if state.lam is not None else None)
-        lam = run_lcp_solver(model.solver, findex, A, b, lo, hi, mu, active,
-                             lam0)
+        dq_plus, lam, lcp = solve_lcp(model, layout, kin.phi, M, q, dq,
+                                      dq_star, contacts, dt, state.lam)
+        A, b, lo, hi, active, mu, findex = lcp[:7]
         return dict(A=A, b=b, lo=lo, hi=hi, active=active, mu=mu,
                     findex=findex, lam=lam, dq_star=dq_star,
-                    dq_plus=dq_star + torch.sum(MinvJt * lam[:, None, :],
-                                                dim=-1))
+                    dq_plus=dq_plus)
 
     return capture
 

@@ -31,7 +31,7 @@ from dartenv_tpu_torch.dynamics.hopper_dynamics import (
 )
 from dartenv_tpu_torch.engine.constraints import build_layout
 from dartenv_tpu_torch.engine.world import (
-    SimState, make_dr_sim_step, phasewise_substep,
+    _advance, make_dr_sim_step, phasewise_substep,
 )
 from dartenv_tpu_torch.model.skel_model import FLOAT_LEAVES, SkelModel
 
@@ -124,10 +124,7 @@ def make_randomized_sim_step(model: SkelModel, fields: Sequence[str],
         else:
             PLAIN_DYNAMICS_STEPS += 1
             dyn = None
-        q_new, dq_plus, lam, contacts = phasewise_substep(
-            m, layout, state, tau, dyn)
-        lam_carry = lam if state.lam is not None else None
-        return SimState(q=q_new, dq=dq_plus, time=state.time + model.dt,
-                        lam=lam_carry), contacts
+        return _advance(state, model.dt,
+                        *phasewise_substep(m, layout, state, tau, dyn))
 
     return stepper

@@ -52,10 +52,10 @@ def harness_residuals(env, device="cuda"):
     """The normalized residuals of the protocol's LCPs that carry an
     impulse, for `env` (a key of HARNESS_TORQUE) in float32 on `device`.
     Returns (residuals, final SimState)."""
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.engine.world import (
         init_state, make_lcp_capture, make_sim_step,
     )
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     task = make_task(env, dtype=torch.float32, device=device)
     model = task.model
@@ -97,38 +97,20 @@ def envelope_percentiles(x):
 
 def make_envelope_substep(model):
     """sub(q, dq, lam, tau) -> (q', dq', lam', diag): one substep of the
-    fused path as engine/hopper_substep.make_substep_phase runs it (the
-    substep kernel on a float32 CUDA batch, else its plain version; the
-    escalation; the position update through hopper_integrate.integrate,
-    the fused phase's own dispatch), with the escalation through
-    escalate_batch(with_diag=True), whose record `diag` (res_pre, idx,
-    envelope) it returns.  For a model in the fused path's scope that
-    escalates; `sub.st` is its static data."""
-    from dartenv_tpu_torch import cuda_build
-    from dartenv_tpu_torch.dynamics import hopper_integrate
-    from dartenv_tpu_torch.engine import hopper_substep as hs
+    program's fused phase (engine/hopper_substep.make_substep_phase with
+    `with_diag`), whose escalation record `diag` (res_pre, idx, envelope)
+    it returns.  ValueError for a model the program does not step through
+    the fused phase, or one that does not escalate; `sub.st` is the
+    phase's static data."""
+    from dartenv_tpu_torch.engine.hopper_substep import make_substep_phase
 
-    st = hs._SubStatic(model)
-    cfg = model.solver
-    exact1, exact2 = hs.escalation_tiers(st, cfg)
-    if not hs.in_fused_scope(model) or exact1 is None:
-        raise ValueError(f"{model.name}: not a fused-path model that "
-                         "escalates")
-    kernel = []
+    phase = make_substep_phase(model, with_diag=True)
+    if phase is None:
+        raise ValueError(f"{model.name}: not a fused-path model")
 
     def sub(q, dq, lam, tau):
-        if cuda_build.use_kernel(q):
-            if not kernel:
-                kernel.append(hs.get_substep_kernel(model, st))
-            outs = kernel[0](q, dq, tau, lam)
-        else:
-            hs.PLAIN_CALLS += 1
-            outs = hs.substep_reference(model, st, q, dq, tau, lam)
-        dq_plus, lam_full, diag = hs.escalate_batch(
-            st, cfg, outs, outs["dq_plus"], outs["lam_full"], exact1, exact2,
-            with_diag=True)
-        q_new = hopper_integrate.integrate(model, q, dq_plus, st.dt)
+        q_new, dq_plus, lam_full, _, diag = phase(q, dq, lam, tau)
         return q_new, dq_plus, lam_full, diag
 
-    sub.st = st
+    sub.st = phase.st
     return sub

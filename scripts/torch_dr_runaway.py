@@ -43,8 +43,9 @@ RUNAWAY_DQ = 1e3      # rad/s or m/s: an env beyond it has blown up
 def run(route, env, B, substeps, dev):
     """First substep at which each env ran away (-1: never), and the
     seconds the route took."""
-    from dartenv_tpu_torch.bench.throughput import DR_SPEC, make_task
+    from dartenv_tpu_torch.bench.throughput import DR_SPEC
     from dartenv_tpu_torch.engine.world import init_state, make_sim_step
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.parallel.domain_rand import (
         make_randomized_sim_step, randomize_model,
     )

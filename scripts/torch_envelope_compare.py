@@ -159,10 +159,10 @@ def run_jax(env, B, T, seed):
 def run_torch(env, B, T, seed, jax_residual=None):
     import torch
 
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.dynamics.batched import integrate_positions
     from dartenv_tpu_torch.engine import hopper_substep as hs
     from dartenv_tpu_torch.engine.world import SimState, make_lcp_capture
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
     from dartenv_tpu_torch.lcp.hybrid import comp_residual
 
@@ -217,9 +217,9 @@ def probe(env, B, seed, substep):
 
     from dartenv_tpu.lcp.dantzig import dantzig_solve
     from dartenv_tpu.lcp.pallas_bpp import bpp_solve_pallas
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.dynamics.batched import integrate_positions
     from dartenv_tpu_torch.engine import hopper_substep as hs
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
     from dartenv_tpu_torch.lcp.hybrid import comp_residual
 

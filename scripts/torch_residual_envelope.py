@@ -97,9 +97,10 @@ def agg_window(w):
 
 def main(argv=None):
     """Runs the protocol; prints and returns one JSON record."""
-    from dartenv_tpu_torch.bench.throughput import card_name, make_task
+    from dartenv_tpu_torch.bench.throughput import card_name
     from dartenv_tpu_torch.engine.hopper_substep import escalation_size
     from dartenv_tpu_torch.envs.base import with_solver
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.validation.residual import (
         envelope_percentiles, make_envelope_substep,
     )

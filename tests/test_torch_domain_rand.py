@@ -190,7 +190,7 @@ def test_layout_leaves_rejected_and_dr_step_routing():
             tdr.randomize_model(base, {leaf: 0.1}, 2, torch.Generator())
     # every other numeric leaf is taken (the frame leaves among them)
     assert callable(tdr.make_randomized_sim_step(base, ["mass", "axes"]))
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     model = make_task("walker2d", device="cpu").model
     assert ths.DR_FIELDS_SUB == _SUB and hd.DR_FIELDS_DYN == _DYN
@@ -334,7 +334,7 @@ def test_frame_leaves_route_to_plain_dynamics(fields, plain):
     (PLAIN_DYNAMICS_STEPS, never the dynamics phase), one without keeps
     the dynamics phase for its DR_FIELDS_DYN part; neither takes the
     fused route."""
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     base = make_task("walker2d", device="cpu", dtype=torch.float64).model
     assert make_dr_sim_step(base, fields) is None

@@ -14,9 +14,9 @@ import torch
 from dartenv_tpu.bench.throughput import make_task as jax_make_task
 from dartenv_tpu.engine import pallas_substep as jps
 from dartenv_tpu.envs.base import with_solver as jax_with_solver
-from dartenv_tpu_torch.bench.throughput import make_task
 from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
 from dartenv_tpu_torch.engine import hopper_substep as ths
+from dartenv_tpu_torch.envs.tasks import make_task
 from test_torch_dynamics_kernel import TOL32, _OUTS
 from torch_port_util import N, T, dr_leaves, port_dr_model, rel_err
 

@@ -190,7 +190,7 @@ def test_chain_fk_matches_full_fk_to_the_bit(name):
     """fk_positions over a body set visits only their ancestor chains and
     returns, bit for bit, the rows of the full pass; the default call
     keeps the full pass's bits (float32, the production precision)."""
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     m = make_task(name, device="cpu").model
     g = torch.Generator().manual_seed(5)

@@ -25,8 +25,8 @@ from dartenv_tpu.dynamics.pallas_dynamics import (
 )
 from dartenv_tpu.model import skel_model as jsm
 from dartenv_tpu.model.builder import ModelBuilder as JBuilder
-from dartenv_tpu_torch.bench.throughput import make_task
 from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
+from dartenv_tpu_torch.envs.tasks import make_task
 from dartenv_tpu_torch.model import skel_model as tsm
 from dartenv_tpu_torch.model.builder import ModelBuilder as TBuilder
 from torch_port_util import N, T, port_model, rel_err

@@ -7,10 +7,12 @@ import importlib.util
 import os
 
 import numpy as np
+import pytest
 import torch
 
-from dartenv_tpu_torch.bench.throughput import make_task
 from dartenv_tpu_torch.engine import hopper_substep as hs
+from dartenv_tpu_torch.envs.base import with_solver
+from dartenv_tpu_torch.envs.tasks import make_task
 from dartenv_tpu_torch.validation import residual
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,3 +80,13 @@ def test_envelope_substep_is_the_fused_phase():
         rest = torch.ones(B, dtype=torch.bool)
         rest[diag["idx"]] = False
         assert torch.equal(env[rest], pre[rest])
+
+
+def test_envelope_substep_refuses_a_model_off_the_fused_phase():
+    """walker2d in the "dantzig" mode steps phase-wise in the program, so
+    the hook that reads the fused phase's escalation refuses it."""
+    model = with_solver(make_task("walker2d", device="cpu").model,
+                        "dantzig")
+    assert hs.make_substep_phase(model) is None
+    with pytest.raises(ValueError):
+        residual.make_envelope_substep(model)

@@ -16,8 +16,8 @@ import pytest
 import torch
 
 import torch_port_util  # noqa: F401  (one PyTorch thread per test worker)
-from dartenv_tpu_torch.bench.throughput import make_task
 from dartenv_tpu_torch.engine import hopper_substep as ths
+from dartenv_tpu_torch.envs.tasks import make_task
 from dartenv_tpu_torch.lcp import hopper_bpp
 from dartenv_tpu_torch.lcp.hopper_pgs import pgs_solve_reference
 from dartenv_tpu_torch.lcp.hybrid import (

@@ -15,8 +15,8 @@ from dartenv_tpu.dynamics.algorithms import crba, fk, rnea_bias
 from dartenv_tpu.envs.base import DartEnv as JDartEnv
 from dartenv_tpu.envs.walker2d import Walker2dTask as JWalker2dTask
 from dartenv_tpu_torch.bench import scenes
-from dartenv_tpu_torch.bench.throughput import make_task
 from dartenv_tpu_torch.envs import DartEnv
+from dartenv_tpu_torch.envs.tasks import make_task
 from dartenv_tpu_torch.envs.walker2d import Walker2dTask
 
 TOL = 1e-12        # M, c, COMs: relative to max(1, |ref|)

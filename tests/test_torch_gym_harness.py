@@ -10,8 +10,8 @@ import pytest
 import torch
 
 import torch_port_util  # noqa: F401  (one PyTorch thread per test worker)
-from dartenv_tpu_torch.bench.throughput import make_task
 from dartenv_tpu_torch.engine.world import init_state, make_lcp_capture
+from dartenv_tpu_torch.envs.tasks import make_task
 from dartenv_tpu_torch.validation import residual
 from test_pgs_residuals import comp_residual
 

@@ -12,9 +12,9 @@ import torch_port_util  # noqa: F401  (one PyTorch thread per test worker)
 from dartenv_tpu.bench.throughput import make_task as jax_make_task
 from dartenv_tpu.envs.base import DartEnv as JDartEnv
 from dartenv_tpu.envs.render import Camera as JCamera
-from dartenv_tpu_torch.bench.throughput import make_task
 from dartenv_tpu_torch.envs import DartEnv, base, viewer
 from dartenv_tpu_torch.envs.render import Camera, render_frame
+from dartenv_tpu_torch.envs.tasks import make_task
 from dartenv_tpu_torch.envs.viewer import (
     TrackballController, create_viewer, frame_to_ppm,
 )

@@ -11,7 +11,7 @@ import torch
 import torch_port_util  # noqa: F401  (one PyTorch thread per test worker)
 from dartenv_tpu.bench.throughput import make_task as jax_make_task
 from dartenv_tpu.validation import trace as jtrace
-from dartenv_tpu_torch.bench.throughput import make_task
+from dartenv_tpu_torch.envs.tasks import make_task
 from dartenv_tpu_torch.validation import (
     Trace, capture_trace, compare_traces, self_consistency_report,
 )

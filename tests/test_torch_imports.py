@@ -12,7 +12,8 @@ import torch
 
 import dartenv_tpu_torch
 import torch_port_util  # noqa: F401  (one PyTorch thread per test worker)
-from dartenv_tpu_torch.bench.throughput import bench_env, make_task
+from dartenv_tpu_torch.bench.throughput import bench_env
+from dartenv_tpu_torch.envs.tasks import make_task
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "dartenv_tpu_torch")
@@ -71,6 +72,41 @@ def test_no_jax_import():
     banned = {"jax", "jaxlib", "dartenv_tpu", "flax", "optax"}
     bad = {os.path.relpath(p, ROOT): sorted(_imported_roots(p) & banned)
            for p in _port_sources() if _imported_roots(p) & banned}
+    assert not bad, bad
+
+
+def _imported_modules(path):
+    """Every module name that `path` imports, relative imports resolved
+    and `from pkg import name` counted as pkg.name."""
+    pkg = os.path.relpath(os.path.dirname(path), ROOT).split(os.sep)
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = ".".join(pkg[:len(pkg) - node.level + 1] if node.level
+                            else [])
+            mod = ".".join(p for p in (base, node.module or "") if p)
+            mods.add(mod)
+            mods |= {f"{mod}.{a.name}" for a in node.names}
+    return mods
+
+
+def test_no_library_module_imports_the_bench():
+    """The measurement tools of bench/ sit above the library: no module
+    of the port outside bench/ imports them."""
+    bench = os.path.join(PKG, "bench") + os.sep
+    bad = {}
+    for p in _port_sources():
+        if not p.startswith(PKG + os.sep) or p.startswith(bench):
+            continue
+        hits = sorted(m for m in _imported_modules(p)
+                      if m == "dartenv_tpu_torch.bench"
+                      or m.startswith("dartenv_tpu_torch.bench."))
+        if hits:
+            bad[os.path.relpath(p, ROOT)] = hits
     assert not bad, bad
 
 

@@ -49,7 +49,7 @@ TOL = 1e-6
 @functools.lru_cache(maxsize=None)
 def _model(name, device="cpu"):
     from dartenv_tpu_torch.bench import scenes
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.model.builder import ModelBuilder, box_inertia
 
     if name == "multiskel":
@@ -165,11 +165,11 @@ def _humanwalker_inputs(device, B=4, seed=3):
 
 
 def test_every_substep_goes_through_one_dispatch(monkeypatch):
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.engine.hopper_substep import make_substep_phase
     from dartenv_tpu_torch.engine.world import (
         SimState, init_state, make_sim_step,
     )
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.validation.residual import make_envelope_substep
 
     calls = []
@@ -244,7 +244,7 @@ def test_kernel_on_the_card():
     assert torch.equal(q2, st2.q) and torch.equal(dq2, st2.dq)
     assert torch.equal(lam2, st2.lam)
 
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     w2d = make_task("walker2d", device="cuda").model
     q = w2d.q_init.expand(64, -1) + 0.01

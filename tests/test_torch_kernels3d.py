@@ -27,8 +27,8 @@ import pytest
 import torch
 
 import torch_port_util  # noqa: F401  (one PyTorch thread per test worker)
-from dartenv_tpu_torch.bench.throughput import make_task
 from dartenv_tpu_torch.engine import hopper_substep as ths
+from dartenv_tpu_torch.envs.tasks import make_task
 from dartenv_tpu_torch.lcp import hopper_bpp
 from dartenv_tpu_torch.lcp.dantzig import comp_residual_ff, refine_compensated
 from dartenv_tpu_torch.lcp.hybrid import comp_residual, escalation_size

@@ -26,8 +26,8 @@ import pytest
 import torch
 
 import torch_port_util  # noqa: F401  (one PyTorch thread per test worker)
-from dartenv_tpu_torch.bench.throughput import make_task
 from dartenv_tpu_torch.engine import hopper_substep as ths
+from dartenv_tpu_torch.envs.tasks import make_task
 from torch_port_util import rel_err
 
 DISCRETE = ("con_active", "act", "sel_slots", "overflow", "lo", "hi", "mu")

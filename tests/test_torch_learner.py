@@ -112,9 +112,9 @@ def test_train_step_on_the_cpu():
     """One full train step of the port (walker2d, B = 8, horizon 3):
     finite loss and parameters, every parameter moved, and the CPU batch
     took the kernels' plain versions only (no launch counter moved)."""
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.dynamics import hopper_dynamics as hd
     from dartenv_tpu_torch.engine import hopper_substep as hs
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.lcp import hopper_bpp as hb
     from dartenv_tpu_torch.lcp import hopper_pgs as hp
 
@@ -140,7 +140,7 @@ def test_train_step_on_the_cpu():
 
 
 def test_init_fn_is_seeded():
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     task = make_task("hopper", dtype=torch.float64, device="cpu")
     init_fn, _ = PT.make_train_step(task, 4, 2)

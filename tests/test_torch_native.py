@@ -180,8 +180,8 @@ def test_dynamics_kernel_host_build_against_golden():
     the golden ABA on walker2d states: ddq = (dq_star - dq) / dt within
     1e-4 of max(1, |ddq|) (measured 1.8e-5: the float32 rounding of
     dq_star over dt)."""
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.dynamics.hopper_dynamics import get_dynamics_kernel
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     model = make_task("walker2d", dtype=torch.float32, device="cpu").model
     m64 = model.to(dtype=torch.float64)
@@ -210,12 +210,12 @@ def test_bpp_core_plain_against_golden():
     ROADMAP.md Queue 3 item 3: here one env at 1.2e-4, the rest below
     6e-7).  chip_smoke.py's phase golden holds the kernel so on the card,
     at most 4 envs of 64 above 1e-4."""
-    from dartenv_tpu_torch.bench.throughput import make_task
     from dartenv_tpu_torch.engine.constraints import (
         assemble_lcp, build_layout, compact_lam,
     )
     from dartenv_tpu_torch.collision.narrowphase import collide
     from dartenv_tpu_torch.dynamics import batched
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.lcp.hopper_bpp import bpp_solve_reference
     from dartenv_tpu_torch.parallel.vec_env import VecEnv
 

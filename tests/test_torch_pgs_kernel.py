@@ -93,7 +93,7 @@ def walker2d_lcps():
     15 control steps of the port's rollout on the CPU, about half of the
     64 envs pushed, as bench/kernel_stages.perturbed_lcps builds them."""
     from dartenv_tpu_torch.bench.kernel_stages import perturbed_lcps
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
     from dartenv_tpu_torch.parallel.vec_env import VecEnv
 
     task = make_task("walker2d", device="cpu")

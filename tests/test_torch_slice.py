@@ -15,11 +15,10 @@ from dartenv_tpu.engine.world import SimState as JSimState
 from dartenv_tpu.envs.base import EnvState as JEnvState
 from dartenv_tpu.envs.walker2d import make_walker2d_task as jax_walker2d
 from dartenv_tpu.parallel.vec_env import VecEnv as JVecEnv
-from dartenv_tpu_torch.bench.throughput import (
-    bench_env, make_task, random_policy,
-)
+from dartenv_tpu_torch.bench.throughput import bench_env, random_policy
 from dartenv_tpu_torch.engine import hopper_substep as ths
 from dartenv_tpu_torch.engine.world import make_sim_step
+from dartenv_tpu_torch.envs.tasks import make_task
 from dartenv_tpu_torch.envs.walker2d import Walker2dTask
 from dartenv_tpu_torch.model.convert import (
     env_state_from_numpy, sim_state_from_numpy,

@@ -24,12 +24,12 @@ from dartenv_tpu.envs.dog import make_dog_task as jax_dog
 from dartenv_tpu.envs.reacher2d import make_reacher2d_task as jax_reacher2d
 from dartenv_tpu.envs.snake_7link import make_snake7link_task as jax_snake
 from dartenv_tpu.model import skel_parser as jparser
-from dartenv_tpu_torch.bench.throughput import _TASKS
 from dartenv_tpu_torch.engine import hopper_substep as ths
 from dartenv_tpu_torch.engine.world import SimState
 from dartenv_tpu_torch.envs.dog import DogTask
 from dartenv_tpu_torch.envs.reacher2d import Reacher2dTask
 from dartenv_tpu_torch.envs.snake_7link import Snake7LinkTask
+from dartenv_tpu_torch.envs.tasks import _TASKS
 from dartenv_tpu_torch.model import skel_parser as tparser
 from dartenv_tpu_torch.model.convert import env_state_from_numpy
 from dartenv_tpu_torch.model.skel_model import FLOAT_LEAVES, STATIC_FIELDS

@@ -15,8 +15,8 @@ import pytest
 import torch
 
 import torch_port_util  # noqa: F401  (one PyTorch thread per test worker)
-from dartenv_tpu_torch.bench.throughput import make_task
 from dartenv_tpu_torch.envs.base import DartEnv
+from dartenv_tpu_torch.envs.tasks import make_task
 from dartenv_tpu_torch.parallel.vec_env import VecEnv
 from dartenv_tpu_torch.utils import span as span_mod
 

@@ -178,7 +178,7 @@ def test_host_build_of_kernel_arithmetic_matches_plain(name):
     max(1, |ref|_inf)."""
     import shutil
 
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     if shutil.which("g++") is None:
         pytest.skip("no host C++ compiler")
@@ -233,7 +233,7 @@ def test_host_build_is_bit_identical_to_the_recorded_outputs():
     import os
     import shutil
 
-    from dartenv_tpu_torch.bench.throughput import make_task
+    from dartenv_tpu_torch.envs.tasks import make_task
 
     if shutil.which("g++") is None:
         pytest.skip("no host C++ compiler")

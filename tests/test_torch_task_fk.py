@@ -9,10 +9,10 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import torch_port_util  # noqa: F401  (one PyTorch thread per test worker)
-from dartenv_tpu_torch.bench.throughput import make_task
 from dartenv_tpu_torch.dynamics.algorithms import (body_point_world,
                                                     fk_positions)
 from dartenv_tpu_torch.engine.world import SimState
+from dartenv_tpu_torch.envs.tasks import make_task
 from dartenv_tpu_torch.math.spatial import mv
 
 B = 16
